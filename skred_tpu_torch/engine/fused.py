@@ -1,0 +1,694 @@
+"""The fused block renderer in torch, on the tier kernel.
+
+A packed batch (``parallel/batch.py``) renders block by block, 512
+samples at a time.  Voices are laid out in tiers of the modulation DAG:
+tier k reads only tiers < k, so each block runs one tier-kernel call per
+tier (``engine/kernels/tier.py``), in order, and every voice renders once
+per block.  After the tiers the stereo mix sums the voices and the
+master-volume smoother runs as an associative scan.
+
+Layout: per-lane streams are time-major ``[N, M]`` over voice-major lanes
+(lane ``v*B + b``, as the kernel takes them), so the modulator reads,
+the kernel and the mix never transpose a block.  Per-voice parameters
+and the carry stay ``[B, V]`` as the JAX package keeps them.
+
+Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_stream_
+device) on its tier-kernel path.  Out of scope here, each raising
+NotImplementedError: tiers with noise voices, cyclic graphs, capture,
+the repeat-passes layout and several devices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from skred_tpu_torch import config as C
+from skred_tpu_torch.engine.kernels.tier import tier
+from skred_tpu_torch.engine.numerics import div32, f32
+
+F32 = torch.float32
+I32 = torch.int32
+
+_CK = ("phase", "finished", "sample", "hold_count", "hold_val",
+       "x1", "x2", "y1", "y2", "smoother", "pan_l", "pan_r")
+
+
+class Feat(NamedTuple):
+    """Static per-batch DSP feature flags: which stages exist ANYWHERE in
+    the stacked timelines (the same fields as the JAX package's Feat).
+    Stages off for a whole tier are skipped by its kernel call."""
+
+    fm: bool = True          # any freq_mod_osc >= 0
+    cz: bool = True          # any cz_mode != 0 (phase-distortion warp)
+    czm: bool = True         # any EFFECTIVE cz-mod edge (warped voice,
+                             # cz_mod_osc >= 0, nonzero depth)
+    am: bool = True          # any amp_mod_osc >= 0
+    pm: bool = True          # any pan_mod_osc >= 0
+    am_self: bool = True     # any packed am_self flag
+    pm_self: bool = True
+    env: bool = True         # any use_amp_envelope
+    flt: bool = True         # any filter_mode != 0
+    sm: bool = True          # any smoother_enable
+    hold: bool = True        # any hold_max != 0
+    quant: bool = True       # any quantize != 0
+    noise: bool = True       # any noise-alt voice
+    finish: bool = True      # any one-shot voice (finished can flip)
+    direction: bool = True   # any reversed oscillator
+    disc: bool = True        # any disconnected voice
+    hold_copy: bool = True   # any copy_hold_from op
+    cz_modes: tuple = (1, 2, 3, 4, 5, 6, 7)   # cz_mode values present
+    pm_lanes: tuple = ()     # packed lanes with pan_mod_osc >= 0
+    pm_srcs: tuple = ()      # packed lanes any pan-mod edge READS
+    ts_pow2: bool = False    # every table_size a power of two
+
+
+def compute_feat(st, lanes=None) -> Feat:
+    """Derive the static feature flags from a (packed) StackedTimelines;
+    ``lanes=(lo, hi)`` restricts to a voice-lane slice (per-tier flags)."""
+    p, o = st.params, st.ops
+    sl = slice(*lanes) if lanes is not None else slice(None)
+    arr = lambda k: np.asarray(p[k])[..., sl]
+    oarr = lambda k: np.asarray(o[k])[..., sl]
+    return Feat(
+        fm=bool((arr("freq_mod_osc") >= 0).any()),
+        cz=bool((arr("cz_mode") != 0).any()),
+        czm=bool(((arr("cz_mod_osc") >= 0)
+                  & (arr("cz_mode") != 0)
+                  & (arr("cz_mod_depth") != 0)).any()),
+        am=bool((arr("amp_mod_osc") >= 0).any()),
+        pm=bool((arr("pan_mod_osc") >= 0).any()),
+        am_self=bool("am_self" in p and (arr("am_self") != 0).any()),
+        pm_self=bool("pm_self" in p and (arr("pm_self") != 0).any()),
+        env=bool((arr("use_amp_envelope") != 0).any()),
+        flt=bool((arr("filter_mode") != 0).any()),
+        sm=bool((arr("smoother_enable") != 0).any()),
+        hold=bool((arr("hold_max") != 0).any()),
+        quant=bool((arr("quantize") != 0).any()),
+        noise=bool((arr("table_index") == C.WAVE_TABLE_NOISE_ALT).any()),
+        finish=bool((arr("one_shot") != 0).any()
+                    or (oarr("set_finished")
+                        & (oarr("finished") != 0)).any()),
+        direction=bool((arr("direction") != 0).any()),
+        disc=bool((arr("disconnect") != 0).any()),
+        hold_copy=bool((oarr("copy_hold_from") >= 0).any()),
+        cz_modes=tuple(int(v) for v in np.unique(arr("cz_mode"))
+                       if 1 <= v <= 7),
+        # lane indices stay GLOBAL packed coordinates
+        pm_lanes=tuple(int(v) + (lanes[0] if lanes is not None else 0)
+                       for v in np.nonzero(
+                           (arr("pan_mod_osc") >= 0).any(axis=(0, 1)))[0]),
+        pm_srcs=tuple(int(v) for v in np.unique(arr("pan_mod_osc"))
+                      if v >= 0),
+        ts_pow2=bool((np.bitwise_and(arr("table_size"),
+                                     arr("table_size") - 1) == 0).all()),
+    )
+
+
+def _feat_tiers(st):
+    """Per-tier static feature flags (None when not tiered / single
+    tier): tier k's pass runs only the stages its lanes use."""
+    if not st.tiers or len(st.tiers) <= 1:
+        return None
+    bounds = np.cumsum((0,) + tuple(st.tiers))
+    return tuple(compute_feat(st, (int(bounds[i]), int(bounds[i + 1])))
+                 for i in range(len(st.tiers)))
+
+
+# ---- voice-major lane layout (lane = v*B + b) ----
+
+def to_vm_vec(a: torch.Tensor) -> torch.Tensor:
+    """[B, V] → [V*B] voice-major."""
+    return a.T.reshape(-1).contiguous()
+
+
+def from_vm_vec(a: torch.Tensor, b: int, v: int) -> torch.Tensor:
+    """[V*B] voice-major → [B, V]."""
+    return a.reshape(v, b).T
+
+
+# ---- scans ----
+
+def _associative_scan(combine, elems):
+    """Inclusive scan along dim 0 with jax.lax.associative_scan's combine
+    tree (pairwise reduce, recurse on the odd elements, fill the even
+    ones), so every element rounds as it does in the JAX package."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = combine([e[0:n - 1:2] for e in elems],
+                      [e[1::2] for e in elems])
+    odd = _associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine([e[:-1] for e in odd], [e[2::2] for e in elems])
+    else:
+        even = combine(odd, [e[2::2] for e in elems])
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        r = torch.empty_like(e)
+        r[0] = e[0]
+        r[2::2] = ev
+        r[1::2] = od
+        out.append(r)
+    return out
+
+
+def _affine_scan(a, b, x0):
+    """x_t = a_t * x_{t-1} + b_t along dim 0 with initial value x0."""
+    a = a.expand_as(b)
+    b = torch.cat([(b[0] + a[0] * x0)[None], b[1:]], dim=0)
+
+    def combine(l, r):
+        return [l[0] * r[0], l[1] * r[0] + r[1]]
+
+    return _associative_scan(combine, [a, b])[1]
+
+
+# ---- per-block pieces ----
+
+def _read_vm(est_vm, prev_vm, osc, delayed, n, b):
+    """Modulator read over a block in voice-major lanes (the port of the
+    JAX package's ``_read_block`` / ``_read_blocks_multi``), with the
+    reference's serial-order rule (synth.c:526): a read of a modulator
+    with original index >= the reader's sees a one-sample delay.
+
+    est_vm: [N, W*B] the earlier tiers' samples (or None); prev_vm:
+    [W*B] their last samples of the previous block; osc/delayed: [B, V]
+    packed source index / delay flag.  A source outside [0, W) reads
+    0.0, as the JAX package's one-hot product does (its +0.0 sum also
+    turns -0.0 into +0.0).  Returns [N, V*B]."""
+    v = osc.shape[1]
+    if est_vm is None:
+        return torch.zeros((n, v * b), dtype=F32, device=osc.device)
+    w = est_vm.shape[1] // b
+    osc_vm = to_vm_vec(osc)
+    valid = (osc_vm >= 0) & (osc_vm < w)
+    lane_b = torch.arange(v * b, device=osc.device) % b
+    col = osc_vm.clamp(0, max(w - 1, 0)).long() * b + lane_b
+    src = torch.where(valid, est_vm[:, col], 0.0) + 0.0
+    last = torch.where(valid, prev_vm[col], 0.0) + 0.0
+    shifted = torch.cat([last[None], src[:-1]], dim=0)
+    return torch.where(to_vm_vec(delayed)[None] != 0, shifted, src)
+
+
+def _tier_params(p, full_inc, feat):
+    """The tier kernel's per-lane parameter vectors that depend only on
+    the block's parameters (not on the carry): built once per render
+    for a single-segment batch, else once per block."""
+    i32v = lambda a: to_vm_vec(a.to(I32))
+    f32v = lambda a: to_vm_vec(a.to(F32))
+    active0 = p["amp"] != 0.0
+    tsize_f = p["table_size"].to(F32)
+    use_loop = (p["loop_enabled"] != 0) & (p["loop_valid"] != 0)
+    lo = torch.where(use_loop, p["loop_start_f"], 0.0)
+    hi = torch.where(use_loop, p["loop_end_f"], tsize_f)
+    vecs = {
+        "base_off": i32v(p["table_off"]),
+        "clip_i": i32v(torch.clamp(p["table_size"] - 1, min=0)),
+        "act": i32v(active0),
+        "lo": f32v(lo), "hi": f32v(hi), "L": f32v(hi - lo),
+        "amp": f32v(p["amp"]),
+    }
+    if feat.finish:
+        vecs["osn"] = i32v((p["one_shot"] != 0) & (p["loop_enabled"] == 0))
+        vecs["one_shot"] = i32v(p["one_shot"])
+    if feat.cz:
+        vecs.update(cz_mode=i32v(p["cz_mode"]),
+                    cz_dist=f32v(p["cz_distortion"]), tsize=f32v(tsize_f))
+    if feat.env:
+        vecs.update(use_env=i32v(p["use_amp_envelope"]),
+                    env_active=i32v(p["env_active"]),
+                    env_start=i32v(p["env_start"]),
+                    env_rel_at=i32v(p["env_rel_at"]),
+                    att=f32v(p["env_attack"]), dec=f32v(p["env_decay"]),
+                    sus=f32v(p["env_sustain"]), rel=f32v(p["env_release"]),
+                    vel=f32v(p["env_velocity"]))
+    if feat.flt:
+        vecs.update(b0=f32v(p["b0"]), b1=f32v(p["b1"]), b2=f32v(p["b2"]),
+                    na1=f32v(p["na1"]), na2=f32v(p["na2"]),
+                    use_flt=i32v(p["filter_mode"] != 0))
+    if feat.sm:
+        vecs.update(use_sm=i32v(p["smoother_enable"]),
+                    smoothing=f32v(p["smoother_smoothing"]))
+    if feat.am_self:
+        vecs.update(am_self=i32v(p["am_self"]),
+                    am_depth=f32v(p["amp_mod_depth"]))
+    if feat.hold:
+        vecs.update(hold_on=i32v(p["hold_max"] != 0),
+                    hold_max=i32v(torch.clamp(p["hold_max"], min=1)))
+    if feat.quant:
+        q = p["quantize"].to(I32)
+        levels = (torch.bitwise_left_shift(torch.ones_like(q), q) - 1) \
+            .to(F32)
+        inv_levels = div32(1.0, torch.clamp(levels, min=1.0))
+        vecs.update(quant_on=i32v(q != 0), levels=f32v(levels),
+                    inv_levels=f32v(inv_levels))
+    if feat.fm:
+        fm = p["freq_mod_osc"]
+        mod_inc = torch.gather(full_inc, 1, fm.clamp(min=0).long())
+        vecs.update(use_fm=i32v((fm >= 0) & (p["fm_self"] == 0)),
+                    mis=f32v(mod_inc * p["freq_scale"]),
+                    pinc=f32v(p["phase_inc"]),
+                    fm_depth=f32v(p["freq_mod_depth"]))
+        if feat.direction:
+            vecs["dirneg"] = i32v(p["direction"] != 0)
+        inc_row = None
+    else:
+        # no FM in the tier: the increment is constant within the block
+        inc_row = p["phase_inc"]
+        if feat.direction:
+            inc_row = torch.where(p["direction"] != 0, -inc_row, inc_row)
+        inc_row = f32v(inc_row)
+    if feat.cz and feat.czm:
+        vecs.update(cm_ge0=i32v(p["cz_mod_osc"] >= 0),
+                    cz_depth=f32v(p["cz_mod_depth"]))
+        dm_row = None
+    elif feat.cz:
+        # no effective cz-mod edge: the taken read multiplies to +0.0
+        dm_row = f32v(torch.where(p["cz_mod_osc"] >= 0, 0.0, 1.0))
+    else:
+        dm_row = None
+    if feat.am:
+        vecs.update(am_ge0=i32v(p["amp_mod_osc"] >= 0),
+                    am_depth_a=f32v(p["amp_mod_depth"]))
+    if feat.disc:
+        contrib = (p["disconnect"] == 0) & active0
+    else:
+        contrib = active0
+    return dict(vecs=vecs, active0=active0, inc_row=inc_row, dm_row=dm_row,
+                contrib=contrib)
+
+
+def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
+                      feat, n, b):
+    """One tier over one block through the tier kernel.  Returns
+    (out_vm [N, V*B], contrib [B, V], (any_alive, il) [B, V], carry)."""
+    v_ = p["amp"].shape[1]
+    reads = {}
+    if feat.fm:
+        reads["fm"] = _read_vm(est_vm, prev_vm, p["freq_mod_osc"],
+                               p["fm_delayed"], n, b)
+    if feat.cz and feat.czm:
+        reads["cz"] = _read_vm(est_vm, prev_vm, p["cz_mod_osc"],
+                               p["cm_delayed"], n, b)
+    if feat.am:
+        reads["am"] = _read_vm(est_vm, prev_vm, p["amp_mod_osc"],
+                               p["am_delayed"], n, b)
+    fin_prev = carry["finished"] != 0
+    vecs = dict(tp["vecs"])
+    vecs["adv"] = to_vm_vec((tp["active0"] & ~fin_prev).to(I32))
+    f32v = lambda a: to_vm_vec(a.to(F32))
+    i32v = lambda a: to_vm_vec(a.to(I32))
+    states = {"phase": f32v(carry["phase"])}
+    if feat.finish:
+        states["finished"] = i32v(carry["finished"])
+    if feat.flt:
+        states.update({k: f32v(carry[k]) for k in ("x1", "x2", "y1", "y2")})
+    if feat.sm:
+        states["smoother"] = f32v(carry["smoother"])
+    if feat.hold:
+        states["hold_count"] = i32v(carry["hold_count"])
+        states["hold_val"] = f32v(carry["hold_val"])
+    kfeat = (feat.fm, feat.cz, feat.czm, feat.env, feat.flt, feat.sm,
+             feat.hold, feat.quant, feat.am, feat.am_self, feat.finish,
+             feat.direction, tuple(feat.cz_modes), feat.ts_pow2)
+    out, res = tier(table, cbase,
+                    reads["fm"] if feat.fm else tp["inc_row"],
+                    reads.get("cz", tp["dm_row"]), reads.get("am"),
+                    vecs, states, feat=kfeat, exact=exact, n=n)
+    back = lambda a: from_vm_vec(a, b, v_)
+    cnt = back(res["cnt"])
+    new_carry = dict(
+        phase=back(res["phase"]),
+        finished=back(res["finished"]) if feat.finish
+        else carry["finished"],
+        sample=back(out[n - 1]),
+        hold_count=back(res["hold_count"]) if feat.hold
+        else carry["hold_count"],
+        hold_val=back(res["hold_val"]) if feat.hold else carry["hold_val"],
+        x1=back(res["x1"]) if feat.flt else carry["x1"],
+        x2=back(res["x2"]) if feat.flt else carry["x2"],
+        y1=back(res["y1"]) if feat.flt else carry["y1"],
+        y2=back(res["y2"]) if feat.flt else carry["y2"],
+        smoother=back(res["smoother"]) if feat.sm else carry["smoother"],
+        pan_l=carry["pan_l"], pan_r=carry["pan_r"],
+    )
+    il = torch.clamp(cnt - 1, 0, n - 1)
+    return out, tp["contrib"], (cnt >= 1, il), new_carry
+
+
+def _mix_parts(carry, p, parts, feat, n, b):
+    """Stereo mix of the tiers' kernel outputs ([N, B] each channel).
+
+    parts: list of (out_vm, contrib [B, V_t], any_alive, il, (ts, te)).
+    Static-pan lanes sum out·pan over voices; pan-modulated lanes
+    (feat.pm_lanes) take a per-sample pan from their modulator (or
+    their own sample), and their pan carry freezes at the last alive
+    sample.  Returns (mix_l, mix_r, pan update or None)."""
+    pms_lanes = tuple(feat.pm_lanes) if feat.pm else ()
+    srcs = tuple(feat.pm_srcs)
+    mix_l = mix_r = None
+    pm_s, pm_c, pm_aa, pm_il, src_s = [], [], [], [], []
+    for out_vm, contrib_t, aa_t, il_t, (ts, te) in parts:
+        o3 = out_vm.view(n, te - ts, b)
+        wl = torch.where(contrib_t, carry["pan_l"][:, ts:te], 0.0)
+        wr = torch.where(contrib_t, carry["pan_r"][:, ts:te], 0.0)
+        loc = [v - ts for v in pms_lanes if ts <= v < te]
+        if loc:
+            pm_s.append(o3[:, loc])
+            pm_c.append(contrib_t[:, loc])
+            pm_aa.append(aa_t[:, loc])
+            pm_il.append(il_t[:, loc])
+            stat = torch.ones(te - ts, dtype=torch.bool, device=wl.device)
+            stat[loc] = False
+            wl = torch.where(stat, wl, 0.0)
+            wr = torch.where(stat, wr, 0.0)
+        sloc = [v - ts for v in srcs if ts <= v < te]
+        if sloc:
+            src_s.append(o3[:, sloc])
+        l_t = (o3 * wl.T[None]).sum(dim=1)
+        r_t = (o3 * wr.T[None]).sum(dim=1)
+        mix_l = l_t if mix_l is None else mix_l + l_t
+        mix_r = r_t if mix_r is None else mix_r + r_t
+    if not pms_lanes:
+        return mix_l, mix_r, None
+    pms = torch.cat(pm_s, dim=1)                     # [N, P, B]
+    cpm = torch.cat(pm_c, dim=1).T                   # [P, B]
+    aa = torch.cat(pm_aa, dim=1)                     # [B, P]
+    il = torch.cat(pm_il, dim=1)
+    lanes = list(pms_lanes)
+    pm_osc = p["pan_mod_osc"][:, lanes]              # [B, P]
+    if srcs:
+        est = torch.cat(src_s, dim=1)                # [N, S, B]
+        sidx = torch.tensor(srcs, dtype=pm_osc.dtype, device=pm_osc.device)
+        hit = pm_osc[..., None] == sidx              # [B, P, S]
+        valid = hit.any(-1)
+        j = hit.to(I32).argmax(-1).long()            # [B, P]
+        bb = torch.arange(b, device=j.device)[:, None]
+        src = est[:, j, bb]                          # [N, B, P]
+        src = torch.where(valid, src, 0.0).permute(0, 2, 1) + 0.0
+        last = carry["sample"][:, list(srcs)][bb, j]  # [B, P]
+        last = torch.where(valid, last, 0.0).T + 0.0
+        shifted = torch.cat([last[None], src[:-1]], dim=0)
+        pm_read = torch.where(p["pm_delayed"][:, lanes].T[None] != 0,
+                              shifted, src)
+    else:
+        pm_read = torch.zeros_like(pms)
+    if feat.pm_self:
+        pm_read = torch.where(p["pm_self"][:, lanes].T[None] != 0, pms,
+                              pm_read)
+    qv = pm_read * p["pan_mod_depth"][:, lanes].T[None]
+    pan_on = (pm_osc >= 0) & (p["disconnect"][:, lanes] == 0)   # [B, P]
+    pl = torch.where(pan_on.T[None], (1.0 - qv) * 0.5,
+                     carry["pan_l"][:, lanes].T[None])
+    pr = torch.where(pan_on.T[None], (1.0 + qv) * 0.5,
+                     carry["pan_r"][:, lanes].T[None])
+    mix_l = mix_l + torch.where(cpm[None], pms * pl, 0.0).sum(dim=1)
+    mix_r = mix_r + torch.where(cpm[None], pms * pr, 0.0).sum(dim=1)
+    # pan carry freezes at the last alive sample
+    il_t = il.T.long()[None]                          # [1, P, B]
+    act_pan = pan_on & aa
+    new_pl = torch.where(act_pan, pl.gather(0, il_t)[0].T + 0.0,
+                         carry["pan_l"][:, lanes])
+    new_pr = torch.where(act_pan, pr.gather(0, il_t)[0].T + 0.0,
+                         carry["pan_r"][:, lanes])
+    return mix_l, mix_r, (lanes, new_pl, new_pr)
+
+
+def _apply_ops_b(carry, ops, flag, feat=Feat()):
+    """Segment-start ops (set phase/finished/sample/smoother/pan, clear
+    filter, copy hold) on the rows where ``flag`` [B, 1] is set."""
+    c = dict(carry)
+    on = lambda k: flag & (ops[k] != 0)
+    c["phase"] = torch.where(on("set_phase"), ops["phase"], carry["phase"])
+    c["finished"] = torch.where(on("set_finished"), ops["finished"],
+                                carry["finished"])
+    c["sample"] = torch.where(on("set_sample"), ops["sample"],
+                              carry["sample"])
+    for k in ("x1", "x2", "y1", "y2"):
+        c[k] = torch.where(on("clear_filter"), 0.0, carry[k])
+    c["smoother"] = torch.where(on("set_smoother"), ops["smoother"],
+                                carry["smoother"])
+    c["pan_l"] = torch.where(on("set_pan"), ops["pan_left"], carry["pan_l"])
+    c["pan_r"] = torch.where(on("set_pan"), ops["pan_right"],
+                             carry["pan_r"])
+    if not feat.hold_copy:
+        return c
+    src = ops["copy_hold_from"].clamp(min=0).long()
+    do = flag & (ops["copy_hold_from"] >= 0)
+    c["hold_count"] = torch.where(do, torch.gather(carry["hold_count"], 1,
+                                                   src), c["hold_count"])
+    c["hold_val"] = torch.where(do, torch.gather(carry["hold_val"], 1, src),
+                                c["hold_val"])
+    return c
+
+
+def make_carry0(B, Vp, device="cuda"):
+    z = lambda dt: torch.zeros((B, Vp), dtype=dt, device=device)
+    return dict(
+        phase=z(F32), finished=z(I32), sample=z(F32), hold_count=z(I32),
+        hold_val=z(F32), x1=z(F32), x2=z(F32), y1=z(F32), y2=z(F32),
+        smoother=z(F32), pan_l=z(F32), pan_r=z(F32),
+        vol_gain=torch.zeros((B,), dtype=F32, device=device))
+
+
+def _pack_by_dtype(arrs: dict, Vp: int):
+    """Group [B, S, Vp] tensors by dtype and stack each group into one
+    [B, S, P, Vp] tensor, so the per-block segment gather is a few big
+    gathers instead of one per parameter."""
+    groups = {}
+    rest = []
+    for k in sorted(arrs):
+        v = arrs[k]
+        if v.ndim == 3 and v.shape[2] == Vp:
+            groups.setdefault(v.dtype, []).append(k)
+        else:
+            rest.append(k)
+    stacked = {dt: torch.stack([arrs[k] for k in keys], dim=2)
+               for dt, keys in groups.items()}
+    return groups, stacked, rest
+
+
+# ---- the block loop ----
+
+@dataclasses.dataclass
+class _Render:
+    """A packed batch on the device, ready for the block loop."""
+    params: dict
+    ops: dict
+    seg_of_block: torch.Tensor
+    seg_is_start: torch.Tensor
+    table: torch.Tensor
+    B: int
+    Vp: int
+    block: int
+    tiers: tuple
+    feat: Feat
+    feat_tiers: tuple
+    exact: bool
+    single_seg: bool
+    mod_passes: int = 1
+    p_const: Optional[dict] = None
+    o_const: Optional[dict] = None
+    groups: Optional[tuple] = None
+    tier_params: Optional[list] = None
+
+
+def _tier_slice(p, ts, te, Vp):
+    """The [B, Vp] per-voice entries of ``p`` cut to lanes [ts, te)."""
+    return {k: (v[:, ts:te] if v.ndim == 2 and v.shape[1] == Vp else v)
+            for k, v in p.items()}
+
+
+def _gather_seg(groups, arrs, seg, B):
+    p_groups, p_stacked, p_rest = groups
+    ar = torch.arange(B, device=seg.device)
+    out = {}
+    for dt, keys in p_groups.items():
+        blk = p_stacked[dt][ar, seg]               # [B, P, Vp]
+        for i, k in enumerate(keys):
+            out[k] = blk[:, i]
+    for k in p_rest:
+        out[k] = arrs[k][ar, seg]
+    return out
+
+
+def _block_step(r: _Render, carry, k_glob):
+    """One 512-sample block: every tier through the tier kernel, then
+    the mix and the volume smoother.  Returns (carry, out [N, B, 2])."""
+    B, n = r.B, r.block
+    if r.single_seg:
+        p, o = r.p_const, r.o_const
+    else:
+        seg = r.seg_of_block[:, k_glob]
+        p = _gather_seg(r.groups[0], r.params, seg, B)
+        o = _gather_seg(r.groups[1], r.ops, seg, B)
+    carry = _apply_ops_b(carry, o, r.seg_is_start[:, k_glob][:, None],
+                         r.feat)
+    cbase = k_glob * n + 1               # 1-based global sample count
+    feat = r.feat
+    any_mod = feat.fm or (feat.cz and feat.czm) or feat.am
+    bounds = np.cumsum((0,) + tuple(r.tiers))
+    prev_vm = to_vm_vec(carry["sample"])
+    full_inc = p["phase_inc"]
+    parts, nc_parts = [], []
+    done = None                          # [N, W*B] earlier tiers' samples
+    for ti in range(len(r.tiers)):
+        ts, te = int(bounds[ti]), int(bounds[ti + 1])
+        p_t = _tier_slice(p, ts, te, r.Vp)
+        c_t = _tier_slice(carry, ts, te, r.Vp)
+        ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
+        if r.single_seg:
+            tp = r.tier_params[ti]
+        else:
+            tp = _tier_params(p_t, full_inc, ft)
+        if len(r.tiers) == 1:
+            # one tier: the fixed-point passes read the estimate, which
+            # starts as the previous block's last samples
+            est = prev_vm[None].expand(n, -1) if any_mod else None
+            prev = prev_vm
+            for _ in range(r.mod_passes - 1):
+                est, _, _, _ = _voice_block_pass(
+                    est, prev, c_t, p_t, tp, cbase, r.table, r.exact,
+                    ft, n, B)
+        else:
+            est, prev = done, prev_vm[:ts * B]
+        out_t, contrib_t, (aa_t, il_t), nc_t = _voice_block_pass(
+            est, prev, c_t, p_t, tp, cbase, r.table, r.exact, ft, n, B)
+        if any_mod and ti + 1 < len(r.tiers):
+            done = out_t if done is None else torch.cat([done, out_t], 1)
+        nc_parts.append(nc_t)
+        parts.append((out_t, contrib_t, aa_t, il_t, (ts, te)))
+    new_carry = {kk: torch.cat([nc[kk] for nc in nc_parts], dim=1)
+                 for kk in _CK}
+    mix_l, mix_r, pan_upd = _mix_parts(carry, p, parts, feat, n, B)
+    if pan_upd is not None:
+        lanes, new_pl, new_pr = pan_upd
+        new_carry["pan_l"][:, lanes] = new_pl
+        new_carry["pan_r"][:, lanes] = new_pr
+    vf = p["volume_final"]                          # [B]
+    a = f32(np.float32(1.0) - np.float32(0.002))
+    vg = _affine_scan(torch.full_like(vf, a)[None],
+                      (f32(0.002) * vf)[None].expand(n, B),
+                      carry["vol_gain"])            # [N, B]
+    new_carry["vol_gain"] = vg[-1]
+    return new_carry, torch.stack([mix_l * vg, mix_r * vg], dim=-1)
+
+
+def from_stacked(st, device="cuda") -> dict:
+    """A packed StackedTimelines (this package's or the JAX package's:
+    the fields are the same numpy arrays) as the port's tensors:
+    params and ops [B, S, V] on ``device``, seg_of_block / seg_is_start
+    as numpy [B, NB], the flat table buffer, and the zero carry."""
+    from skred_tpu_torch.parallel.batch import _prep_params
+
+    params = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+              for k, v in _prep_params(st).items()}
+    ops = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+           for k, v in st.ops.items()}
+    return dict(params=params, ops=ops,
+                seg_of_block=np.asarray(st.seg_of_block),
+                seg_is_start=np.asarray(st.seg_is_start),
+                table_buffer=torch.as_tensor(
+                    np.asarray(st.table_buffer, np.float32), device=device),
+                carry=make_carry0(st.batch, params["amp"].shape[-1],
+                                  device))
+
+
+def _prepare(st, exact, device, capture=False):
+    from skred_tpu_torch.parallel.batch import pack_stacked
+
+    if st.fused_passes is None:
+        raise NotImplementedError(
+            "cyclic modulation graph (1-sample feedback): the cyclic "
+            "engine is ROADMAP item 7 of the port")
+    if capture:
+        raise NotImplementedError("capture=True: per-voice streams are "
+                                  "not ported yet (ROADMAP item 8)")
+    if "fm_delayed" not in st.params:
+        st = pack_stacked(st)
+    if not st.tiers:
+        raise NotImplementedError(
+            "repeat-passes layout (cyclic union graph): ROADMAP item 7")
+    feat = compute_feat(st)
+    if feat.noise:
+        raise NotImplementedError(
+            "noise-voice tiers (the 3-kernel path): ROADMAP item 6")
+    if exact is None:
+        exact = True
+    # the kernel reads table_off + [0, table_size) unchecked: hold every
+    # lane's table inside the buffer here, on the host
+    end = (np.asarray(st.params["table_off"], np.int64)
+           + np.maximum(np.asarray(st.params["table_size"], np.int64), 1))
+    if end.size and int(end.max()) > np.asarray(st.table_buffer).size:
+        raise ValueError("a lane's table runs past the table buffer")
+    d = from_stacked(st, device)
+    params, ops = d["params"], d["ops"]
+    Vp = params["amp"].shape[-1]
+    single_seg = all(v.shape[1] == 1 for v in params.values()) \
+        and all(v.shape[1] == 1 for v in ops.values())
+    r = _Render(params=params, ops=ops,
+                seg_of_block=torch.as_tensor(d["seg_of_block"],
+                                             device=device).long(),
+                seg_is_start=torch.as_tensor(d["seg_is_start"],
+                                             device=device),
+                table=d["table_buffer"], B=st.batch, Vp=Vp, block=st.block,
+                tiers=tuple(st.tiers), feat=feat,
+                feat_tiers=_feat_tiers(st), exact=bool(exact),
+                single_seg=single_seg, mod_passes=st.fused_passes)
+    if single_seg:
+        r.p_const = {k: v[:, 0] for k, v in params.items()}
+        r.o_const = {k: v[:, 0] for k, v in ops.items()}
+        bounds = np.cumsum((0,) + r.tiers)
+        r.tier_params = []
+        for ti in range(len(r.tiers)):
+            ts, te = int(bounds[ti]), int(bounds[ti + 1])
+            p_t = _tier_slice(r.p_const, ts, te, Vp)
+            ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
+            r.tier_params.append(_tier_params(p_t, r.p_const["phase_inc"],
+                                              ft))
+    else:
+        r.groups = (_pack_by_dtype(params, Vp), _pack_by_dtype(ops, Vp))
+    return st, r, d["carry"]
+
+
+def _render_chunk(r: _Render, carry, block0, nb):
+    outs = []
+    for k in range(nb):
+        carry, o = _block_step(r, carry, block0 + k)
+        outs.append(o)
+    return carry, torch.stack(outs)               # [nb, N, B, 2]
+
+
+def render_fused(st, exact: Optional[bool] = None, capture: bool = False,
+                 device="cuda") -> np.ndarray:
+    """Render a StackedTimelines batch with the fused engine → numpy
+    [B, T, 2].  Runs on the card unless ``device="cpu"``."""
+    st, r, carry = _prepare(st, exact, device, capture)
+    with torch.no_grad():
+        carry, outs = _render_chunk(r, carry, 0, st.num_blocks)
+    return outs.permute(2, 0, 1, 3).reshape(
+        st.batch, st.num_blocks * st.block, 2).cpu().numpy()
+
+
+def render_fused_stream_device(st, chunk_blocks: int = 173,
+                               exact: Optional[bool] = None,
+                               warmup_only: bool = False,
+                               device="cuda") -> float:
+    """Streamed render that keeps the carry and the audio on the device,
+    chunk by chunk (only whole chunks render, as in the JAX package);
+    returns a checksum, the |out| sum of the final chunk in f64."""
+    st, r, carry = _prepare(st, exact, device)
+    whole = (st.num_blocks // chunk_blocks) * chunk_blocks
+    outs = None
+    with torch.no_grad():
+        for b0 in range(0, whole, chunk_blocks):
+            carry, outs = _render_chunk(r, carry, b0, chunk_blocks)
+            if warmup_only:
+                break
+    if outs is None:
+        return 0.0
+    return float(outs.abs().sum(dtype=torch.float64))

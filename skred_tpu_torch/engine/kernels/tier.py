@@ -1,0 +1,418 @@
+"""The tier kernel: one block of one tier's per-voice DSP chain.
+
+``tier`` is the port of ``skred_tpu.engine.kernels.tier_pallas`` without
+its in-kernel mix and modulator-bank fold (the caller does those two
+steps in torch).  Per lane and per sample it runs:
+
+  0. the FM increment from the raw modulator-read stream;
+  1. the serial phase walk (osc_next, synth.c:217-258) and alive count;
+  2. the CZ warp (synth.c:149-215) and the index clip;
+  3. the table lookup at global flat indices into the packed buffer;
+  3.5 the gain amp·envelope·amp-mod;
+  4. the serial sample&hold, quantizer, biquad and amp smoother
+     (synth.c:560-592), with exact fmas at gcc's contracted sites.
+
+Layout: time-major ``[N, M]`` streams over voice-major lanes (lane
+``v*B + b``), per-lane ``[M]`` parameters and states, as the JAX kernel
+takes them.  A CPU tensor runs ``tier_plain``, the same arithmetic in
+torch ops; a CUDA tensor launches ``csrc/tier.cu`` or raises.
+
+``feat`` is the JAX kernel's 14-tuple (fm, cz, czm, env, flt, sm, hold,
+quant, am, am_self, finish, direction, cz_modes, ts_pow2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from skred_tpu_torch.engine.numerics import (cz_scales, cz_warp_coeffs,
+                                             cz_warp_fast, cz_warp_k, f32,
+                                             kdiv, kdiv_inv, kfma)
+
+F32 = torch.float32
+I32 = torch.int32
+
+# per-lane vectors by feature: (key, dtype)
+_VEC_BASE = [("base_off", I32), ("clip_i", I32), ("adv", I32), ("act", I32),
+             ("lo", F32), ("hi", F32), ("L", F32), ("amp", F32)]
+_VEC_FEAT = {
+    "fm": [("use_fm", I32), ("mis", F32), ("pinc", F32), ("fm_depth", F32)],
+    "direction": [("dirneg", I32)],
+    "czm": [("cm_ge0", I32), ("cz_depth", F32)],
+    "am": [("am_ge0", I32), ("am_depth_a", F32)],
+    "finish": [("osn", I32), ("one_shot", I32)],
+    "cz": [("cz_mode", I32), ("cz_dist", F32), ("tsize", F32)],
+    "env": [("use_env", I32), ("env_active", I32), ("env_start", I32),
+            ("env_rel_at", I32), ("att", F32), ("dec", F32), ("sus", F32),
+            ("rel", F32), ("vel", F32)],
+    "flt": [("b0", F32), ("b1", F32), ("b2", F32), ("na1", F32),
+            ("na2", F32), ("use_flt", I32)],
+    "sm": [("use_sm", I32), ("smoothing", F32)],
+    "am_self": [("am_self", I32), ("am_depth", F32)],
+    "hold": [("hold_on", I32), ("hold_max", I32)],
+    "quant": [("quant_on", I32), ("levels", F32), ("inv_levels", F32)],
+}
+_STATE_FEAT = {
+    "finish": [("finished", I32)],
+    "flt": [("x1", F32), ("x2", F32), ("y1", F32), ("y2", F32)],
+    "sm": [("smoother", F32)],
+    "hold": [("hold_count", I32), ("hold_val", F32)],
+}
+_FEAT_NAMES = ("fm", "cz", "czm", "env", "flt", "sm", "hold", "quant", "am",
+               "am_self", "finish", "direction")
+
+
+def _flags(feat):
+    fl = dict(zip(_FEAT_NAMES, (bool(x) for x in feat[:12])))
+    fl["czm"] = fl["czm"] and fl["cz"]
+    fl["cz_modes"] = tuple(int(k) for k in feat[12])
+    fl["ts_pow2"] = bool(feat[13])
+    return fl
+
+
+def _vec_keys(fl):
+    keys = list(_VEC_BASE)
+    for name in ("fm", "czm", "am", "finish", "cz", "env", "flt", "sm",
+                 "am_self", "hold", "quant"):
+        if fl[name]:
+            keys += _VEC_FEAT[name]
+    if fl["fm"] and fl["direction"]:
+        keys += _VEC_FEAT["direction"]
+    return keys
+
+
+def _state_keys(fl):
+    keys = [("phase", F32)]
+    for name in ("finish", "flt", "sm", "hold"):
+        if fl[name]:
+            keys += _STATE_FEAT[name]
+    return keys
+
+
+def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
+               exact=True, n):
+    """The tier kernel's arithmetic in torch ops on any device: the
+    vector phases run over the whole ``[N, M]`` block, the two serial
+    recurrences (phases 1 and 4) as a loop over samples.  Returns
+    ``(out [N, M], end-state dict of [M] vectors incl. cnt)``."""
+    fl = _flags(feat)
+    fm, cz, czm = fl["fm"], fl["cz"], fl["czm"]
+    env_a, flt, sm, hold, quant = (fl[k] for k in ("env", "flt", "sm",
+                                                    "hold", "quant"))
+    am_a, am_self_f, finish, dirn = (fl[k] for k in ("am", "am_self",
+                                                      "finish", "direction"))
+    modes = fl["cz_modes"]
+    fma = kfma if exact else (lambda a, b, c: a * b + c)
+    v = vecs
+    dev = v["amp"].device
+    m = v["amp"].shape[0]
+
+    # ---- phase 0: FM increment (vector over the block) ----
+    if fm:
+        g3 = inc * v["fm_depth"]
+        inc3 = torch.where(v["use_fm"] != 0, fma(v["mis"], g3, v["pinc"]),
+                           v["pinc"])
+        if dirn:
+            inc3 = torch.where(v["dirneg"] != 0, -inc3, inc3)
+
+    # ---- phase 1: serial phase walk + alive count ----
+    lo, hi, L = v["lo"], v["hi"], v["L"]
+    adv = v["adv"] != 0
+    act = v["act"] != 0
+    if finish:
+        osn = v["osn"] != 0
+        one_shot = v["one_shot"] != 0
+        fin_c = states["finished"]
+    ph_c = states["phase"]
+    cnt = torch.zeros(m, dtype=I32, device=dev)
+    ph_s = torch.empty((n, m), dtype=F32, device=dev)
+    hi_os = hi - f32(1e-6)
+    for t in range(n):
+        ph = ph_c + (inc3[t] if fm else inc)
+        bad = ~torch.isfinite(ph)
+        over = ph >= hi
+        under = ph < lo
+        r = torch.fmod(ph - lo, L)
+        wrap_over = lo + r
+        wrap_under = hi + r
+        if finish:
+            ph2 = torch.where(
+                over, torch.where(osn, hi_os, wrap_over),
+                torch.where(under, torch.where(osn, lo, wrap_under), ph))
+        else:
+            ph2 = torch.where(over, wrap_over,
+                              torch.where(under, wrap_under, ph))
+        ph2 = torch.where(bad, 0.0, ph2)
+        ph_s[t] = ph2
+        if finish:
+            fin_new = (bad & one_shot) | ((over | under) & osn)
+            fin_b = fin_c != 0
+            step_on = adv & ~fin_b
+            alive_t = act & ~fin_b
+            ph_c = torch.where(step_on, ph2, ph_c)
+            fin_c = torch.where(step_on & fin_new, 1, fin_c).to(I32)
+            cnt = cnt + alive_t.to(I32)
+        else:
+            ph_c = torch.where(adv, ph2, ph_c)
+    if not finish:
+        cnt = torch.where(act, n, 0).to(I32)
+    tpos = torch.arange(n, dtype=I32, device=dev)[:, None]
+    alive = tpos < cnt[None]
+
+    # ---- phase 2: CZ warp + index clip + dead masking ----
+    if cz:
+        mode, dist, tsz = v["cz_mode"], v["cz_dist"], v["tsize"]
+        if exact:
+            inv_ts = kdiv(1.0, tsz)
+        if exact and fl["ts_pow2"]:
+            phase3 = ph_s * inv_ts
+        elif exact:
+            phase3 = kdiv_inv(ph_s, inv_ts, tsz)
+        else:
+            phase3 = ph_s / tsz
+        if czm:
+            dm3 = torch.where(v["cm_ge0"] != 0, dm * v["cz_depth"], 1.0)
+            warped = cz_warp_k(mode, ph_s, dist + dm3, tsz, exact, None,
+                               phase3, modes)
+        else:
+            scales = cz_scales(dist + dm, exact, modes)
+            coeffs = cz_warp_coeffs(mode, scales, modes)
+            warped = cz_warp_fast(coeffs, mode, phase3, tsz, exact, modes)
+        idx_f = torch.where(mode != 0, warped, ph_s)
+    else:
+        idx_f = ph_s
+    idx = torch.minimum(torch.clamp(idx_f.to(I32), min=0), v["clip_i"])
+    idx = torch.where(alive, idx, 0)
+
+    # ---- phase 3: table lookup at global flat indices ----
+    f_s = table[(v["base_off"] + idx).long()]
+
+    # ---- phase 3.5: gain amp·env(·amod) ----
+    amp = v["amp"]
+    hoist_am = am_a and not am_self_f
+    hoist_gain = env_a or hoist_am
+    if hoist_gain:
+        if env_a:
+            tf = (cbase + tpos - v["env_start"]).to(F32)
+            trf = (cbase + tpos - v["env_rel_at"]).to(F32)
+            att, dec, sus, rel = v["att"], v["dec"], v["sus"], v["rel"]
+            env = torch.where(
+                tf < att, tf / att,
+                torch.where(
+                    tf < att + dec,
+                    kfma(-((tf - att) / dec), 1.0 - sus, 1.0),
+                    torch.where(v["env_rel_at"] == 0, sus,
+                                torch.where(trf < rel,
+                                            sus * (1.0 - trf / rel), 0.0))))
+            env = torch.where(v["env_active"] != 0, env, 0.0)
+            env_t = torch.where(v["use_env"] != 0, env * v["vel"], 1.0)
+            gain = amp * env_t
+        else:
+            gain = amp.expand(n, m)
+        if hoist_am:
+            gain = gain * torch.where(v["am_ge0"] != 0,
+                                      amod * v["am_depth_a"], 1.0)
+
+    # ---- phase 4: serial S&H + quant + biquad + smoother ----
+    if flt:
+        b0, b1, b2, na1, na2 = (v[k] for k in ("b0", "b1", "b2", "na1",
+                                               "na2"))
+        use_flt = v["use_flt"] != 0
+        x1, x2, y1, y2 = (states[k] for k in ("x1", "x2", "y1", "y2"))
+    if sm:
+        use_sm = v["use_sm"] != 0
+        smoothing = v["smoothing"]
+        sg = states["smoother"]
+    if am_self_f:
+        am_self = v["am_self"] != 0
+        am_depth = v["am_depth"]
+    if hold:
+        hold_on = v["hold_on"] != 0
+        hmax = v["hold_max"]
+        hc, hv = states["hold_count"], states["hold_val"]
+    if quant:
+        quant_on = v["quant_on"] != 0
+        levels, inv_lev = v["levels"], v["inv_levels"]
+    out = torch.empty((n, m), dtype=F32, device=dev)
+    for t in range(n):
+        alive_t = alive[t]
+        f_t = torch.where(alive_t, f_s[t], 0.0)
+        if hold:
+            hv2 = torch.where(hold_on & (hc == 0), f_t, hv)
+            s1 = torch.where(hold_on, hv2, f_t)
+            hcn = hc + 1
+            hcn = torch.where(hcn >= hmax, 0, hcn)
+            hv = torch.where(alive_t, hv2, hv)
+            hc = torch.where(alive_t & hold_on, hcn, hc).to(I32)
+        else:
+            s1 = f_t
+        if quant:
+            iv = kfma(s1, levels, 0.5).to(I32).to(F32)
+            x_t = torch.where(quant_on, iv * inv_lev, s1)
+        else:
+            x_t = s1
+        if flt:
+            fv = b1 * x1
+            fv = fma(b0, x_t, fv)
+            fv = fma(b2, x2, fv)
+            fv = fma(na1, y1, fv)
+            fv = fma(na2, y2, fv)
+            s3 = torch.where(use_flt, fv, x_t)
+            upd = alive_t & use_flt
+            x1, x2, y1, y2 = (torch.where(upd, x_t, x1),
+                              torch.where(upd, x1, x2),
+                              torch.where(upd, fv, y1),
+                              torch.where(upd, y1, y2))
+        else:
+            s3 = x_t
+        base_gain = gain[t] if hoist_gain else amp
+        if am_self_f:
+            if am_a:
+                amod_t = torch.where(v["am_ge0"] != 0,
+                                     amod[t] * v["am_depth_a"], 1.0)
+            else:
+                amod_t = 1.0
+            amod_t = torch.where(am_self, s3 * am_depth, amod_t)
+            final_t = base_gain * amod_t
+        else:
+            final_t = base_gain
+        if sm:
+            sg2 = fma(smoothing, final_t - sg, sg)
+            final2 = torch.where(use_sm, sg2, final_t)
+            sg = torch.where(alive_t & use_sm, sg2, sg)
+        else:
+            final2 = final_t
+        out[t] = torch.where(alive_t, s3 * final2, 0.0)
+
+    res = {"phase": ph_c, "cnt": cnt}
+    if finish:
+        res["finished"] = fin_c
+    if flt:
+        res.update(x1=x1, x2=x2, y1=y1, y2=y2)
+    if sm:
+        res["smoother"] = sg
+    if hold:
+        res.update(hold_count=hc, hold_val=hv)
+    return out, res
+
+
+# ---- the CUDA launch: one C struct mirrors csrc/tier.cu's TierArgs ----
+
+_INT_FIELDS = (("n", "m", "cbase", "exact")
+               + tuple("has_" + k for k in _FEAT_NAMES)
+               + ("cz_mask", "ts_pow2"))
+_PTR_FIELDS = (
+    "table", "inc", "dm", "amod",
+    "use_fm", "mis", "pinc", "fm_depth", "dirneg",
+    "cm_ge0", "cz_depth", "am_ge0", "am_depth_a",
+    "base_off", "clip_i", "adv", "act", "lo", "hi", "L", "amp",
+    "osn", "one_shot", "cz_mode", "cz_dist", "tsize",
+    "use_env", "env_active", "env_start", "env_rel_at",
+    "att", "dec", "sus", "rel", "vel",
+    "b0", "b1", "b2", "na1", "na2", "use_flt", "use_sm", "smoothing",
+    "am_self", "am_depth", "hold_on", "hold_max",
+    "quant_on", "levels", "inv_levels",
+    "phase_0", "finished_0", "x1_0", "x2_0", "y1_0", "y2_0", "smoother_0",
+    "hold_count_0", "hold_val_0",
+    "out", "cnt_e", "phase_e", "finished_e", "x1_e", "x2_e", "y1_e",
+    "y2_e", "smoother_e", "hold_count_e", "hold_val_e")
+
+
+class TierArgs(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_int) for k in _INT_FIELDS]
+                + [(k, ctypes.c_void_p) for k in _PTR_FIELDS])
+
+
+def _check(name, x, dev, dtype, shape):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"tier: {name} must be a tensor")
+    if x.device != dev:
+        raise ValueError(f"tier: {name} on {x.device}, table on {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"tier: {name} is {x.dtype}, needs {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"tier: {name} has shape {tuple(x.shape)}, "
+                         f"needs {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"tier: {name} is not contiguous")
+    return x.data_ptr()
+
+
+def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n):
+    """Check the CUDA tensors and fill the kernel's argument struct.
+    Returns (TierArgs, out [N, M], end-state dict incl. cnt)."""
+    fl = _flags(feat)
+    dev = table.device
+    m = vecs["amp"].shape[0]
+    a = TierArgs()
+    a.n, a.m, a.cbase, a.exact = n, m, int(cbase), int(bool(exact))
+    for k in _FEAT_NAMES:
+        setattr(a, "has_" + k, int(fl[k]))
+    a.cz_mask = sum(1 << k for k in fl["cz_modes"] if 1 <= k <= 7)
+    a.ts_pow2 = int(fl["ts_pow2"])
+    if table.dim() != 1:
+        raise ValueError("tier: table must be the flat [R] buffer")
+    a.table = _check("table", table, dev, F32, tuple(table.shape))
+    a.inc = _check("inc", inc, dev, F32, (n, m) if fl["fm"] else (m,))
+    if fl["cz"]:
+        a.dm = _check("dm", dm, dev, F32, (n, m) if fl["czm"] else (m,))
+    if fl["am"]:
+        a.amod = _check("amod", amod, dev, F32, (n, m))
+    for k, dt in _vec_keys(fl):
+        if k not in vecs:
+            raise KeyError(f"tier: feat needs vecs[{k!r}]")
+        setattr(a, k, _check(k, vecs[k], dev, dt, (m,)))
+    outs = {}
+    for k, dt in _state_keys(fl):
+        if k not in states:
+            raise KeyError(f"tier: feat needs states[{k!r}]")
+        setattr(a, k + "_0", _check(k, states[k], dev, dt, (m,)))
+        outs[k] = torch.empty(m, dtype=dt, device=dev)
+        setattr(a, k + "_e", outs[k].data_ptr())
+    out = torch.empty((n, m), dtype=F32, device=dev)
+    outs["cnt"] = torch.empty(m, dtype=I32, device=dev)
+    a.out, a.cnt_e = out.data_ptr(), outs["cnt"].data_ptr()
+    return a, out, outs
+
+
+def launch(args: TierArgs, device) -> None:
+    """Launch the kernel on ``device``'s current stream; raise if CUDA
+    refuses the launch."""
+    from skred_tpu_torch.engine.kernels import build
+
+    lib = build.load("tier")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.tier_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"tier kernel launch failed: CUDA error {rc}")
+
+
+def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
+         n):
+    """One tier pass over one block (see the module docstring).
+
+    table: [R] f32 packed table buffer; cbase: int, the 1-based global
+    sample count of the block's first sample (envelope); inc: [N, M] raw
+    fm-read stream when feat.fm else [M] constant increment; dm: [N, M]
+    raw cz-read stream (czm), [M] constant offset (cz only) or None;
+    amod: [N, M] raw am-read stream or None; vecs/states: dicts of [M]
+    per-lane vectors.  The kernel reads base_off + [0, clip_i] of the
+    table unchecked: the caller keeps those inside it (the fused
+    renderer checks every lane once per render, on the host).  Returns
+    (out [N, M], end-state dict incl. cnt)."""
+    if table.device.type == "cpu":
+        return tier_plain(table, cbase, inc, dm, amod, vecs, states,
+                          feat=feat, exact=exact, n=n)
+    if table.device.type != "cuda":
+        raise ValueError(f"tier: no kernel for device {table.device}")
+    args, out, outs = _pack_args(table, cbase, inc, dm, amod, vecs, states,
+                                 feat, exact, n)
+    launch(args, table.device)
+    tier.launches += 1
+    return out, outs
+
+
+tier.launches = 0
