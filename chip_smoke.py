@@ -3,24 +3,36 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the checkout, holds each against its
-plain PyTorch version, renders corpus/stress64.sk (64 voices, the
-reference's design point) at 1024 rows x 10 s through the port's main
-path, and checks the audio.  Phases, in order (any failure exits
+plain PyTorch version, renders two scripts at 1024 rows x 10 s through
+the port's main path, and checks the audio: corpus/stress64.sk (64
+voices, the reference's design point), whose two tiers take the tier
+kernel, and skred_tpu_torch/scripts/noise64.sk (stress64 with noise
+voices in both tiers), whose tiers take the noise pass (phase walk,
+table lookup, filter/smoother).  Phases, in order (any failure exits
 non-zero):
 
-  1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc for every csrc/*.cu, all started together
-  3. kernel   tier vs tier_plain on the card, bit for bit, on random
-              blocks of stress64's two tier feature sets (N=512, M=8192)
-  4. main     bucket_key -> fill_bucket -> stack_timelines (1024 rows)
-              -> pack_stacked -> pad_segments_pow2 ->
-              render_fused_stream_device(chunk_blocks=172): one warm-up,
-              one timed pass with the launch counts read around it, a
-              profiled chunk; then the kernel alone, its plain version
-              and its bound at the main path's tier-1 call
-  5. short    the first 4 blocks at 8 rows through the kernel path and
-              through a tier_plain path on the card (bit for bit), and
-              against the port's CPU render (-100 dB)
+  1. device       the card's name and power limit (nvidia-smi)
+  2. build        nvcc for every csrc/*.cu, all started together
+  3. kernel       every kernel vs its plain version on the card, bit for
+                  bit, on random blocks (N=512, M=8192): tier on
+                  stress64's two tier feature sets; phase_walk and
+                  filt_smooth on noise64's; the lookups (grouped and
+                  single-lane forms at 4096- and 32768-sample slots, and
+                  the noise pass's base/limit form)
+  4. main         stress64: bucket_key -> fill_bucket -> stack_timelines
+                  (1024 rows) -> pack_stacked -> pad_segments_pow2 ->
+                  render_fused_stream_device(chunk_blocks=172): one
+                  warm-up, one timed pass with the launch counts read
+                  around it, a profiled chunk; then each kernel alone,
+                  its plain version and its bound on the path's own
+                  first-block inputs
+  5. short        stress64's first 4 blocks at 8 rows through the kernel
+                  path and a plain-version path on the card (bit for
+                  bit), and against the port's CPU render (-100 dB)
+  6. noise main   noise64 as in 4: each noise kernel launched twice per
+                  block, the tier kernel never; torch.take timed beside
+                  the lookup
+  7. noise short  noise64 as in 5
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs torch with CUDA and nvcc; imports
@@ -42,6 +54,9 @@ SECONDS = 10.0
 ROWS = 1024
 CHUNK = 172
 HERE = pathlib.Path(__file__).resolve().parent
+STRESS64 = HERE / "corpus" / "stress64.sk"
+NOISE64 = HERE / "skred_tpu_torch" / "scripts" / "noise64.sk"
+KERNEL_N, KERNEL_M = 512, 8192
 
 
 def fail(msg):
@@ -68,63 +83,462 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def host_ms(fn):
+    """Host milliseconds of one call of ``fn`` that ends in a
+    synchronize (for the plain versions: thousands of small launches)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3, out
+
+
 def same_bits(a, b):
+    if a is None or b is None:
+        return a is None and b is None
     a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
     if a.dtype == np.float32:
         return bool((a.view(np.int32) == b.view(np.int32)).all())
     return bool((a == b).all())
 
 
-def to_card(args, dev):
-    table, cbase, inc, dm, amod, vecs, states = args
-    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
-    return (t(table), cbase, t(inc), t(dm), t(amod),
-            {k: t(v) for k, v in vecs.items()},
-            {k: t(v) for k, v in states.items()})
+def max_abs(a, b):
+    if a is None or not a.is_floating_point():
+        return 0.0
+    return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def tier_bound(targs, feat, n):
-    """Least time for one tier call on this card: each input read once
-    and each output written once over the memory rate, against the f32
-    operations per lane-sample over the f32 rate (fma counted as 2)."""
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def bound(read, write, ops):
+    """Least time on this card: the bytes read once and written once over
+    the memory rate, against the f32 operations over the f32 rate (fma
+    counted as 2).  Returns (ms, "bytes" | "operations")."""
+    t_bytes = (read + write) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def to_card(arrs, dev):
+    return [None if a is None else torch.from_numpy(a).to(dev) for a in arrs]
+
+
+# ---- per-kernel: the launch of packed arguments, the plain version, the
+# bound, each taking (a, kw): the positional and keyword arguments as the
+# renderer passed them.
+
+def tier_spec(tk):
     from skred_tpu_torch.engine.kernels.tier import _flags, _state_keys
 
-    table, cbase, inc, dm, amod, vecs, states = targs
-    fl = _flags(feat)
-    m = vecs["amp"].shape[0]
-    nbytes = lambda x: 0 if x is None else x.numel() * x.element_size()
-    read = sum(nbytes(x) for x in (table, inc, dm, amod)) \
-        + sum(nbytes(v) for v in vecs.values()) \
-        + sum(nbytes(v) for v in states.values())
-    write = n * m * 4 + m * 4 * (len(_state_keys(fl)) + 1)
-    ops = 6                                   # phase walk
-    ops += 3 if fl["fm"] else 0               # read*depth, fma
-    ops += 5 if fl["cz"] else 0               # normalise, knee curve, scale
-    ops += 3 if fl["quant"] else 0
-    ops += 9 if fl["flt"] else 0              # mul + 4 fma
-    ops += 3 if fl["sm"] else 0
-    ops += 12 if fl["env"] else 0
-    ops += 2 if fl["am"] else 0
-    ops += 1                                  # out = s3 * gain
-    t_bytes = (read + write) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops * n * m / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    def pack(a, kw):
+        args, out, outs = tk._pack_args(*a, kw["feat"], kw.get("exact", True),
+                                        kw["n"])
+        return args, [out] + [outs[k] for k in sorted(outs)]
+
+    def flat(result):
+        out, res = result
+        return [out] + [res[k] for k in sorted(res)]
+
+    def bnd(a, kw):
+        table, cbase, inc, dm, amod, vecs, states = a
+        fl, n = _flags(kw["feat"]), kw["n"]
+        m = vecs["amp"].shape[0]
+        ops = 6 + (3 if fl["fm"] else 0) + (5 if fl["cz"] else 0) \
+            + (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
+            + (3 if fl["sm"] else 0) + (12 if fl["env"] else 0) \
+            + (2 if fl["am"] else 0) + 1
+        read = nbytes(table, inc, dm, amod, *vecs.values(), *states.values())
+        write = n * m * 4 + m * 4 * (len(_state_keys(fl)) + 1)
+        return bound(read, write, ops * n * m)
+
+    return dict(name="tier", fn=tk.tier, pack=pack,
+                run=lambda a, kw: flat(tk.tier(*a, **kw)),
+                plain=lambda a, kw: flat(tk.tier_plain(*a, **kw)),
+                bound=bnd, lanes=lambda a, kw: a[5]["amp"].shape[0])
+
+
+def phase_walk_spec(pw):
+    def pack(a, kw):
+        args, outs = pw._pack_args(*a, kw["fm"], kw["finish"], kw["n"])
+        return args, list(outs)
+
+    def bnd(a, kw):
+        inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act = a
+        n, m = kw["n"], phase0.shape[0]
+        fin = kw["finish"]
+        read = nbytes(inc, phase0, lo, hi, L, adv) \
+            + (nbytes(fin0, osn, one_shot, act) if fin else 0)
+        write = n * m * 4 * (2 if fin else 1) + m * 4 * (2 if fin else 1)
+        # add, subtract, fmod, two wrap adds per lane-sample
+        return bound(read, write, 5 * n * m)
+
+    return dict(name="phase_walk", fn=pw.phase_walk, pack=pack,
+                run=lambda a, kw: list(pw.phase_walk(*a, **kw)),
+                plain=lambda a, kw: list(pw.phase_walk_plain(*a, **kw)),
+                bound=bnd, lanes=lambda a, kw: a[1].shape[0])
+
+
+def lookup_spec(lk):
+    def pack(a, kw):
+        args, out = lk._pack_args(*a, False)
+        return args, [out]
+
+    def bnd(a, kw):
+        table, base, limit, idx = a
+        return bound(nbytes(table, base, limit, idx), nbytes(idx), 0)
+
+    def library(a):
+        # torch.take indexes with int64: the i64 base makes the sum i64
+        table, base, limit, idx = a
+        base64 = base.long()
+        return lambda: torch.take(table, base64[None] + idx)
+
+    return dict(name="lookup", fn=lk.lookup, pack=pack,
+                run=lambda a, kw: [lk.lookup(*a)],
+                plain=lambda a, kw: [lk.lookup_plain(*a)],
+                bound=bnd, library=library,
+                lanes=lambda a, kw: a[1].shape[0])
+
+
+def filt_smooth_spec(fs):
+    def pack(a, kw):
+        args, res = fs._pack_args(a, kw.get("exact", True), kw["feat"])
+        return args, list(res)
+
+    def bnd(a, kw):
+        fl = dict(zip(fs._FS_NAMES, kw["feat"]))
+        named = dict(zip(fs._ARG_NAMES, a))
+        x = named["x"]
+        n, m = x.shape
+        read = nbytes(x, named["alive"], named["amp"],
+                      named["env"] if fl["env"] else None,
+                      named["amod"] if fl["am"] else None)
+        write = nbytes(x)
+        for stage, keys in fs._VECS.items():
+            if fl[stage]:
+                read += nbytes(*(named[k] for k, _ in keys))
+        for stage, keys in fs._STATES.items():
+            if fl[stage]:
+                read += nbytes(*(named[k + "_0"] for k, _, _ in keys))
+                write += m * 4 * len(keys)
+        ops = (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
+            + (3 if fl["sm"] else 0) + 2 + 1
+        return bound(read, write, ops * n * m)
+
+    return dict(name="filt_smooth", fn=fs.filt_smooth, pack=pack,
+                run=lambda a, kw: list(fs.filt_smooth(*a, **kw)),
+                plain=lambda a, kw: list(fs.filt_smooth_plain(*a, **kw)),
+                bound=bnd, lanes=lambda a, kw: a[0].shape[1])
+
+
+# ---- phases ----
+
+def kernel_phase(dev, specs, errs):
+    """Every kernel against its plain version on random blocks."""
+    from skred_tpu_torch.engine.kernels import lookup as lk
+    from skred_tpu_torch.engine.kernels.noise_inputs import (
+        NOISE64_FS0, NOISE64_FS1, NOISE64_PW0, NOISE64_PW1,
+        random_fs_inputs, random_lookup_inputs, random_phase_inputs)
+    from skred_tpu_torch.engine.kernels.tier_inputs import (
+        STRESS64_TIER0, STRESS64_TIER1, random_tier_inputs)
+
+    n, m = KERNEL_N, KERNEL_M
+    calls = []
+    for label, feat in (("stress64 tier0", STRESS64_TIER0),
+                        ("stress64 tier1", STRESS64_TIER1)):
+        table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
+            feat, n, m, seed=11)
+        t = lambda x: None if x is None else torch.from_numpy(x).to(dev)
+        a = (t(table), cbase, t(inc), t(dm), t(amod),
+             {k: t(v) for k, v in vecs.items()},
+             {k: t(v) for k, v in states.items()})
+        calls.append(("tier", label, a, dict(feat=feat, n=n)))
+    for label, (fm, fin) in (("noise64 tier0", NOISE64_PW0),
+                             ("noise64 tier1", NOISE64_PW1)):
+        a = to_card(random_phase_inputs(fm, fin, n, m, seed=12), dev)
+        calls.append(("phase_walk", label, a, dict(fm=fm, finish=fin, n=n)))
+    for label, feat in (("noise64 tier0", NOISE64_FS0),
+                        ("noise64 tier1", NOISE64_FS1)):
+        a = to_card(random_fs_inputs(feat, n, m, seed=13), dev)
+        calls.append(("filt_smooth", label, a, dict(feat=feat)))
+    for ss in (4096, 32768):
+        table, slot, idx = to_card(random_lookup_inputs(
+            n, m, ss, seed=14, out_of_range=True), dev)
+        base = slot * ss
+        calls.append(("lookup", f"pass form, {ss}-sample tables",
+                      (table, base, torch.full_like(base, ss),
+                       idx.T.contiguous()), {}))
+    for name, label, a, kw in calls:
+        sp = specs[name]
+        got = sp["run"](a, kw)
+        torch.cuda.synchronize()
+        want = sp["plain"](a, kw)
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if not same_bits(g, w)]
+        err = max(max_abs(g, w) for g, w in zip(got, want)
+                  if g is not None)
+        errs[name] = max(errs.get(name, 0.0), err)
+        log(f"kernel {name} ({label}): max|diff| {err} vs plain, "
+            f"{'bit-equal' if not bad else f'outputs {bad} DIFFER'}")
+        if bad:
+            fail(f"{name} disagrees with its plain version on {label}")
+    # the JAX-form lookups: [M, N] indices, per-lane slots
+    lib = {}
+    for ss in (4096, 32768):
+        table, slot, idx = to_card(random_lookup_inputs(n, m, ss, seed=15),
+                                   dev)
+        tab3 = table.reshape(-1, ss // 128, 128)
+        base = slot * ss
+        want = lk.lookup_plain(table, base, torch.full_like(base, ss), idx,
+                               lane_major=True)
+        for fn, name in ((lk.table_lookup_grouped, "lookup"),
+                         (lk.table_lookup_pallas, "table_lookup")):
+            got = fn(tab3, slot, idx, ss)
+            torch.cuda.synchronize()
+            err = max_abs(got, want)
+            errs[name] = max(errs.get(name, 0.0), err)
+            log(f"kernel {fn.__name__} ({ss}-sample slots): max|diff| "
+                f"{err} vs plain, "
+                f"{'bit-equal' if same_bits(got, want) else 'DIFFERS'}")
+            if not same_bits(got, want):
+                fail(f"{fn.__name__} disagrees with its plain version")
+        lib[ss] = (tab3, slot, idx, table, base)
+    return lib
+
+
+def table_lookup_timing(lk, lib, card):
+    """The single-lane form alone (it is on no render path): kernel,
+    plain version, torch.take and bound at N=512, M=8192, 32768-sample
+    slots."""
+    from skred_tpu_torch.engine.kernels import cuda_call
+
+    tab3, slot, idx, table, base = lib[32768]
+    limit = torch.full_like(base, 32768)
+    args, out = lk._pack_args(table, base, limit, idx, True)
+    ms = cuda_ms(lambda: cuda_call.launch("lookup", args, idx.device), 20)
+    plain_ms, want = host_ms(lambda: lk.lookup_plain(table, base, limit, idx,
+                                                     lane_major=True))
+    if not same_bits(out, want):
+        fail("table_lookup kernel disagrees with its plain version")
+    base64 = base.long()
+    library = lambda: torch.take(table, base64[:, None] + idx)
+    library_ms = cuda_ms(library, 20)
+    if not same_bits(library(), want):
+        fail("torch.take does not compute table_lookup's function")
+    bound_ms, bound_by = bound(nbytes(table, base, limit, idx), nbytes(idx),
+                              0)
+    log(f"table_lookup M={idx.shape[0]} N={idx.shape[1]}: kernel {ms:.4f} "
+        f"ms/call, plain {plain_ms:.1f} ms, torch.take {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), on {card}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def prepare(path):
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.host.timeline import compile_script
+    from skred_tpu_torch.parallel.batch import (bucket_key, fill_bucket,
+                                                pack_stacked,
+                                                pad_segments_pow2,
+                                                stack_timelines)
+
+    lines = path.read_text().splitlines()
+    t0 = time.time()
+    tl = compile_script(lines, SECONDS, bank=WaveBank(),
+                        script_dir=HERE / "corpus")
+    vp, _, _ = bucket_key(tl)
+    rows = fill_bucket([tl], vp)[:ROWS]
+    st = pad_segments_pow2(pack_stacked(stack_timelines(rows)))
+    log(f"{path.stem}: {st.batch} rows x {vp} voices, tiers {st.tiers}, "
+        f"{st.num_blocks} blocks, host compile+pack "
+        f"{time.time() - t0:.1f} s")
+    if st.batch != ROWS or vp != 64 or len(st.tiers) != 2:
+        fail(f"unexpected bucket: {st.batch} rows, {vp} voices, "
+             f"tiers {st.tiers}")
+    return lines, st
+
+
+def main_path(label, path, dev, card, specs, on_path, counters, errs):
+    """Drive ``path`` at full width through render_fused_stream_device:
+    warm-up (capturing each kernel's first-block inputs), the timed pass
+    with every launch count (``counters``: name -> wrapper) set to 0
+    before and read after, one profiled chunk, then each kernel of
+    ``on_path`` alone on its captured inputs.  Returns (launches,
+    timings by kernel and lane count, the script's lines)."""
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine.kernels import cuda_call
+
+    lines, st = prepare(path)
+    captured = {}
+    real = {name: getattr(fused, name) for name in on_path}
+
+    def capturer(name):
+        def call(*a, **kw):
+            m = specs[name]["lanes"](a, kw)
+            captured.setdefault((name, m), (a, kw))
+            return real[name](*a, **kw)
+        return call
+
+    for name in on_path:
+        setattr(fused, name, capturer(name))
+    try:
+        fused.render_fused_stream_device(st, CHUNK, warmup_only=True,
+                                         device=dev)
+    finally:
+        for name in on_path:
+            setattr(fused, name, real[name])
+    torch.cuda.synchronize()
+
+    whole = st.num_blocks // CHUNK * CHUNK
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cs = fused.render_fused_stream_device(st, CHUNK, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    audio_s = st.batch * whole * st.block / 44100.0
+    log(f"{label}: wall {wall:.3f} s, {audio_s / wall:.1f}x realtime "
+        f"({st.batch} rows x {whole * st.block / 44100.0:.3f} s rendered), "
+        f"launches {launches} ({whole} blocks x 2 tiers), checksum {cs}, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+        f"{card}")
+    for name, count in launches.items():
+        want = 2 * whole if name in on_path else 0
+        if count != want:
+            fail(f"{name}.launches {count} != {want} on {label} "
+                 f"({whole} blocks x 2 tiers)")
+    if not (np.isfinite(cs) and cs > 0):
+        fail(f"bad checksum {cs}")
+    log(profile_line(label, fused, st, dev, on_path))
+
+    timings = {}
+    for (name, m), (a, kw) in sorted(captured.items()):
+        sp = specs[name]
+        args, outs = sp["pack"](a, kw)
+        ms = cuda_ms(lambda: cuda_call.launch(name, args, dev), 20)
+        plain_ms, want = host_ms(lambda: sp["plain"](a, kw))
+        bad = [i for i, (g, w) in enumerate(zip(outs, want))
+               if not same_bits(g, w)]
+        errs[name] = max([errs.get(name, 0.0)]
+                         + [max_abs(g, w) for g, w in zip(outs, want)
+                            if g is not None])
+        if bad:
+            fail(f"{name} kernel disagrees with its plain version on the "
+                 f"{label} path's M={m} call (outputs {bad})")
+        bound_ms, bound_by = sp["bound"](a, kw)
+        lib_ms = None
+        if "library" in sp:
+            lib = sp["library"](a)
+            lib_ms = cuda_ms(lib, 20)
+            if not same_bits(lib(), outs[0]):
+                fail(f"the library call does not compute {name}'s function")
+        timings[name, m] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=lib_ms)
+        lib_part = "" if lib_ms is None else f", torch.take {lib_ms:.4f} ms"
+        log(f"{name} M={m} ({label}): kernel {ms:.4f} ms/call, plain "
+            f"{plain_ms:.1f} ms{lib_part}, bound {bound_ms:.4f} ms "
+            f"({bound_by}), path inputs bit-equal to plain, on {card}")
+    log(f"{label} summary: wall {wall:.3f} s, {audio_s / wall:.1f}x realtime, "
+        + ", ".join(f"{name} {t['ms']:.4f} ms/call at M={m}"
+                    for (name, m), t in sorted(timings.items()))
+        + f" (CUDA events), on {card}")
+    return launches, timings, lines
+
+
+def profile_line(label, fused, st, dev, names):
+    """Device time by kernel over one profiled chunk."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.time()
+            fused.render_fused_stream_device(st, CHUNK, warmup_only=True,
+                                             device=dev)
+            torch.cuda.synchronize()
+            pwall = time.time() - t0
+        dev_us = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            if us and e.device_type is not None \
+                    and "cuda" in str(e.device_type).lower():
+                dev_us[e.key] = (us, e.count)
+        if not dev_us:
+            return f"profile ({label}): not measured (no device events)"
+        busy = sum(u for u, _ in dev_us.values()) / 1e6
+        parts = []
+        for name in names:
+            hits = [(u, c) for k, (u, c) in dev_us.items()
+                    if f"{name}_kernel" in k]
+            parts.append(f"{name}_kernel {hits[0][0] / 1e3 / hits[0][1]:.3f} "
+                         f"ms/call x {hits[0][1]} = {hits[0][0] / 1e3:.1f} ms"
+                         if hits else f"{name}_kernel not found")
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:6]
+        return (f"profile ({label}, {CHUNK} blocks, wall {pwall:.3f} s): "
+                f"device busy {busy:.3f} s = {100 * busy / pwall:.1f}% of "
+                f"wall; " + "; ".join(parts) + "; top: " + "; ".join(
+                    f"{k[:40]} {u / 1e3:.1f} ms/{c}" for k, (u, c) in top))
+    except Exception as ex:   # noqa: BLE001 - the profiler is optional
+        return f"profile ({label}): not measured ({type(ex).__name__}: {ex})"
+
+
+def short_path(label, lines, dev, plain_swap):
+    """The first 4 blocks at 8 rows: kernel path, plain-version path on
+    the card (bit for bit), and the port's CPU render (-100 dB)."""
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.host.timeline import compile_script
+    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+
+    tl4 = compile_script(lines, 4 * 512 / 44100.0, bank=WaveBank(),
+                         script_dir=HERE / "corpus")
+    st4 = pack_stacked(stack_timelines([tl4] * 8))
+    if st4.num_blocks != 4:
+        fail(f"short render has {st4.num_blocks} blocks, not 4")
+    a = fused.render_fused(st4, device=dev)
+    real = {k: getattr(fused, k) for k in plain_swap}
+    for k, fn in plain_swap.items():
+        setattr(fused, k, fn)
+    try:
+        b = fused.render_fused(st4, device=dev)
+    finally:
+        for k, fn in real.items():
+            setattr(fused, k, fn)
+    c = fused.render_fused(st4, device="cpu")
+    peak = float(np.abs(c).max())
+    db_plain = 20 * np.log10(max(float(np.abs(a - b).max()), 1e-30) / peak)
+    db_cpu = 20 * np.log10(max(float(np.abs(a - c).max()), 1e-30) / peak)
+    verdict = lambda x, y, db: ("bit-equal" if np.array_equal(x, y)
+                                else f"{db:.1f} dB")
+    log(f"{label}: 8 rows x 4 blocks, kernel path vs plain path on card "
+        f"{verdict(a, b, db_plain)}, card vs CPU render "
+        f"{verdict(a, c, db_cpu)}, peak {peak:.3f}")
+    if not np.all(np.isfinite(a)) or a.shape != (8, 4 * 512, 2):
+        fail(f"{label} render: bad shape or non-finite samples")
+    if not np.array_equal(a, b):
+        fail(f"{label}: kernel path vs plain path {db_plain:.1f} dB")
+    if db_cpu > -100:
+        fail(f"{label}: card render vs CPU render {db_cpu:.1f} dB")
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "card")
-    from skred_tpu_torch.assets.bank import WaveBank
-    from skred_tpu_torch.engine import fused
-    from skred_tpu_torch.engine.kernels import build, tier as tk
-    from skred_tpu_torch.engine.kernels.tier_inputs import (
-        STRESS64_TIER0, STRESS64_TIER1, random_tier_inputs)
-    from skred_tpu_torch.host.timeline import compile_script
-    from skred_tpu_torch.parallel.batch import (bucket_key, fill_bucket,
-                                                pack_stacked,
-                                                pad_segments_pow2,
-                                                stack_timelines)
+    from skred_tpu_torch.engine.kernels import build
+    from skred_tpu_torch.engine.kernels import filt_smooth as fs
+    from skred_tpu_torch.engine.kernels import lookup as lk
+    from skred_tpu_torch.engine.kernels import phase_walk as pw
+    from skred_tpu_torch.engine.kernels import tier as tk
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -140,191 +554,65 @@ def main():
     # ---- 2. build ----
     t0 = time.time()
     secs = build.build_all()
-    build_s = time.time() - t0
-    log(f"build: {len(secs)} source(s) in {build_s:.1f} s")
+    log(f"build: {len(secs)} source(s) in {time.time() - t0:.1f} s")
     for name, (s, out) in build.LOG.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    build.load("tier")
+    for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
+        build.load(name)
+
+    specs = {s["name"]: s for s in (tier_spec(tk), phase_walk_spec(pw),
+                                    lookup_spec(lk), filt_smooth_spec(fs))}
+    noise_kernels = ["phase_walk", "lookup", "filt_smooth"]
+    counters = {name: sp["fn"] for name, sp in specs.items()}
+    counters.update(table_lookup=lk.table_lookup_pallas,
+                    table_lookup_grouped=lk.table_lookup_grouped)
 
     # ---- 3. kernel vs plain on random blocks ----
-    max_err = 0.0
-    for name, feat in (("tier0", STRESS64_TIER0),
-                       ("tier1", STRESS64_TIER1)):
-        targs = to_card(random_tier_inputs(feat, 512, 8192, seed=11), dev)
-        out, res = tk.tier(*targs, feat=feat, n=512)
-        torch.cuda.synchronize()
-        want, want_res = tk.tier_plain(*targs, feat=feat, n=512)
-        torch.cuda.synchronize()
-        err = float((out - want).abs().max())
-        max_err = max(max_err, err)
-        bad = [k for k in want_res if not same_bits(res[k], want_res[k])]
-        log(f"kernel {name}: max|diff| {err} vs plain, end states "
-            f"{'equal' if not bad else 'DIFFER: ' + ','.join(bad)}, "
-            f"launches {tk.tier.launches}")
-        if not same_bits(out, want) or bad:
-            fail(f"tier kernel disagrees with tier_plain on {name}")
+    errs = {}
+    lib = kernel_phase(dev, specs, errs)
 
-    # ---- 4. main path at full width ----
-    lines = (HERE / "corpus" / "stress64.sk").read_text().splitlines()
-    bank = WaveBank()
-    t0 = time.time()
-    tl = compile_script(lines, SECONDS, bank=bank,
-                        script_dir=HERE / "corpus")
-    vp, passes, _ = bucket_key(tl)
-    rows = fill_bucket([tl], vp)[:ROWS]
-    st = pad_segments_pow2(pack_stacked(stack_timelines(rows)))
-    log(f"main: {st.batch} rows x {vp} voices, tiers {st.tiers}, "
-        f"{st.num_blocks} blocks, host compile+pack "
-        f"{time.time() - t0:.1f} s")
-    if st.batch != ROWS or vp != 64 or len(st.tiers) != 2:
-        fail(f"unexpected bucket: {st.batch} rows, {vp} voices, "
-             f"tiers {st.tiers}")
+    # ---- 4./5. stress64: the tier kernel's path ----
+    s_launch, s_time, s_lines = main_path(
+        "main", STRESS64, dev, card, specs, ["tier"], counters, errs)
+    short_path("short", s_lines, dev, {"tier": tk.tier_plain})
 
-    # capture the main path's own tier calls (first block of each tier)
-    captured = {}
-    real_tier = fused.tier
+    # ---- 6./7. noise64: the noise pass's path ----
+    n_launch, n_time, n_lines = main_path(
+        "noise main", NOISE64, dev, card, specs, noise_kernels, counters,
+        errs)
+    short_path("noise short", n_lines, dev,
+               {"phase_walk": pw.phase_walk_plain,
+                "lookup": lk.lookup_plain,
+                "filt_smooth": fs.filt_smooth_plain})
+    tl_time = table_lookup_timing(lk, lib, card)
 
-    def capture(*a, **kw):
-        m = a[5]["amp"].shape[0]
-        if m not in captured:
-            captured[m] = (a, kw)
-        return real_tier(*a, **kw)
+    def record(name, launches, timings, replaces, source):
+        m = max(mm for (nm, mm) in timings if nm == name)
+        return dict(name=name, route="cuda",
+                    source=f"skred_tpu_torch/engine/kernels/csrc/{source}.cu",
+                    replaces=replaces, launches=launches,
+                    max_abs_err=errs.get(name, 0.0), **timings[name, m])
 
-    fused.tier = capture
-    try:
-        fused.render_fused_stream_device(st, CHUNK, warmup_only=True,
-                                         device=dev)
-    finally:
-        fused.tier = real_tier
-    torch.cuda.synchronize()
-
-    whole = st.num_blocks // CHUNK * CHUNK
-    tk.tier.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    cs = fused.render_fused_stream_device(st, CHUNK, device=dev)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = tk.tier.launches
-    audio_s = st.batch * whole * st.block / 44100.0
-    log(f"main: wall {wall:.3f} s, {audio_s / wall:.1f}x realtime "
-        f"({st.batch} rows x {whole * st.block / 44100.0:.3f} s rendered), "
-        f"tier launches {launches} ({whole} blocks x 2 tiers), checksum "
-        f"{cs}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"on {card}")
-    if launches != 2 * whole:
-        fail(f"tier.launches {launches} != 2 x {whole} blocks")
-    if not (np.isfinite(cs) and cs > 0):
-        fail(f"bad checksum {cs}")
-
-    # device time by kernel over one profiled chunk
-    prof_line = "profile: not measured"
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.time()
-            fused.render_fused_stream_device(st, CHUNK, warmup_only=True,
-                                              device=dev)
-            torch.cuda.synchronize()
-            pwall = time.time() - t0
-        dev_us = {}
-        for e in prof.key_averages():
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = getattr(e, "cuda_time_total", 0)
-            if us and e.device_type is not None \
-                    and "cuda" in str(e.device_type).lower():
-                dev_us[e.key] = (us, e.count)
-        if dev_us:
-            busy = sum(u for u, _ in dev_us.values()) / 1e6
-            tus = [(u, c) for k, (u, c) in dev_us.items()
-                   if "tier_kernel" in k]
-            tier_part = (f"tier_kernel {tus[0][0] / 1e3 / tus[0][1]:.3f} "
-                         f"ms/call x {tus[0][1]}" if tus else
-                         "tier_kernel not found")
-            top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:6]
-            prof_line = (f"profile ({CHUNK} blocks, wall {pwall:.3f} s): "
-                         f"device busy {busy:.3f} s = "
-                         f"{100 * busy / pwall:.1f}% of wall; {tier_part}; "
-                         "top: " + "; ".join(
-                             f"{k[:40]} {u / 1e3:.1f} ms/{c}"
-                             for k, (u, c) in top))
-    except Exception as ex:   # noqa: BLE001 - the profiler is optional
-        prof_line = f"profile: not measured ({type(ex).__name__}: {ex})"
-    log(prof_line)
-
-    # the kernel alone at the main path's tier calls
-    timings = {}
-    for m, (a, kw) in sorted(captured.items()):
-        feat, n = kw["feat"], kw["n"]
-        targs = a
-        args, out, outs = tk._pack_args(*targs, feat, True, n)
-        ms = cuda_ms(lambda: tk.launch(args, dev), 20)
-        t0 = time.time()
-        want, want_res = tk.tier_plain(*targs, feat=feat, n=n)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
-        if not same_bits(out, want) or any(
-                not same_bits(outs[k], want_res[k]) for k in want_res):
-            fail(f"tier kernel disagrees with tier_plain on the main "
-                 f"path's M={m} call")
-        bound_ms, bound_by = tier_bound(targs, feat, n)
-        timings[m] = (ms, plain_ms, bound_ms, bound_by)
-        log(f"tier M={m} N={n}: kernel {ms:.4f} ms/call, plain "
-            f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"main-path inputs bit-equal to plain, on {card}")
-
-    m_hi, m_lo = max(timings), min(timings)
-    log(f"main summary: wall {wall:.3f} s, {audio_s / wall:.1f}x realtime, "
-        f"tier kernel {timings[m_hi][0]:.4f} ms/call at M={m_hi} and "
-        f"{timings[m_lo][0]:.4f} ms/call at M={m_lo} (CUDA events), on "
-        f"{card}")
-
-    # ---- 5. short path vs plain on the card, and vs the CPU ----
-    tl4 = compile_script(lines, 4 * 512 / 44100.0, bank=bank,
-                         script_dir=HERE / "corpus")
-    st4 = pack_stacked(stack_timelines([tl4] * 8))
-    if st4.num_blocks != 4:
-        fail(f"short render has {st4.num_blocks} blocks, not 4")
-    a = fused.render_fused(st4, device=dev)
-    fused.tier = tk.tier_plain
-    try:
-        b = fused.render_fused(st4, device=dev)
-    finally:
-        fused.tier = real_tier
-    c = fused.render_fused(st4, device="cpu")
-    peak = float(np.abs(c).max())
-    db_plain = 20 * np.log10(max(float(np.abs(a - b).max()), 1e-30) / peak)
-    db_cpu = 20 * np.log10(max(float(np.abs(a - c).max()), 1e-30) / peak)
-    verdict = lambda x, y, db: ("bit-equal" if np.array_equal(x, y)
-                                else f"{db:.1f} dB")
-    log(f"short: 8 rows x 4 blocks, kernel path vs plain path on card "
-        f"{verdict(a, b, db_plain)}, card vs CPU render "
-        f"{verdict(a, c, db_cpu)}, peak {peak:.3f}")
-    if not np.all(np.isfinite(a)) or a.shape != (8, 4 * 512, 2):
-        fail("short render: bad shape or non-finite samples")
-    if not np.array_equal(a, b) and db_plain > -100:
-        fail(f"kernel path vs plain path {db_plain:.1f} dB")
-    if db_cpu > -100:
-        fail(f"card render vs CPU render {db_cpu:.1f} dB")
-
-    m1 = max(timings)
-    ms, plain_ms, bound_ms, bound_by = timings[m1]
-    log(json.dumps({"kernels": [{
-        "name": "tier", "route": "cuda",
-        "source": "skred_tpu_torch/engine/kernels/csrc/tier.cu",
-        "replaces": "skred_tpu/engine/kernels.py:1999",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+    kernels = [
+        record("tier", s_launch["tier"], s_time,
+               "skred_tpu/engine/kernels.py:1999", "tier"),
+        record("phase_walk", n_launch["phase_walk"], n_time,
+               "skred_tpu/engine/kernels.py:311", "phase_walk"),
+        record("lookup", n_launch["lookup"], n_time,
+               "skred_tpu/engine/kernels.py:780", "lookup"),
+        record("filt_smooth", n_launch["filt_smooth"], n_time,
+               "skred_tpu/engine/kernels.py:522", "filt_smooth"),
+        dict(name="table_lookup", route="cuda",
+             source="skred_tpu_torch/engine/kernels/csrc/lookup.cu",
+             replaces="skred_tpu/engine/kernels.py:648",
+             launches=n_launch["table_lookup"],
+             max_abs_err=errs.get("table_lookup", 0.0), **tl_time),
+    ]
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
 
 
 if __name__ == "__main__":

@@ -1,34 +1,43 @@
-"""The fused block renderer in torch, on the tier kernel.
+"""The fused block renderer in torch, on the port's CUDA kernels.
 
 A packed batch (``parallel/batch.py``) renders block by block, 512
 samples at a time.  Voices are laid out in tiers of the modulation DAG:
-tier k reads only tiers < k, so each block runs one tier-kernel call per
-tier (``engine/kernels/tier.py``), in order, and every voice renders once
-per block.  After the tiers the stereo mix sums the voices and the
-master-volume smoother runs as an associative scan.
+tier k reads only tiers < k, so each block runs one pass per tier, in
+order, and every voice renders once per block.  A tier without noise
+voices runs one tier-kernel call (``engine/kernels/tier.py``); a tier
+that holds a noise voice (``w6``) runs the noise pass: the phase-walk,
+table-lookup and filter/smoother kernels with torch glue between them,
+the noise stream selected in for the noise voices.  After the tiers the
+stereo mix sums the voices and the master-volume smoother runs as an
+associative scan.
 
 Layout: per-lane streams are time-major ``[N, M]`` over voice-major lanes
-(lane ``v*B + b``, as the kernel takes them), so the modulator reads,
-the kernel and the mix never transpose a block.  Per-voice parameters
+(lane ``v*B + b``, as the kernels take them), so the modulator reads,
+the kernels and the mix never transpose a block.  Per-voice parameters
 and the carry stay ``[B, V]`` as the JAX package keeps them.
 
 Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_stream_
-device) on its tier-kernel path.  Out of scope here, each raising
-NotImplementedError: tiers with noise voices, cyclic graphs, capture,
-the repeat-passes layout and several devices.
+device) on its Pallas paths.  Out of scope here, each raising
+NotImplementedError: cyclic graphs, capture, the repeat-passes layout
+and several devices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from skred_tpu_torch import config as C
+from skred_tpu_torch.engine.kernels.filt_smooth import filt_smooth
+from skred_tpu_torch.engine.kernels.lookup import lookup
+from skred_tpu_torch.engine.kernels.phase_walk import phase_walk
 from skred_tpu_torch.engine.kernels.tier import tier
-from skred_tpu_torch.engine.numerics import div32, f32
+from skred_tpu_torch.engine.numerics import cz_phasor, div32, f32, fma32
+from skred_tpu_torch.host.timeline import noise_stream
 
 F32 = torch.float32
 I32 = torch.int32
@@ -340,6 +349,130 @@ def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
     return out, tp["contrib"], (cnt >= 1, il), new_carry
 
 
+# ---- noise-voice tiers: phase walk -> lookup -> filter/smoother ----
+
+def _envelope_block(counts, v):
+    """Closed-form ADSR over a block (synth.c:398-431), the JAX package's
+    ``_envelope_block``: counts [N, 1] i32 global 1-based sample counts,
+    ``v`` the [M] lane vectors → [N, M]."""
+    t = (counts - v["env_start"]).to(F32)
+    tr = (counts - v["env_rel_at"]).to(F32)
+    att, dec, sus, rel = v["att"], v["dec"], v["sus"], v["rel"]
+    e = torch.where(
+        t < att, div32(t, att),
+        torch.where(t < att + dec,
+                    fma32(-div32(t - att, dec), 1.0 - sus, 1.0),
+                    torch.where(v["env_rel_at"] == 0, sus,
+                                torch.where(tr < rel,
+                                            sus * (1.0 - div32(tr, rel)),
+                                            0.0))))
+    return torch.where(v["env_active"] != 0, e, 0.0)
+
+
+def _noise_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat,
+                n, b, noise_blk):
+    """One noise-voice tier over one block: the port of the JAX package's
+    ``_voice_block_pass`` on its Pallas non-mega branch
+    (``skred_tpu/engine/fused.py:379-781``).  ``tp`` is the tier's
+    ``_pass_params``.  Returns what ``_voice_block_pass`` returns."""
+    v_ = p["amp"].shape[1]
+    v = tp["vecs"]
+    on = lambda k: v[k] != 0
+    fma = fma32 if exact else (lambda x, y, z: x * y + z)
+    f32v = lambda a: to_vm_vec(a.to(F32))
+    i32v = lambda a: to_vm_vec(a.to(I32))
+    read = lambda osc, dly: _read_vm(est_vm, prev_vm, p[osc], p[dly], n, b)
+
+    # FM increments
+    if feat.fm:
+        g = read("freq_mod_osc", "fm_delayed") * v["fm_depth"]
+        inc = torch.where(on("use_fm"), fma(v["mis"], g, v["pinc"]),
+                          v["pinc"])
+        if feat.direction:
+            inc = torch.where(on("dirneg"), -inc, inc)
+    else:
+        inc = tp["inc_row"]
+
+    # phase walk (noise voices hold their phase)
+    fin_prev = carry["finished"] != 0
+    adv = to_vm_vec((tp["adv0"] & ~fin_prev).to(I32))
+    ph, dead, ph_end, fin_end = phase_walk(
+        inc, f32v(carry["phase"]),
+        i32v(carry["finished"]) if feat.finish else None,
+        v["lo"], v["hi"], v["L"], v.get("osn"), v.get("one_shot"), adv,
+        v["act"], fm=feat.fm, finish=feat.finish, n=n)
+
+    # CZ warp and index clip
+    if feat.cz:
+        if feat.czm:
+            dm = torch.where(on("cm_ge0"),
+                             read("cz_mod_osc", "cm_delayed")
+                             * v["cz_depth"], 1.0)
+        else:
+            dm = tp["dm_row"]
+        cz_idx = cz_phasor(v["cz_mode"], ph, v["cz_dist"] + dm, v["tsize"],
+                           modes=feat.cz_modes)
+        idx_f = torch.where(v["cz_mode"] != 0, cz_idx, ph)
+    else:
+        idx_f = ph
+    idx = torch.minimum(torch.clamp(idx_f.to(I32), min=0), v["clip_i"])
+
+    # table lookup, the noise stream for noise voices, the dead mask
+    f = lookup(table, v["base_off"], v["limit"], idx)
+    f = torch.where(tp["is_noise"], noise_blk[:, None], f)
+    if feat.finish:
+        alive = dead == 0
+        f = torch.where(alive, f, 0.0)
+        cnt = alive.sum(dim=0, dtype=I32)
+        alive_in = alive.to(I32)
+    else:
+        f = torch.where(on("act"), f, 0.0)
+        cnt = torch.where(on("act"), n, 0).to(I32)
+        alive_in = v["act"]
+
+    # envelope x velocity and the amp-mod stream
+    env = amod = None
+    if feat.env:
+        counts = cbase + torch.arange(n, dtype=I32, device=f.device)[:, None]
+        env = torch.where(on("use_env"),
+                          _envelope_block(counts, v) * v["vel"], 1.0)
+    if feat.am:
+        amod = torch.where(on("am_ge0"),
+                           read("amp_mod_osc", "am_delayed")
+                           * v["am_depth_a"], 1.0)
+
+    # serial S&H + quantizer + biquad + smoother
+    st = lambda k, used: f32v(carry[k]) if used else None
+    out, x1, x2, y1, y2, sg, hc, hv = filt_smooth(
+        f, env, amod, alive_in, *(v.get(k) for k in (
+            "b0", "b1", "b2", "na1", "na2", "use_flt", "use_sm", "amp",
+            "smoothing", "am_self", "am_depth", "hold_on", "hold_max",
+            "quant_on", "levels", "inv_levels")),
+        st("x1", feat.flt), st("x2", feat.flt), st("y1", feat.flt),
+        st("y2", feat.flt), st("smoother", feat.sm),
+        i32v(carry["hold_count"]) if feat.hold else None,
+        st("hold_val", feat.hold), exact=exact,
+        feat=(feat.flt, feat.sm, feat.hold, feat.quant, feat.am_self,
+              feat.env, feat.am, feat.finish))
+
+    back = lambda a: from_vm_vec(a, b, v_)
+    cnt = back(cnt)
+    kept = lambda x, k, used: back(x) if used else carry[k]
+    new_carry = dict(
+        phase=back(ph_end),
+        finished=kept(fin_end, "finished", feat.finish),
+        sample=back(out[n - 1]),
+        hold_count=kept(hc, "hold_count", feat.hold),
+        hold_val=kept(hv, "hold_val", feat.hold),
+        x1=kept(x1, "x1", feat.flt), x2=kept(x2, "x2", feat.flt),
+        y1=kept(y1, "y1", feat.flt), y2=kept(y2, "y2", feat.flt),
+        smoother=kept(sg, "smoother", feat.sm),
+        pan_l=carry["pan_l"], pan_r=carry["pan_r"],
+    )
+    il = torch.clamp(cnt - 1, 0, n - 1)
+    return out, tp["contrib"], (cnt >= 1, il), new_carry
+
+
 def _mix_parts(carry, p, parts, feat, n, b):
     """Stereo mix of the tiers' kernel outputs ([N, B] each channel).
 
@@ -495,6 +628,7 @@ class _Render:
     o_const: Optional[dict] = None
     groups: Optional[tuple] = None
     tier_params: Optional[list] = None
+    noise: Optional[torch.Tensor] = None     # the render's noise stream
 
 
 def _tier_slice(p, ts, te, Vp):
@@ -516,9 +650,25 @@ def _gather_seg(groups, arrs, seg, B):
     return out
 
 
+def _pass_params(p_t, full_inc, ft):
+    """A tier's per-lane vectors (``_tier_params``); a noise tier's pass
+    also takes the lookup's per-lane limit and the noise-voice mask."""
+    tp = _tier_params(p_t, full_inc, ft)
+    if ft.noise:
+        is_noise = p_t["table_index"] == C.WAVE_TABLE_NOISE_ALT
+        # limit = max(size, 1): an empty table reads its first entry, as
+        # the XLA branch's table_buffer[table_off + idx] does
+        tp["vecs"]["limit"] = to_vm_vec(
+            torch.clamp(p_t["table_size"], min=1).to(I32))
+        tp.update(is_noise=to_vm_vec(is_noise),
+                  adv0=tp["active0"] & ~is_noise)
+    return tp
+
+
 def _block_step(r: _Render, carry, k_glob):
-    """One 512-sample block: every tier through the tier kernel, then
-    the mix and the volume smoother.  Returns (carry, out [N, B, 2])."""
+    """One 512-sample block: every tier through its pass (the tier
+    kernel, or the noise pass for a tier with noise voices), then the mix
+    and the volume smoother.  Returns (carry, out [N, B, 2])."""
     B, n = r.B, r.block
     if r.single_seg:
         p, o = r.p_const, r.o_const
@@ -534,6 +684,7 @@ def _block_step(r: _Render, carry, k_glob):
     bounds = np.cumsum((0,) + tuple(r.tiers))
     prev_vm = to_vm_vec(carry["sample"])
     full_inc = p["phase_inc"]
+    nblk = None if r.noise is None else r.noise[k_glob * n:(k_glob + 1) * n]
     parts, nc_parts = [], []
     done = None                          # [N, W*B] earlier tiers' samples
     for ti in range(len(r.tiers)):
@@ -541,22 +692,25 @@ def _block_step(r: _Render, carry, k_glob):
         p_t = _tier_slice(p, ts, te, r.Vp)
         c_t = _tier_slice(carry, ts, te, r.Vp)
         ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
+        if ft.noise:
+            run = functools.partial(_noise_pass, noise_blk=nblk)
+        else:
+            run = _voice_block_pass
         if r.single_seg:
             tp = r.tier_params[ti]
         else:
-            tp = _tier_params(p_t, full_inc, ft)
+            tp = _pass_params(p_t, full_inc, ft)
         if len(r.tiers) == 1:
             # one tier: the fixed-point passes read the estimate, which
             # starts as the previous block's last samples
             est = prev_vm[None].expand(n, -1) if any_mod else None
             prev = prev_vm
             for _ in range(r.mod_passes - 1):
-                est, _, _, _ = _voice_block_pass(
-                    est, prev, c_t, p_t, tp, cbase, r.table, r.exact,
-                    ft, n, B)
+                est, _, _, _ = run(est, prev, c_t, p_t, tp, cbase, r.table,
+                                   r.exact, ft, n, B)
         else:
             est, prev = done, prev_vm[:ts * B]
-        out_t, contrib_t, (aa_t, il_t), nc_t = _voice_block_pass(
+        out_t, contrib_t, (aa_t, il_t), nc_t = run(
             est, prev, c_t, p_t, tp, cbase, r.table, r.exact, ft, n, B)
         if any_mod and ti + 1 < len(r.tiers):
             done = out_t if done is None else torch.cat([done, out_t], 1)
@@ -598,7 +752,10 @@ def from_stacked(st, device="cuda") -> dict:
                                   device))
 
 
-def _prepare(st, exact, device, capture=False):
+def _prepare(st, exact, device, capture=False, noise_blocks=None):
+    """The batch on ``device`` for the block loop; the noise stream, when
+    a tier has noise voices, covers ``noise_blocks`` (default: all)
+    blocks."""
     from skred_tpu_torch.parallel.batch import pack_stacked
 
     if st.fused_passes is None:
@@ -614,9 +771,6 @@ def _prepare(st, exact, device, capture=False):
         raise NotImplementedError(
             "repeat-passes layout (cyclic union graph): ROADMAP item 7")
     feat = compute_feat(st)
-    if feat.noise:
-        raise NotImplementedError(
-            "noise-voice tiers (the 3-kernel path): ROADMAP item 6")
     if exact is None:
         exact = True
     # the kernel reads table_off + [0, table_size) unchecked: hold every
@@ -639,6 +793,9 @@ def _prepare(st, exact, device, capture=False):
                 tiers=tuple(st.tiers), feat=feat,
                 feat_tiers=_feat_tiers(st), exact=bool(exact),
                 single_seg=single_seg, mod_passes=st.fused_passes)
+    if feat.noise:
+        nb = st.num_blocks if noise_blocks is None else noise_blocks
+        r.noise = torch.as_tensor(noise_stream(nb * st.block), device=device)
     if single_seg:
         r.p_const = {k: v[:, 0] for k, v in params.items()}
         r.o_const = {k: v[:, 0] for k, v in ops.items()}
@@ -648,7 +805,7 @@ def _prepare(st, exact, device, capture=False):
             ts, te = int(bounds[ti]), int(bounds[ti + 1])
             p_t = _tier_slice(r.p_const, ts, te, Vp)
             ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
-            r.tier_params.append(_tier_params(p_t, r.p_const["phase_inc"],
+            r.tier_params.append(_pass_params(p_t, r.p_const["phase_inc"],
                                               ft))
     else:
         r.groups = (_pack_by_dtype(params, Vp), _pack_by_dtype(ops, Vp))
@@ -681,8 +838,8 @@ def render_fused_stream_device(st, chunk_blocks: int = 173,
     """Streamed render that keeps the carry and the audio on the device,
     chunk by chunk (only whole chunks render, as in the JAX package);
     returns a checksum, the |out| sum of the final chunk in f64."""
-    st, r, carry = _prepare(st, exact, device)
     whole = (st.num_blocks // chunk_blocks) * chunk_blocks
+    st, r, carry = _prepare(st, exact, device, noise_blocks=whole)
     outs = None
     with torch.no_grad():
         for b0 in range(0, whole, chunk_blocks):

@@ -1,0 +1,43 @@
+"""Argument checks and the launch call shared by the kernels' wrappers.
+
+Each ``csrc/<name>.cu`` exports ``int <name>_launch(const Args*, void*
+stream)``; its wrapper fills a ctypes mirror of ``Args`` with pointers
+from tensors checked here, and launches on the device's current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def check(kernel, name, x, dev, dtype, shape):
+    """The data pointer of ``x`` once it is a contiguous ``dtype`` tensor
+    of ``shape`` on ``dev``; raise otherwise."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{kernel}: {name} must be a tensor")
+    if x.device != dev:
+        raise ValueError(f"{kernel}: {name} on {x.device}, needs {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} is {x.dtype}, needs {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
+                         f"needs {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} is not contiguous")
+    return x.data_ptr()
+
+
+def launch(name: str, args: ctypes.Structure, device) -> None:
+    """Launch ``csrc/<name>.cu`` on ``device``'s current stream; raise if
+    CUDA refuses the launch."""
+    from skred_tpu_torch.engine.kernels import build
+
+    lib = build.load(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(ctypes.byref(args),
+                                            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

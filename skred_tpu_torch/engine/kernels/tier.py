@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from skred_tpu_torch.engine.kernels import cuda_call
 from skred_tpu_torch.engine.numerics import (cz_scales, cz_warp_coeffs,
                                              cz_warp_fast, cz_warp_k, f32,
                                              kdiv, kdiv_inv, kfma)
@@ -325,21 +326,6 @@ class TierArgs(ctypes.Structure):
                 + [(k, ctypes.c_void_p) for k in _PTR_FIELDS])
 
 
-def _check(name, x, dev, dtype, shape):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"tier: {name} must be a tensor")
-    if x.device != dev:
-        raise ValueError(f"tier: {name} on {x.device}, table on {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"tier: {name} is {x.dtype}, needs {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"tier: {name} has shape {tuple(x.shape)}, "
-                         f"needs {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"tier: {name} is not contiguous")
-    return x.data_ptr()
-
-
 def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n):
     """Check the CUDA tensors and fill the kernel's argument struct.
     Returns (TierArgs, out [N, M], end-state dict incl. cnt)."""
@@ -354,6 +340,7 @@ def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n):
     a.ts_pow2 = int(fl["ts_pow2"])
     if table.dim() != 1:
         raise ValueError("tier: table must be the flat [R] buffer")
+    _check = lambda *x: cuda_call.check("tier", *x)
     a.table = _check("table", table, dev, F32, tuple(table.shape))
     a.inc = _check("inc", inc, dev, F32, (n, m) if fl["fm"] else (m,))
     if fl["cz"]:
@@ -377,19 +364,6 @@ def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n):
     return a, out, outs
 
 
-def launch(args: TierArgs, device) -> None:
-    """Launch the kernel on ``device``'s current stream; raise if CUDA
-    refuses the launch."""
-    from skred_tpu_torch.engine.kernels import build
-
-    lib = build.load("tier")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.tier_launch(ctypes.byref(args), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"tier kernel launch failed: CUDA error {rc}")
-
-
 def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
          n):
     """One tier pass over one block (see the module docstring).
@@ -410,7 +384,7 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
         raise ValueError(f"tier: no kernel for device {table.device}")
     args, out, outs = _pack_args(table, cbase, inc, dm, amod, vecs, states,
                                  feat, exact, n)
-    launch(args, table.device)
+    cuda_call.launch("tier", args, table.device)
     tier.launches += 1
     return out, outs
 

@@ -1,8 +1,10 @@
 """The port's control plane and fused renderer against the JAX package.
 
-Packing must give the same arrays field for field; a stress64 render on
-the CPU must match ``skred_tpu.engine.fused.render_fused(use_pallas=
-False)`` to within rounding; the package must import without JAX.
+Packing must give the same arrays field for field; renders on the CPU
+(stress64 through the tier kernel's plain version, noise64 and other
+noise-voice batches through the noise pass's) must match
+``skred_tpu.engine.fused.render_fused(use_pallas=False)`` to within
+rounding; the package must import without JAX.
 """
 
 import dataclasses
@@ -20,6 +22,9 @@ from skred_tpu.host import timeline as jt
 from skred_tpu.parallel import batch as jb
 from skred_tpu_torch.assets import WaveBank as TBank
 from skred_tpu_torch.engine import fused as tf
+from skred_tpu_torch.engine.kernels import filt_smooth as tfs
+from skred_tpu_torch.engine.kernels import lookup as tlk
+from skred_tpu_torch.engine.kernels import phase_walk as tpw
 from skred_tpu_torch.engine.kernels import tier as tt
 from skred_tpu_torch.host import timeline as ttl
 from skred_tpu_torch.parallel import batch as tb
@@ -28,6 +33,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CORPUS = ROOT / "corpus"
+SCRIPTS = ROOT / "skred_tpu_torch" / "scripts"
+NOISE64 = (SCRIPTS / "noise64.sk").read_text().splitlines()
 
 # pan-mod, pan, disconnect (test_mega's in-kernel mix script)
 PAN_MOD = ["v0 w2 f2 a2", "v1 w0 f330 a3 p-0.4",
@@ -38,6 +45,10 @@ SELF_MOD = ["v0 w0 f440 a2 F0,0.3", "v1 w2 f110 a2 A1,0.5"]
 # mid-render rewiring: three segments (test_mega's fold-rewire script)
 REWIRE = ["v1 w2 f2 a2", "v2 w4 f3 a2",
           "v0 w0 f330 a3 F1,0.5 ~.06 v0 F2,0.8 ~.06 v0 F1,0.2"]
+# noise only in tier 0 (an S&H noise LFO), tier 1 takes the tier kernel
+NOISE_MIXED = ["v1 w6 f3 a1 h40", "v0 w0 f220 a3 F1,0.5"]
+# one tier: a filtered, smoothed noise voice
+NOISE_ONE_TIER = ["v0 w6 f440 a2 J1 K2000 Q1 s0.1"]
 
 
 def _compile(mod_timeline, bank, lines, seconds):
@@ -62,9 +73,15 @@ def _assert_tree_equal(a, b, where):
 
 
 @pytest.mark.parametrize("script", ["stress64.sk", "fb1.sk", "fb2.sk",
-                                    "fb3.sk", "fb4.sk", "fb5.sk"])
+                                    "fb3.sk", "fb4.sk", "fb5.sk",
+                                    "noise64.sk"])
 def test_compile_and_pack_match_jax_package(script):
-    lines = (CORPUS / script).read_text().splitlines()
+    """Field for field, rosters included (noise64's med_map_t1 and
+    big_map_t1 bind its 8,186- and 60,406-sample PCM voices)."""
+    path = CORPUS / script
+    if not path.exists():
+        path = SCRIPTS / script
+    lines = path.read_text().splitlines()
     jtl = _compile(jt, JBank(), lines, 0.05)
     ttl_ = _compile(ttl, TBank(), lines, 0.05)
     for f in ("num_blocks", "block", "seg_of_block", "seg_is_start",
@@ -110,6 +127,9 @@ def _render_cpu(st):
     ("one_tier", ONE_TIER, 0.1),
     ("self_mod", SELF_MOD, 0.1),
     ("rewire", REWIRE, 0.2),
+    ("noise64", NOISE64, 0.1),              # measured -131.8 dB
+    ("noise_mixed", NOISE_MIXED, 0.05),     # measured -132.6 dB
+    ("noise_one_tier", NOISE_ONE_TIER, 0.05),  # measured -133.6 dB
 ])
 def test_render_fused_matches_jax_package(name, lines, seconds):
     """Same packed batch (the JAX package's own StackedTimelines) through
@@ -120,7 +140,9 @@ def test_render_fused_matches_jax_package(name, lines, seconds):
     voice's samples and state match exactly (test_torch_tier, and the
     volume scan uses the JAX combine tree), so what remains is rounding
     in the final sums: measured about -130 dB against the peak on
-    stress64, asserted at -100 dB."""
+    stress64, asserted at -100 dB.  Batches with noise voices take the
+    noise pass; the same contractions (and, in the smoother, XLA's fma of
+    ``amp*env*amod - sg``) leave them at -130 to -134 dB."""
     st = _jax_packed(lines, 4, seconds)
     want = jf.render_fused(st, use_pallas=False)
     got = _render_cpu(st)
@@ -132,24 +154,39 @@ def test_render_fused_matches_jax_package(name, lines, seconds):
     assert db <= -100.0, f"{name}: {db:.1f} dB (max |diff| {err})"
 
 
-def test_stream_checksum_matches_render():
-    st = _jax_packed((CORPUS / "stress64.sk").read_text().splitlines(), 2,
-                     0.1)
+def _launch_counts():
+    return (tt.tier.launches, tpw.phase_walk.launches, tlk.lookup.launches,
+            tfs.filt_smooth.launches)
+
+
+def _check_stream_checksum(lines, seconds):
+    st = _jax_packed(lines, 2, seconds)
     out = _render_cpu(st)
     chunk = 3
     nb = st.num_blocks // chunk * chunk
     want = np.abs(out[:, (nb - chunk) * st.block:nb * st.block]) \
         .astype(np.float64).sum()
-    before = tt.tier.launches
+    before = _launch_counts()
     torch.set_flush_denormal(True)
     try:
         got = tf.render_fused_stream_device(st, chunk_blocks=chunk,
                                             device="cpu")
     finally:
         torch.set_flush_denormal(False)
-    assert tt.tier.launches == before, "a CPU render launched the kernel"
+    assert _launch_counts() == before, "a CPU render launched a kernel"
     assert got > 0 and np.isfinite(got)
     assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_stream_checksum_matches_render():
+    _check_stream_checksum((CORPUS / "stress64.sk").read_text().splitlines(),
+                           0.1)
+
+
+def test_stream_checksum_matches_render_noise64():
+    """The streamed render's noise stream covers only whole chunks; its
+    blocks line up with the one-shot render's."""
+    _check_stream_checksum(NOISE64, 0.05)
 
 
 def test_from_stacked_fields():
@@ -169,9 +206,11 @@ def test_out_of_scope_inputs_raise():
                       0.05)
     with pytest.raises(NotImplementedError, match="item 7"):
         tf.render_fused(cyc, device="cpu")
+    # noise-voice tiers render now (through the noise pass)
     noisy = _jax_packed(["v0 w6 f440 a2"], 2, 0.05)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tf.render_fused(noisy, device="cpu")
+    out = tf.render_fused(noisy, device="cpu")
+    assert out.shape == (2, noisy.num_blocks * noisy.block, 2)
+    assert np.isfinite(out).all() and np.abs(out).max() > 0.01
 
 
 def test_entry_points_default_to_the_card():
@@ -190,7 +229,8 @@ def test_package_imports_without_jax():
     code = ("import sys, skred_tpu_torch, skred_tpu_torch.engine.fused, "
             "skred_tpu_torch.parallel.batch, skred_tpu_torch.host.wire, "
             "skred_tpu_torch.engine.kernels.build, "
-            "skred_tpu_torch.engine.kernels.tier_inputs\n"
+            "skred_tpu_torch.engine.kernels.tier_inputs, "
+            "skred_tpu_torch.engine.kernels.noise_inputs\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'skred_tpu' or "
             "m.startswith('skred_tpu.')]\n"

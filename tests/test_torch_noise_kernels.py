@@ -1,0 +1,206 @@
+"""The noise pass's three kernels against the JAX package's.
+
+``phase_walk_plain``, ``lookup_plain`` (through ``table_lookup_grouped``
+and ``table_lookup_pallas``) and ``filt_smooth_plain`` must equal
+``phase_walk_pallas``, ``table_lookup_grouped``, ``table_lookup_pallas``
+and ``filt_smooth_pallas`` run in interpret mode bit for bit, on random
+blocks from a numpy seed.  The CUDA kernels are held against the plain
+versions on the card by tests/test_torch_noise_cuda.py and
+chip_smoke.py.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skred_tpu.engine import kernels as jk
+from skred_tpu_torch.engine.kernels import filt_smooth as fs
+from skred_tpu_torch.engine.kernels import lookup as lk
+from skred_tpu_torch.engine.kernels import phase_walk as pw
+from skred_tpu_torch.engine.kernels.noise_inputs import (NOISE64_FS0,
+                                                         NOISE64_FS1,
+                                                         random_fs_inputs,
+                                                         random_lookup_inputs,
+                                                         random_phase_inputs)
+
+torch.set_num_threads(1)
+
+# FsFeat cases (flt, sm, hold, quant, am_self, env, am, alive_arr).  The
+# smoother stays off wherever a per-sample gain factor (env, am stream or
+# am-self) feeds it: XLA's CPU compiler contracts the interpreted
+# kernel's ``amp*env*amod - sg`` into one fma there, while the port (like
+# the TPU kernel) rounds the product and the difference separately.
+# noise64's tier-1 set is such a case; the whole-render test of
+# tests/test_torch_fused.py covers it (about -130 dB).
+FS_CASES = {
+    "noise64_tier0": NOISE64_FS0,
+    "noise64_tier1_without_sm": NOISE64_FS1[:1] + (False,) + NOISE64_FS1[2:],
+    "noise64_tier1_without_gain_streams": (True, True, True, True, False,
+                                           False, False, True),
+    "all_but_sm": (True, False, True, True, True, True, True, True),
+}
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _same(a, b, what):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype, what
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    bad = a != b
+    assert not bad.any(), f"{what}: {bad.sum()} of {bad.size} differ"
+
+
+def _interpret(fn, *args, **kw):
+    old = jk.INTERPRET
+    jk.INTERPRET = True
+    try:
+        out = fn(*args, **kw)
+        return jax.tree_util.tree_map(np.asarray, out)
+    finally:
+        jk.INTERPRET = old
+        jax.clear_caches()
+
+
+def _flushed(fn, *args, **kw):
+    # XLA's CPU runtime flushes denormals; run the plain version the same
+    torch.set_flush_denormal(True)
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.set_flush_denormal(False)
+
+
+@pytest.mark.parametrize("fm", [False, True])
+@pytest.mark.parametrize("finish", [False, True])
+def test_phase_walk_plain_matches_pallas_interpret(fm, finish):
+    n, m = 64, 1024
+    args = random_phase_inputs(fm, finish, n, m, seed=5)
+    want = _interpret(jk.phase_walk_pallas, *map(_j, args), fm=fm,
+                      finish=finish, n=n)
+    got = _flushed(pw.phase_walk_plain, *map(_t, args), fm=fm,
+                   finish=finish, n=n)
+    if finish:
+        assert 0 < want[1].mean() < 1, "no lane died or every lane did"
+    for k, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None
+        else:
+            _same(g.numpy(), w, f"output {k}")
+
+
+@pytest.mark.parametrize("slot_size", [4096, 32768])
+def test_lookup_plain_matches_table_lookup_grouped(slot_size):
+    table, slot, idx = random_lookup_inputs(128, 96, slot_size, seed=2)
+    tab3 = table.reshape(-1, slot_size // 128, 128)
+    want = _interpret(jk.table_lookup_grouped, _j(tab3), _j(slot), _j(idx),
+                      slot_size=slot_size)
+    before = lk.table_lookup_grouped.launches
+    got = lk.table_lookup_grouped(_t(tab3), _t(slot), _t(idx), slot_size)
+    assert lk.table_lookup_grouped.launches == before
+    _same(got.numpy(), want, "out")
+
+
+@pytest.mark.parametrize("slot_size", [4096, 32768])
+def test_lookup_plain_matches_table_lookup_pallas(slot_size):
+    # indices past the slot read 0 in both
+    table, slot, idx = random_lookup_inputs(128, 16, slot_size, seed=3,
+                                            out_of_range=True)
+    tab3 = table.reshape(-1, slot_size // 128, 128)
+    want = _interpret(jk.table_lookup_pallas, _j(tab3), _j(slot), _j(idx),
+                      slot_size=slot_size)
+    got = lk.table_lookup_pallas(_t(tab3), _t(slot), _t(idx), slot_size)
+    assert (want == 0).any() and (want != 0).mean() > 0.9
+    _same(got.numpy(), want, "out")
+
+
+def test_lookup_pass_form_is_the_flat_gather():
+    """``lookup(table, table_off, max(size, 1), idx)`` on time-major
+    indices is the XLA branch's ``table_buffer[table_off + idx]``."""
+    rng = np.random.default_rng(9)
+    table = rng.standard_normal(3 * 32768).astype(np.float32)
+    size = rng.choice(np.array([0, 1, 707, 4096, 32768], np.int32), 40)
+    off = rng.integers(0, 2, 40).astype(np.int32) * 32768
+    idx = (rng.uniform(0, 1, (64, 40)) * np.maximum(size, 1)).astype(
+        np.int32)
+    got = lk.lookup(_t(table), _t(off), _t(np.maximum(size, 1)), _t(idx))
+    _same(got.numpy(), table[off[None, :] + idx], "out")
+
+
+@pytest.mark.parametrize("case", sorted(FS_CASES))
+def test_filt_smooth_plain_matches_pallas_interpret(case):
+    feat = FS_CASES[case]
+    n, m = 64, 1024
+    args = random_fs_inputs(feat, n, m, seed=7)
+    want = _interpret(jk.filt_smooth_pallas, *map(_j, args), exact=True,
+                      feat=feat)
+    got = _flushed(fs.filt_smooth_plain, *map(_t, args), exact=True,
+                   feat=feat)
+    assert (want[0] != 0).mean() > 0.5, "too few live samples to compare"
+    for k, (g, w) in enumerate(zip(got, want)):
+        _same(g.numpy(), w, f"output {k}")
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    before = (pw.phase_walk.launches, fs.filt_smooth.launches,
+              lk.lookup.launches, lk.table_lookup_pallas.launches)
+    args = random_phase_inputs(True, True, 16, 256, seed=1)
+    got = pw.phase_walk(*map(_t, args), fm=True, finish=True, n=16)
+    want = pw.phase_walk_plain(*map(_t, args), fm=True, finish=True, n=16)
+    for g, w in zip(got, want):
+        _same(g.numpy(), w.numpy(), "phase_walk")
+    args = random_fs_inputs(NOISE64_FS1, 16, 256, seed=1)
+    got = fs.filt_smooth(*map(_t, args), feat=NOISE64_FS1)
+    want = fs.filt_smooth_plain(*map(_t, args), feat=NOISE64_FS1)
+    for g, w in zip(got, want):
+        _same(g.numpy(), w.numpy(), "filt_smooth")
+    table, slot, idx = random_lookup_inputs(16, 64, 4096, seed=1)
+    lk.table_lookup_pallas(_t(table).reshape(-1, 32, 128), _t(slot),
+                           _t(idx))
+    after = (pw.phase_walk.launches, fs.filt_smooth.launches,
+             lk.lookup.launches, lk.table_lookup_pallas.launches)
+    assert after == before, "a CPU tensor launched a kernel"
+
+
+def _c_struct_fields(src, name):
+    """(field, "int" | "ptr") of a C struct, in order."""
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        if "*" in decl:
+            fields += [(f, "ptr") for f in re.findall(r"\*\s*(\w+)", decl)]
+        else:
+            kind = "int64" if decl.startswith("long long") else "int"
+            names = decl.replace("long long", "").split()[1 if kind == "int"
+                                                        else 0:]
+            fields += [(f.strip(","), kind) for f in names]
+    return fields
+
+
+@pytest.mark.parametrize("kernel,struct,cls", [
+    ("phase_walk", "PhaseWalkArgs", pw.PhaseWalkArgs),
+    ("lookup", "LookupArgs", lk.LookupArgs),
+    ("filt_smooth", "FiltSmoothArgs", fs.FiltSmoothArgs),
+])
+def test_args_match_cuda_structs(kernel, struct, cls):
+    src = open(pw.__file__.rsplit("/", 1)[0]
+               + f"/csrc/{kernel}.cu").read()
+    kinds = {pw.ctypes.c_void_p: "ptr", pw.ctypes.c_int: "int",
+             pw.ctypes.c_longlong: "int64"}
+    want = [(k, kinds[t]) for k, t in cls._fields_]
+    assert _c_struct_fields(src, struct) == want
