@@ -3,12 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the checkout, holds each against its
-plain PyTorch version, renders two scripts at 1024 rows x 10 s through
-the port's main path, and checks the audio: corpus/stress64.sk (64
+plain PyTorch version, renders the in-repo scripts at 1024 rows through
+the port's main paths, and checks the audio: corpus/stress64.sk (64
 voices, the reference's design point), whose two tiers take the tier
-kernel, and skred_tpu_torch/scripts/noise64.sk (stress64 with noise
-voices in both tiers), whose tiers take the noise pass (phase walk,
-table lookup, filter/smoother).  Phases, in order (any failure exits
+kernel; skred_tpu_torch/scripts/noise64.sk (stress64 with noise voices
+in both tiers), whose tiers take the noise pass (phase walk, table
+lookup, filter/smoother); and corpus/fb1-fb5.sk, whose cyclic modulation
+graphs take the cyclic kernel.  Phases, in order (any failure exits
 non-zero):
 
   1. device       the card's name and power limit (nvidia-smi)
@@ -18,7 +19,9 @@ non-zero):
                   stress64's two tier feature sets; phase_walk and
                   filt_smooth on noise64's; the lookups (grouped and
                   single-lane forms at 4096- and 32768-sample slots, and
-                  the noise pass's base/limit form)
+                  the noise pass's base/limit form); cyclic on fb1's,
+                  fb2's, fb3's, fb5's and an all-features script's own
+                  vectors with random states (512 frames x 1024 rows)
   4. main         stress64: bucket_key -> fill_bucket -> stack_timelines
                   (1024 rows) -> pack_stacked -> pad_segments_pow2 ->
                   render_fused_stream_device(chunk_blocks=172): one
@@ -29,10 +32,25 @@ non-zero):
   5. short        stress64's first 4 blocks at 8 rows through the kernel
                   path and a plain-version path on the card (bit for
                   bit), and against the port's CPU render (-100 dB)
-  6. noise main   noise64 as in 4: each noise kernel launched twice per
-                  block, the tier kernel never; torch.take timed beside
-                  the lookup
+  6. noise main   noise64 as in 4, cut to 2 chunks (344 blocks, 3.99 s
+                  of audio per row) to keep the run short: each noise
+                  kernel launched twice per block, the tier kernel never;
+                  torch.take timed beside the lookup
   7. noise short  noise64 as in 5
+  8. cyclic main  each of fb1-fb5: stack_timelines (1024 rows) ->
+                  pack_stacked(cyclic=True) ->
+                  render_cyclic_stream_device(chunk_blocks=172), 10 s:
+                  one warm-up, one timed pass with the launch counts
+                  read around it (one cyclic launch per block, no other
+                  kernel); a profiled chunk of fb2 and of fb4 (4
+                  segments); the kernel alone on
+                  fb2's and fb5's first-block inputs at 1024 and at
+                  16,384 rows (the same inputs tiled), its plain version
+                  and its bound
+  9. cyclic short fb2, and fb4 with its waits cut to 0.012 s (a segment
+                  per block), at 8 rows x 4 blocks, as in 5
+ 10. batch        render_batch over stress64, noise64 and fb1-fb5 at
+                  0.25 s: finite, no silent row, every kernel launched
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs torch with CUDA and nvcc; imports
@@ -56,6 +74,9 @@ CHUNK = 172
 HERE = pathlib.Path(__file__).resolve().parent
 STRESS64 = HERE / "corpus" / "stress64.sk"
 NOISE64 = HERE / "skred_tpu_torch" / "scripts" / "noise64.sk"
+NOISE64_SECONDS = 4.0              # 344 whole blocks: 2 chunks of 172
+FEEDBACK = [HERE / "corpus" / f"fb{i}.sk" for i in range(1, 6)]
+WIDE_ROWS = 16 * ROWS              # the cyclic kernel's second row count
 KERNEL_N, KERNEL_M = 512, 8192
 
 
@@ -235,6 +256,33 @@ def filt_smooth_spec(fs):
                 bound=bnd, lanes=lambda a, kw: a[0].shape[1])
 
 
+def cyclic_spec(ck):
+    def outs_of(out_l, out_r, new_states):
+        return [out_l, out_r] + [new_states[k] for k in sorted(new_states)]
+
+    def pack(a, kw):
+        args, out_l, out_r, new_states = ck._pack_args(*a)
+        return args, outs_of(out_l, out_r, new_states)
+
+    def bnd(a, kw):
+        table, table_off, _, noise_blk, vecs, states, vf, feat, k, n = a[:10]
+        fl, rows = ck._flags(feat), vf.shape[0]
+        per_voice = 12 + (3 if fl["fm"] else 0) + (8 if fl["cz"] else 0) \
+            + (4 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
+            + (12 if fl["env"] else 0) + (2 if fl["am"] else 0) \
+            + (3 if fl["sm"] else 0) + (6 if fl["pm"] else 0)
+        read = nbytes(table, table_off, noise_blk, vf, *vecs.values(),
+                      *states.values())
+        write = 2 * n * rows * 4 + nbytes(*(states[key] for key, _ in
+                                            ck._state_keys(fl))) + rows * 4
+        return bound(read, write, n * rows * (k * per_voice + 5))
+
+    return dict(name="cyclic", fn=ck.cyclic_block, pack=pack,
+                run=lambda a, kw: outs_of(*ck.cyclic_block(*a, **kw)),
+                plain=lambda a, kw: outs_of(*ck.cyclic_block_plain(*a, **kw)),
+                bound=bnd, lanes=lambda a, kw: a[6].shape[0])
+
+
 # ---- phases ----
 
 def kernel_phase(dev, specs, errs):
@@ -246,8 +294,17 @@ def kernel_phase(dev, specs, errs):
     from skred_tpu_torch.engine.kernels.tier_inputs import (
         STRESS64_TIER0, STRESS64_TIER1, random_tier_inputs)
 
+    from skred_tpu_torch.engine.kernels import cyclic_inputs as ci
+
     n, m = KERNEL_N, KERNEL_M
     calls = []
+    for path in FEEDBACK[:3] + FEEDBACK[4:]:
+        a = ci.on_device(ci.block_inputs(path.read_text().splitlines(),
+                                         ROWS, seed=16, n=n), dev)
+        calls.append(("cyclic", f"{path.stem}, {a[8]} voices", a, {}))
+    a = ci.on_device(ci.block_inputs(ci.ALL_FEATURES, ROWS, seed=17, n=n),
+                     dev)
+    calls.append(("cyclic", f"all-features script, {a[8]} voices", a, {}))
     for label, feat in (("stress64 tier0", STRESS64_TIER0),
                         ("stress64 tier1", STRESS64_TIER1)):
         table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
@@ -338,7 +395,7 @@ def table_lookup_timing(lk, lib, card):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def prepare(path):
+def prepare(path, seconds):
     from skred_tpu_torch.assets.bank import WaveBank
     from skred_tpu_torch.host.timeline import compile_script
     from skred_tpu_torch.parallel.batch import (bucket_key, fill_bucket,
@@ -348,7 +405,7 @@ def prepare(path):
 
     lines = path.read_text().splitlines()
     t0 = time.time()
-    tl = compile_script(lines, SECONDS, bank=WaveBank(),
+    tl = compile_script(lines, seconds, bank=WaveBank(),
                         script_dir=HERE / "corpus")
     vp, _, _ = bucket_key(tl)
     rows = fill_bucket([tl], vp)[:ROWS]
@@ -362,7 +419,8 @@ def prepare(path):
     return lines, st
 
 
-def main_path(label, path, dev, card, specs, on_path, counters, errs):
+def main_path(label, path, dev, card, specs, on_path, counters, errs,
+              seconds=SECONDS):
     """Drive ``path`` at full width through render_fused_stream_device:
     warm-up (capturing each kernel's first-block inputs), the timed pass
     with every launch count (``counters``: name -> wrapper) set to 0
@@ -372,7 +430,7 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs):
     from skred_tpu_torch.engine import fused
     from skred_tpu_torch.engine.kernels import cuda_call
 
-    lines, st = prepare(path)
+    lines, st = prepare(path, seconds)
     captured = {}
     real = {name: getattr(fused, name) for name in on_path}
 
@@ -403,6 +461,10 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs):
     wall = time.time() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     audio_s = st.batch * whole * st.block / 44100.0
+    if seconds != SECONDS:
+        log(f"{label}: cut to {whole // CHUNK} chunks of {CHUNK} blocks "
+            f"({whole * st.block / 44100.0:.3f} s of audio per row) to keep "
+            f"the run short")
     log(f"{label}: wall {wall:.3f} s, {audio_s / wall:.1f}x realtime "
         f"({st.batch} rows x {whole * st.block / 44100.0:.3f} s rendered), "
         f"launches {launches} ({whole} blocks x 2 tiers), checksum {cs}, "
@@ -415,7 +477,9 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs):
                  f"({whole} blocks x 2 tiers)")
     if not (np.isfinite(cs) and cs > 0):
         fail(f"bad checksum {cs}")
-    log(profile_line(label, fused, st, dev, on_path))
+    log(profile_line(
+        label, lambda: fused.render_fused_stream_device(
+            st, CHUNK, warmup_only=True, device=dev), on_path))
 
     timings = {}
     for (name, m), (a, kw) in sorted(captured.items()):
@@ -451,8 +515,9 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs):
     return launches, timings, lines
 
 
-def profile_line(label, fused, st, dev, names):
-    """Device time by kernel over one profiled chunk."""
+def profile_line(label, run, names):
+    """Device time by kernel over one profiled chunk (``run`` renders
+    it)."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
@@ -460,8 +525,7 @@ def profile_line(label, fused, st, dev, names):
                                  ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.time()
-            fused.render_fused_stream_device(st, CHUNK, warmup_only=True,
-                                             device=dev)
+            run()
             torch.cuda.synchronize()
             pwall = time.time() - t0
         dev_us = {}
@@ -491,29 +555,24 @@ def profile_line(label, fused, st, dev, names):
         return f"profile ({label}): not measured ({type(ex).__name__}: {ex})"
 
 
-def short_path(label, lines, dev, plain_swap):
+def short_path(label, st4, dev, module, render, plain_swap):
     """The first 4 blocks at 8 rows: kernel path, plain-version path on
-    the card (bit for bit), and the port's CPU render (-100 dB)."""
-    from skred_tpu_torch.assets.bank import WaveBank
-    from skred_tpu_torch.engine import fused
-    from skred_tpu_torch.host.timeline import compile_script
-    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
-
-    tl4 = compile_script(lines, 4 * 512 / 44100.0, bank=WaveBank(),
-                         script_dir=HERE / "corpus")
-    st4 = pack_stacked(stack_timelines([tl4] * 8))
-    if st4.num_blocks != 4:
-        fail(f"short render has {st4.num_blocks} blocks, not 4")
-    a = fused.render_fused(st4, device=dev)
-    real = {k: getattr(fused, k) for k in plain_swap}
+    the card (bit for bit), and the port's CPU render (-100 dB).
+    ``render`` is ``module``'s entry point; ``plain_swap`` names the
+    wrappers in ``module`` and their plain versions."""
+    if st4.num_blocks != 4 or st4.batch != 8:
+        fail(f"short render has {st4.batch} rows x {st4.num_blocks} "
+             f"blocks, not 8 x 4")
+    a = render(st4, device=dev)
+    real = {k: getattr(module, k) for k in plain_swap}
     for k, fn in plain_swap.items():
-        setattr(fused, k, fn)
+        setattr(module, k, fn)
     try:
-        b = fused.render_fused(st4, device=dev)
+        b = render(st4, device=dev)
     finally:
         for k, fn in real.items():
-            setattr(fused, k, fn)
-    c = fused.render_fused(st4, device="cpu")
+            setattr(module, k, fn)
+    c = render(st4, device="cpu")
     peak = float(np.abs(c).max())
     db_plain = 20 * np.log10(max(float(np.abs(a - b).max()), 1e-30) / peak)
     db_cpu = 20 * np.log10(max(float(np.abs(a - c).max()), 1e-30) / peak)
@@ -524,17 +583,182 @@ def short_path(label, lines, dev, plain_swap):
         f"{verdict(a, c, db_cpu)}, peak {peak:.3f}")
     if not np.all(np.isfinite(a)) or a.shape != (8, 4 * 512, 2):
         fail(f"{label} render: bad shape or non-finite samples")
+    if not peak > 0.01:
+        fail(f"{label} render is silent")
     if not np.array_equal(a, b):
         fail(f"{label}: kernel path vs plain path {db_plain:.1f} dB")
     if db_cpu > -100:
         fail(f"{label}: card render vs CPU render {db_cpu:.1f} dB")
 
 
+def short_batch(lines, cyclic=False):
+    """``lines`` compiled for 4 blocks and packed at 8 rows."""
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.host.timeline import compile_script
+    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+
+    tl4 = compile_script(lines, 4 * 512 / 44100.0, bank=WaveBank(),
+                         script_dir=HERE / "corpus")
+    return pack_stacked(stack_timelines([tl4] * 8), cyclic=cyclic)
+
+
+def tile_rows(x, times):
+    """A ``[rows]`` or ``[k, rows]`` tensor (either layout the cyclic
+    kernel takes) with its rows repeated ``times`` times."""
+    if x.dim() == 1:
+        return x.repeat(times)
+    if x.is_contiguous():
+        return x.repeat(1, times)
+    return x.T.repeat(times, 1).T
+
+
+def cyclic_main(dev, card, spec, counters, errs):
+    """Drive fb1-fb5 at full width through render_cyclic_stream_device
+    (see the module docstring).  Returns (launches by script, timings by
+    script and row count)."""
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.engine import cyclic
+    from skred_tpu_torch.engine.kernels import cuda_call
+    from skred_tpu_torch.host.timeline import compile_script
+    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+
+    real = cyclic.cyclic_block
+    launches, captured, batches = {}, {}, {}
+    for path in FEEDBACK:
+        name = path.stem
+        t0 = time.time()
+        tl = compile_script(path.read_text().splitlines(), SECONDS,
+                            bank=WaveBank(), script_dir=path.parent)
+        st = pack_stacked(stack_timelines([tl] * ROWS), cyclic=True)
+        batches[name] = st
+        k = st.params["amp"].shape[-1]
+        segs = st.params["amp"].shape[1]
+        reason = cyclic.cyclic_gate(st)
+        if tl.fused_passes is not None or reason is not None:
+            fail(f"{name}: not a cyclic batch the kernel takes ({reason})")
+        host_s = time.time() - t0
+
+        def capture(*a, **kw):
+            captured.setdefault(name, (a, kw))
+            return real(*a, **kw)
+
+        cyclic.cyclic_block = capture
+        try:
+            cyclic.render_cyclic_stream_device(st, CHUNK, warmup_only=True,
+                                               device=dev)
+        finally:
+            cyclic.cyclic_block = real
+        torch.cuda.synchronize()
+        whole = st.num_blocks // CHUNK * CHUNK
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        cs = cyclic.render_cyclic_stream_device(st, CHUNK, device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {nm: fn.launches for nm, fn in counters.items()}
+        launches[name] = counts["cyclic"]
+        audio_s = st.batch * whole * st.block / 44100.0
+        log(f"cyclic main {name}: {st.batch} rows x {k} voices, {segs} "
+            f"segment(s), host compile+pack {host_s:.1f} s; wall "
+            f"{wall:.3f} s, {audio_s / wall:.1f}x realtime ({st.batch} rows "
+            f"x {whole * st.block / 44100.0:.3f} s rendered), launches "
+            f"{counts} ({whole} blocks), checksum {cs}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+        for nm, count in counts.items():
+            want = whole if nm == "cyclic" else 0
+            if count != want:
+                fail(f"{nm}.launches {count} != {want} on cyclic main "
+                     f"{name} ({whole} blocks)")
+        if not (np.isfinite(cs) and cs > 0):
+            fail(f"cyclic main {name}: bad checksum {cs}")
+    log(profile_line(
+        "cyclic main fb2", lambda: cyclic.render_cyclic_stream_device(
+            batches["fb2"], CHUNK, warmup_only=True, device=dev),
+        ["cyclic"]))
+    log(profile_line(
+        "cyclic main fb4", lambda: cyclic.render_cyclic_stream_device(
+            batches["fb4"], CHUNK, warmup_only=True, device=dev),
+        ["cyclic"]))
+
+    timings = {}
+    for name in ("fb2", "fb5"):
+        a, kw = captured[name]
+        args, outs = spec["pack"](a, kw)
+        ms = cuda_ms(lambda: cuda_call.launch("cyclic", args, dev), 20)
+        plain_ms, want = host_ms(lambda: spec["plain"](a, kw))
+        bad = [i for i, (g, w) in enumerate(zip(outs, want))
+               if not same_bits(g, w)]
+        errs["cyclic"] = max([errs.get("cyclic", 0.0)]
+                             + [max_abs(g, w) for g, w in zip(outs, want)])
+        if bad:
+            fail(f"cyclic kernel disagrees with its plain version on "
+                 f"{name}'s first block (outputs {bad})")
+        bound_ms, bound_by = spec["bound"](a, kw)
+        timings[name, ROWS] = dict(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=None)
+        # the same inputs tiled to 16 times the rows
+        times = WIDE_ROWS // ROWS
+        wide = list(a)
+        wide[4] = {kk: tile_rows(v, times) for kk, v in a[4].items()}
+        wide[5] = {kk: tile_rows(v, times) for kk, v in a[5].items()}
+        wide[6] = tile_rows(a[6], times)
+        args_w, outs_w = spec["pack"](tuple(wide), kw)
+        ms_w = cuda_ms(lambda: cuda_call.launch("cyclic", args_w, dev), 20)
+        if not (same_bits(outs_w[0][:ROWS], outs[0])
+                and same_bits(outs_w[0][-ROWS:], outs[0])):
+            fail(f"cyclic kernel at {WIDE_ROWS} rows disagrees with itself "
+                 f"at {ROWS} on {name}'s tiled inputs")
+        bound_w, by_w = spec["bound"](tuple(wide), kw)
+        timings[name, WIDE_ROWS] = dict(ms=ms_w, bound_ms=bound_w,
+                                        bound_by=by_w)
+        log(f"cyclic {name} first block, {a[8]} voices x {a[9]} frames: "
+            f"kernel {ms:.4f} ms/call at {ROWS} rows (bound {bound_ms:.4f} "
+            f"ms, {bound_by}), {ms_w:.4f} ms/call at {WIDE_ROWS} rows "
+            f"(bound {bound_w:.4f} ms, {by_w}; {ms_w / ms:.2f}x the time "
+            f"for 16x the rows), plain {plain_ms:.1f} ms at {ROWS} rows, "
+            f"library call: none, path inputs bit-equal to plain, "
+            f"(CUDA events, 20 calls) on {card}")
+    return launches, timings
+
+
+def batch_phase(dev, card, counters):
+    """render_batch over every in-repo script: the fused engine's two
+    buckets and five cyclic scripts in one call."""
+    from skred_tpu_torch.parallel.batch import render_batch
+
+    scripts = [STRESS64, NOISE64] + FEEDBACK
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    out = render_batch(scripts, 0.25, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {nm: fn.launches for nm, fn in counters.items()}
+    peaks = [float(np.abs(row).max()) for row in out]
+    log(f"batch: {len(scripts)} scripts x 0.25 s in {wall:.2f} s, out "
+        f"{out.shape}, peaks {[round(x, 3) for x in peaks]}, launches "
+        f"{counts} on {card}")
+    if out.shape != (len(scripts), 22 * 512, 2) or out.dtype != np.float32:
+        fail(f"batch: bad output {out.shape} {out.dtype}")
+    if not np.isfinite(out).all():
+        fail("batch: non-finite samples")
+    if min(peaks) <= 0.01:
+        fail(f"batch: a silent row (peaks {peaks})")
+    for nm in ("tier", "phase_walk", "lookup", "filt_smooth", "cyclic"):
+        if counts[nm] <= 0:
+            fail(f"batch: {nm} was not launched")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "card")
+    from skred_tpu_torch.engine import cyclic, fused
     from skred_tpu_torch.engine.kernels import build
+    from skred_tpu_torch.engine.kernels import cyclic as ck
     from skred_tpu_torch.engine.kernels import filt_smooth as fs
     from skred_tpu_torch.engine.kernels import lookup as lk
     from skred_tpu_torch.engine.kernels import phase_walk as pw
@@ -559,11 +783,12 @@ def main():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
+    for name in ("tier", "phase_walk", "lookup", "filt_smooth", "cyclic"):
         build.load(name)
 
     specs = {s["name"]: s for s in (tier_spec(tk), phase_walk_spec(pw),
-                                    lookup_spec(lk), filt_smooth_spec(fs))}
+                                    lookup_spec(lk), filt_smooth_spec(fs),
+                                    cyclic_spec(ck))}
     noise_kernels = ["phase_walk", "lookup", "filt_smooth"]
     counters = {name: sp["fn"] for name, sp in specs.items()}
     counters.update(table_lookup=lk.table_lookup_pallas,
@@ -576,17 +801,38 @@ def main():
     # ---- 4./5. stress64: the tier kernel's path ----
     s_launch, s_time, s_lines = main_path(
         "main", STRESS64, dev, card, specs, ["tier"], counters, errs)
-    short_path("short", s_lines, dev, {"tier": tk.tier_plain})
+    short_path("short", short_batch(s_lines), dev, fused,
+               fused.render_fused, {"tier": tk.tier_plain})
 
     # ---- 6./7. noise64: the noise pass's path ----
     n_launch, n_time, n_lines = main_path(
         "noise main", NOISE64, dev, card, specs, noise_kernels, counters,
-        errs)
-    short_path("noise short", n_lines, dev,
+        errs, seconds=NOISE64_SECONDS)
+    short_path("noise short", short_batch(n_lines), dev, fused,
+               fused.render_fused,
                {"phase_walk": pw.phase_walk_plain,
                 "lookup": lk.lookup_plain,
                 "filt_smooth": fs.filt_smooth_plain})
     tl_time = table_lookup_timing(lk, lib, card)
+
+    # ---- 8./9. fb1-fb5: the cyclic kernel's path ----
+    c_launch, c_time = cyclic_main(dev, card, specs["cyclic"], counters,
+                                   errs)
+    fb2, fb4 = (p.read_text().splitlines() for p in (FEEDBACK[1],
+                                                     FEEDBACK[3]))
+    short_path("cyclic short fb2", short_batch(fb2, cyclic=True), dev,
+               cyclic, cyclic.render_cyclic,
+               {"cyclic_block": ck.cyclic_block_plain})
+    fb4_fast = [ln.replace("~.5", "~.012") for ln in fb4]
+    st4 = short_batch(fb4_fast, cyclic=True)
+    if st4.params["amp"].shape[1] < 3:
+        fail("cyclic short fb4: fewer than 3 segments in 4 blocks")
+    short_path("cyclic short fb4 (waits cut to 0.012 s, "
+               f"{st4.params['amp'].shape[1]} segments)", st4, dev, cyclic,
+               cyclic.render_cyclic, {"cyclic_block": ck.cyclic_block_plain})
+
+    # ---- 10. every in-repo script through render_batch ----
+    batch_phase(dev, card, counters)
 
     def record(name, launches, timings, replaces, source):
         m = max(mm for (nm, mm) in timings if nm == name)
@@ -609,6 +855,13 @@ def main():
              replaces="skred_tpu/engine/kernels.py:648",
              launches=n_launch["table_lookup"],
              max_abs_err=errs.get("table_lookup", 0.0), **tl_time),
+        # fb2's timed pass (each of fb1-fb5 showed one launch per block)
+        # and fb2's first-block inputs at 1024 rows
+        dict(name="cyclic", route="cuda",
+             source="skred_tpu_torch/engine/kernels/csrc/cyclic.cu",
+             replaces="skred_tpu/engine/cyclic.py:544",
+             launches=c_launch["fb2"],
+             max_abs_err=errs.get("cyclic", 0.0), **c_time["fb2", ROWS]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

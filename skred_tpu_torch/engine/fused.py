@@ -16,10 +16,11 @@ Layout: per-lane streams are time-major ``[N, M]`` over voice-major lanes
 the kernels and the mix never transpose a block.  Per-voice parameters
 and the carry stay ``[B, V]`` as the JAX package keeps them.
 
-Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_stream_
-device) on its Pallas paths.  Out of scope here, each raising
-NotImplementedError: cyclic graphs, capture, the repeat-passes layout
-and several devices.
+Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_stream,
+render_fused_stream_device) on its Pallas paths.  A cyclic batch is a
+ValueError here, as in the JAX package: ``engine/cyclic.py`` renders it
+(``render_cyclic``).  Not ported yet, each raising NotImplementedError:
+capture, the repeat-passes layout and several devices.
 """
 
 from __future__ import annotations
@@ -752,16 +753,17 @@ def from_stacked(st, device="cuda") -> dict:
                                   device))
 
 
-def _prepare(st, exact, device, capture=False, noise_blocks=None):
-    """The batch on ``device`` for the block loop; the noise stream, when
-    a tier has noise voices, covers ``noise_blocks`` (default: all)
-    blocks."""
+def _prepare(st, exact, device, capture=False, noise_blocks=None,
+             noise=None):
+    """The batch on ``device`` for the block loop; the noise stream
+    (``noise``, or the engine's own), when a tier has noise voices,
+    covers ``noise_blocks`` (default: all) blocks."""
     from skred_tpu_torch.parallel.batch import pack_stacked
 
     if st.fused_passes is None:
-        raise NotImplementedError(
-            "cyclic modulation graph (1-sample feedback): the cyclic "
-            "engine is ROADMAP item 7 of the port")
+        raise ValueError(
+            "cyclic modulation graph (1-sample feedback): the fused "
+            "engine cannot render it; use engine.cyclic.render_cyclic")
     if capture:
         raise NotImplementedError("capture=True: per-voice streams are "
                                   "not ported yet (ROADMAP item 8)")
@@ -769,7 +771,8 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None):
         st = pack_stacked(st)
     if not st.tiers:
         raise NotImplementedError(
-            "repeat-passes layout (cyclic union graph): ROADMAP item 7")
+            "repeat-passes layout (cyclic union graph) is not ported: "
+            "ROADMAP item 3")
     feat = compute_feat(st)
     if exact is None:
         exact = True
@@ -795,7 +798,9 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None):
                 single_seg=single_seg, mod_passes=st.fused_passes)
     if feat.noise:
         nb = st.num_blocks if noise_blocks is None else noise_blocks
-        r.noise = torch.as_tensor(noise_stream(nb * st.block), device=device)
+        stream = noise_stream(nb * st.block) if noise is None \
+            else np.asarray(noise, np.float32)[:nb * st.block]
+        r.noise = torch.as_tensor(stream, device=device)
     if single_seg:
         r.p_const = {k: v[:, 0] for k, v in params.items()}
         r.o_const = {k: v[:, 0] for k, v in ops.items()}
@@ -829,6 +834,25 @@ def render_fused(st, exact: Optional[bool] = None, capture: bool = False,
         carry, outs = _render_chunk(r, carry, 0, st.num_blocks)
     return outs.permute(2, 0, 1, 3).reshape(
         st.batch, st.num_blocks * st.block, 2).cpu().numpy()
+
+
+def render_fused_stream(st, chunk_blocks: int = 256, noise=None,
+                        exact: Optional[bool] = None,
+                        keep_rows: Optional[int] = None, device="cuda"):
+    """Generator yielding rendered chunks as numpy ``[rows, chunk*block,
+    2]`` (the last chunk may be shorter): device memory is bounded by the
+    chunk, whatever the render's length, and the carry goes from chunk
+    to chunk.  ``keep_rows`` downloads only the first rows of each chunk
+    (a replicated batch skips the transfer of redundant rows).  Runs on
+    the card unless ``device="cpu"``."""
+    st, r, carry = _prepare(st, exact, device, noise=noise)
+    rows = st.batch if keep_rows is None else min(keep_rows, st.batch)
+    for b0 in range(0, st.num_blocks, chunk_blocks):
+        nb = min(chunk_blocks, st.num_blocks - b0)
+        with torch.no_grad():
+            carry, outs = _render_chunk(r, carry, b0, nb)
+        yield outs[:, :, :rows].permute(2, 0, 1, 3).reshape(
+            rows, nb * st.block, 2).cpu().numpy()
 
 
 def render_fused_stream_device(st, chunk_blocks: int = 173,

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on first use into
-``build/kernels/<name>-<hash>.so`` at the repository root, with a plain C
+``build/kernels/<name>-<hash>.so`` at the repository root (the hash is of
+the source, the shared ``csrc/*.cuh`` headers and the flags), with a plain C
 entry point (no PyTorch headers, so a build takes seconds).  Importing
 this module compiles nothing.  The flags keep the reference rounding:
 no multiply-add contraction (``-fmad=false``), IEEE division and square
@@ -38,7 +39,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the hash covers the shared headers too: an edit of a .cuh rebuilds
+    # every source that may include it
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{h}.so"
 

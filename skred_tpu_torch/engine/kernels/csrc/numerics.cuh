@@ -1,0 +1,161 @@
+// Exact-f32 device helpers shared by the port's kernels (tier.cu,
+// cyclic.cu): the JAX package's in-kernel arithmetic (kernels.py
+// _kfma, _kdiv_from, _kdiv, _kdiv_inv, _k_fast_pow, _cz_scales,
+// _cz_warp_k, _cz_warp_coeffs, _cz_warp_fast), bit for bit.  A source
+// that includes this header builds with -fmad=false: nothing here may be
+// contracted beyond the __fmaf_rn calls it spells out.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+// _kfma sites: a single correctly rounded fma
+__device__ __forceinline__ float kfma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+}
+
+// exact mode: fma; fast mode: separately rounded multiply and add
+__device__ __forceinline__ float xfma(float a, float b, float c, int exact) {
+    return exact ? __fmaf_rn(a, b, c) : __fadd_rn(__fmul_rn(a, b), c);
+}
+
+// kernels._kdiv_from: Newton step on the seed, two Markstein corrections
+__device__ __forceinline__ float kdiv_from(float y0, float a, float b) {
+    float r = kfma(-b, y0, 1.0f);
+    float y = kfma(y0, r, y0);
+    float q = __fmul_rn(a, y);
+    float e = kfma(-b, q, a);
+    q = kfma(e, y, q);
+    e = kfma(-b, q, a);
+    q = kfma(e, y, q);
+    return q;
+}
+
+__device__ __forceinline__ float kdiv(float a, float b) {
+    float q = kdiv_from(__fdiv_rn(1.0f, b), a, b);
+    return isfinite(q) ? q : __fdiv_rn(a, b);
+}
+
+__device__ __forceinline__ float kdiv_inv(float a, float y1, float b) {
+    float q0 = __fmul_rn(a, y1);
+    float r = kfma(-b, q0, a);
+    float q = kfma(r, y1, q0);
+    return isfinite(q) ? q : __fdiv_rn(a, b);
+}
+
+__device__ __forceinline__ float xdiv(float a, float b, int exact) {
+    return exact ? kdiv(a, b) : __fdiv_rn(a, b);
+}
+
+// kernels._k_fast_pow (synth.c:140-147)
+__device__ __forceinline__ float k_fast_pow(float a, float b, int exact) {
+    float g = (float)(__float_as_int(a) - 1065353216);
+    float x = xfma(b, g, 1065353216.0f, exact);
+    float r = __int_as_float((int)x);
+    return a <= 0.0f ? 0.0f : r;
+}
+
+__device__ __forceinline__ bool has_mode(int mask, int k) {
+    return (mask >> k) & 1;
+}
+
+// kernels._cz_scales: the warp's d-dependent factors
+struct CzScales { float d, s1a, s1b, sc2, sc5b, p6, p7; };
+
+__device__ __forceinline__ CzScales cz_scales(float d, int exact, int mask) {
+    CzScales s;
+    d = d < 0.0f ? 0.0f : d;            // jnp.clip: max then min, NaN kept
+    d = d > 0.999f ? 0.999f : d;
+    s.d = d;
+    s.s1a = s.s1b = s.sc2 = s.sc5b = s.p6 = s.p7 = 0.0f;
+    if (has_mode(mask, 1)) {
+        s.s1a = xdiv(0.5f, d, exact);
+        s.s1b = xdiv(0.5f, 1.0f - d, exact);
+    }
+    if (has_mode(mask, 2) || has_mode(mask, 3) || has_mode(mask, 5))
+        s.sc2 = xdiv(0.5f, 0.5f - d * 0.5f, exact);
+    if (has_mode(mask, 5)) s.sc5b = xdiv(0.5f, 0.5f + d * 0.5f, exact);
+    if (has_mode(mask, 6)) s.p6 = 1.0f + 4.0f * d;
+    if (has_mode(mask, 7)) s.p7 = 1.0f + 8.0f * d;
+    return s;
+}
+
+// kernels._cz_warp_k on the lane's own mode (modes are exclusive, so the
+// JAX select chain picks exactly this curve, or the raw phase)
+__device__ __forceinline__ float cz_warp_k(int mode, float phase,
+                                           const CzScales& s, float tsz,
+                                           int exact, int mask) {
+    float out = phase;
+    if (mode >= 1 && mode <= 7 && has_mode(mask, mode)) {
+        switch (mode) {
+        case 1:
+            out = phase < s.d ? phase * s.s1a
+                              : xfma(phase - s.d, s.s1b, 0.5f, exact);
+            break;
+        case 2:
+            out = phase < 0.5f ? phase * s.sc2
+                               : xfma(-(1.0f - phase), s.sc2, 1.0f, exact);
+            break;
+        case 3:
+            out = phase < 0.5f ? phase * s.sc2
+                               : xfma(phase - 0.5f, s.sc2, 0.5f, exact);
+            break;
+        case 4:
+            out = fmodf(phase * 2.0f, 1.0f);
+            break;
+        case 5:
+            out = phase < 0.5f ? phase * s.sc2
+                               : xfma(phase - 0.5f, s.sc5b, 0.5f, exact);
+            break;
+        case 6:
+            out = k_fast_pow(phase, s.p6, exact);
+            break;
+        default:
+            out = k_fast_pow(phase, s.p7, exact);
+            break;
+        }
+    }
+    return out * tsz;
+}
+
+// kernels._cz_warp_coeffs: modes 1/2/3/5 as one knee curve, 6/7 as one
+// fast_pow exponent, selected once per block
+struct CzCoeffs { int is_pl, is_4, is_pw; float knee, sa, c, sb, off, pexp; };
+
+__device__ __forceinline__ CzCoeffs cz_coeffs(int mode, const CzScales& s,
+                                              int mask) {
+    CzCoeffs k;
+    k.is_pl = k.is_4 = k.is_pw = 0;
+    k.knee = k.sa = k.c = k.sb = k.off = k.pexp = 0.0f;
+    if (mode >= 1 && mode <= 7 && has_mode(mask, mode)) {
+        switch (mode) {
+        case 1: k.is_pl = 1; k.knee = s.d; k.sa = s.s1a; k.c = s.d;
+                k.sb = s.s1b; k.off = 0.5f; break;
+        case 2: k.is_pl = 1; k.knee = 0.5f; k.sa = s.sc2; k.c = 1.0f;
+                k.sb = s.sc2; k.off = 1.0f; break;
+        case 3: k.is_pl = 1; k.knee = 0.5f; k.sa = s.sc2; k.c = 0.5f;
+                k.sb = s.sc2; k.off = 0.5f; break;
+        case 5: k.is_pl = 1; k.knee = 0.5f; k.sa = s.sc2; k.c = 0.5f;
+                k.sb = s.sc5b; k.off = 0.5f; break;
+        case 4: k.is_4 = 1; break;
+        case 6: k.is_pw = 1; k.pexp = s.p6; break;
+        default: k.is_pw = 1; k.pexp = s.p7; break;
+        }
+    }
+    return k;
+}
+
+// kernels._cz_warp_fast
+__device__ __forceinline__ float cz_warp_fast(const CzCoeffs& k, float phase,
+                                              float tsz, int exact) {
+    float out = phase;
+    if (k.is_pl)
+        out = phase < k.knee ? phase * k.sa
+                             : xfma(phase - k.c, k.sb, k.off, exact);
+    else if (k.is_4)
+        out = fmodf(phase * 2.0f, 1.0f);
+    else if (k.is_pw)
+        out = k_fast_pow(phase, k.pexp, exact);
+    return out * tsz;
+}

@@ -2,9 +2,9 @@
 
 The reference binary is built by gcc, which contracts some multiply-adds
 into single-rounding fmas and divides with a correctly rounded ``/``.
-These helpers reproduce that rounding with plain f32 operations
-(Veltkamp split, Dekker product, TwoSum, round-to-odd), op for op as the
-JAX package writes them, so the same inputs give the same bits on every
+These helpers reproduce that rounding (the fma through an exact f64
+product and a sum rounded to odd, the divides op for op as the JAX
+package writes them), so the same inputs give the same bits on every
 device.  Torch runs each elementwise op as its own kernel, so nothing
 here is contracted behind the caller's back.
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 F32 = torch.float32
+F64 = torch.float64
 I32 = torch.int32
 
 
@@ -46,8 +47,34 @@ def _f32_tensors(*vals):
 
 
 def fma32(a, b, c):
-    """Correctly rounded f32 ``a*b + c`` from f32 ops alone (the JAX
-    package's ``render._fma32`` and ``kernels._kfma``)."""
+    """Correctly rounded f32 ``a*b + c`` (the JAX package's
+    ``render._fma32`` and ``kernels._kfma``, and the card's
+    ``__fmaf_rn``).  The product of two f32 values is exact in f64; the
+    f64 sum is rounded to odd with its TwoSum error, so the final
+    rounding to f32 is the only one that counts (53 >= 24 + 2 bits)."""
+    tensors = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
+    if len(tensors) < 2 or any(t.dtype != F32 for t in tensors):
+        a, b, c = _f32_tensors(a, b, c)
+    # a Python scalar joins as the f64 value of its f32 rounding
+    a, b, cd = (x.to(F64) if isinstance(x, torch.Tensor)
+                else float(np.float32(x)) for x in (a, b, c))
+    p = a * b                                # exact
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)         # p + cd = s + err, exactly
+    si = s.view(torch.int64)
+    # inexact (a NaN or infinite s has a NaN err) and even: step to the
+    # odd neighbour on err's side
+    need = (err.abs() > 0.0) & ((si & 1) == 0)
+    step = torch.where((err > 0.0) != (s < 0.0), 1, -1)
+    return torch.where(need, (si + step).view(F64), s).to(F32)
+
+
+def fma32_emulated(a, b, c):
+    """``fma32`` from f32 ops alone (Veltkamp split, Dekker product,
+    TwoSum, round-to-odd), op for op as the JAX package writes it.  Equal
+    to ``fma32`` wherever no intermediate leaves the normal f32 range;
+    kept as the tests' cross-check."""
     a, b, c = _f32_tensors(a, b, c)
     C = 4097.0                           # 2^12 + 1
     g = a * C

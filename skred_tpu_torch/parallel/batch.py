@@ -1,14 +1,17 @@
 """Batch packing: many scripts stacked into one ``[scripts, ...]`` batch.
 
 Scripts are padded to a common segment count (repeating their final
-segment) and share one packed wavetable buffer.  Everything here is
-numpy; the render entry points live in ``engine/fused.py``.
+segment) and share one packed wavetable buffer.  The packing is numpy;
+``render_batch`` sends each script to its engine (``engine/fused.py``, or
+``engine/cyclic.py`` for a cyclic modulation graph), imported when it is
+called.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import pathlib
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -130,6 +133,74 @@ def _prep_params(st: StackedTimelines):
     # the renderer reads table_key only through table_off
     params["table_key"] = np.zeros_like(params["table_off"])
     return params
+
+
+def render_batch(scripts: List[pathlib.Path], seconds: float,
+                 outdir: Optional[pathlib.Path] = None,
+                 engine: str = "auto", device="cuda") -> np.ndarray:
+    """Batch-render scripts on one device → ``[scripts, T, 2]``, with
+    per-script error isolation: a script that fails to compile is skipped
+    (reported) without killing the batch, the analog of the reference's
+    parse-and-survive stance.
+
+    engine "auto": acyclic scripts are grouped by ``bucket_key`` (voices,
+    passes, feature set) and each group renders as one batch with the
+    fused engine; a script with a cyclic modulation graph renders alone,
+    at the rows it has, with the cyclic engine.  A cyclic script that the
+    cyclic engine's gate refuses, and ``engine="compat"``, need the
+    compat engine, which is not ported: both raise NotImplementedError.
+    ``outdir`` writes one 16-bit WAV per rendered script.  Runs on the
+    card unless ``device="cpu"``."""
+    from skred_tpu_torch.assets.bank import WaveBank, write_wav_16
+    from skred_tpu_torch.engine import cyclic
+    from skred_tpu_torch.engine.fused import render_fused
+    from skred_tpu_torch.host.timeline import compile_script
+
+    if engine == "compat":
+        raise NotImplementedError(
+            'engine="compat": the compat engine is not ported '
+            "(ROADMAP item 8)")
+    bank = WaveBank()
+    tls, ok_scripts = [], []
+    for p in scripts:
+        try:
+            tls.append(compile_script(p.read_text().splitlines(), seconds,
+                                      bank=bank,
+                                      script_dir=p.resolve().parent))
+            ok_scripts.append(p)
+        except Exception as ex:   # noqa: BLE001 — isolate per script
+            print(f"# skipping {p}: {type(ex).__name__}: {ex}")
+    if not tls:
+        return np.zeros((0, 0, 2), np.float32)
+
+    buckets: dict = {}
+    cyclic_idx = []
+    for i, tl in enumerate(tls):
+        if tl.fused_passes is None:
+            cyclic_idx.append(i)
+        else:
+            buckets.setdefault(bucket_key(tl), []).append(i)
+    out = np.zeros((len(tls), tls[0].num_blocks * tls[0].block, 2),
+                   np.float32)
+    for _, idxs in sorted(buckets.items()):
+        st = pack_stacked(stack_timelines([tls[i] for i in idxs]))
+        out[idxs] = render_fused(st, device=device)
+    for i in cyclic_idx:
+        # one bucket per script identity keeps the per-voice table
+        # bindings row-uniform, which is all the gate asks for
+        st = pack_stacked(stack_timelines([tls[i]]), cyclic=True)
+        reason = cyclic.cyclic_gate(st)
+        if reason is not None:
+            raise NotImplementedError(
+                f"the cyclic engine refused {ok_scripts[i]} ({reason}); "
+                f"it needs the compat engine, which is not ported "
+                f"(ROADMAP item 8)")
+        out[i] = cyclic.render_cyclic(st, device=device)[0]
+
+    if outdir is not None:
+        for p, audio in zip(ok_scripts, out):
+            write_wav_16(outdir / (p.stem + ".wav"), audio)
+    return out
 
 
 _MOD_TYPES = ("freq_mod_osc", "amp_mod_osc", "pan_mod_osc", "cz_mod_osc")

@@ -21,6 +21,7 @@ from skred_tpu.engine import fused as jf
 from skred_tpu.host import timeline as jt
 from skred_tpu.parallel import batch as jb
 from skred_tpu_torch.assets import WaveBank as TBank
+from skred_tpu_torch.engine import cyclic as tcy
 from skred_tpu_torch.engine import fused as tf
 from skred_tpu_torch.engine.kernels import filt_smooth as tfs
 from skred_tpu_torch.engine.kernels import lookup as tlk
@@ -204,8 +205,10 @@ def test_from_stacked_fields():
 def test_out_of_scope_inputs_raise():
     cyc = _jax_packed((CORPUS / "fb1.sk").read_text().splitlines(), 2,
                       0.05)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="render_cyclic"):
         tf.render_fused(cyc, device="cpu")
+    with pytest.raises(ValueError, match="render_cyclic"):
+        next(tf.render_fused_stream(cyc, device="cpu"))
     # noise-voice tiers render now (through the noise pass)
     noisy = _jax_packed(["v0 w6 f440 a2"], 2, 0.05)
     out = tf.render_fused(noisy, device="cpu")
@@ -223,11 +226,29 @@ def test_entry_points_default_to_the_card():
         tf.render_fused(st)
     with pytest.raises((RuntimeError, AssertionError)):
         tf.render_fused_stream_device(st, chunk_blocks=2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        next(tf.render_fused_stream(st, chunk_blocks=2))
+    cyc = jb.pack_stacked(jb.stack_timelines(
+        [_compile(jt, JBank(), (CORPUS / "fb1.sk").read_text().splitlines(),
+                  0.05)] * 2), cyclic=True)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tcy.render_cyclic(cyc)
+    with pytest.raises((RuntimeError, AssertionError)):
+        next(tcy.render_cyclic_stream(cyc))
+    with pytest.raises((RuntimeError, AssertionError)):
+        tcy.render_cyclic_stream_device(cyc, chunk_blocks=2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tb.render_batch([CORPUS / "fb1.sk"], 0.05)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tb.render_batch([CORPUS / "stress64.sk"], 0.05)
 
 
 def test_package_imports_without_jax():
     code = ("import sys, skred_tpu_torch, skred_tpu_torch.engine.fused, "
             "skred_tpu_torch.parallel.batch, skred_tpu_torch.host.wire, "
+            "skred_tpu_torch.engine.cyclic, "
+            "skred_tpu_torch.engine.kernels.cyclic, "
+            "skred_tpu_torch.engine.kernels.cyclic_inputs, "
             "skred_tpu_torch.engine.kernels.build, "
             "skred_tpu_torch.engine.kernels.tier_inputs, "
             "skred_tpu_torch.engine.kernels.noise_inputs\n"

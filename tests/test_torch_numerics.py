@@ -55,6 +55,28 @@ def test_fma32_bitwise(which):
     _same_bits(want[ok], exact[ok])
 
 
+def test_fma32_equals_its_f32_emulation():
+    """``fma32`` (exact f64 product, sum rounded to odd) against the f32
+    emulation the JAX package writes, tensor and scalar operands."""
+    rng = np.random.default_rng(11)
+    a, b, c = map(_t, _fma_operands(rng))
+    _same_bits(tn.fma32(a, b, c).numpy(), tn.fma32_emulated(a, b, c).numpy())
+    for k in (0.002, 0.5, 1.0):
+        _same_bits(tn.fma32(k, b, c).numpy(),
+                   tn.fma32_emulated(k, b, c).numpy())
+        _same_bits(tn.fma32(a, b, k).numpy(),
+                   tn.fma32_emulated(a, b, k).numpy())
+        _same_bits(tn.fma32(-a, k, k).numpy(),
+                   tn.fma32_emulated(-a, k, k).numpy())
+    edge = tn.fma32(_t(np.array([np.inf, np.nan, 1e38, 0.0, -0.0],
+                                np.float32)),
+                    _t(np.array([1.0, 1.0, 1e10, 0.0, 0.0], np.float32)),
+                    _t(np.array([1.0, 1.0, 1.0, -0.0, -0.0], np.float32)))
+    want = np.array([np.inf, np.nan, np.inf, 0.0, -0.0], np.float32)
+    _same_bits(np.nan_to_num(edge.numpy(), nan=7.0),
+               np.nan_to_num(want, nan=7.0))
+
+
 def test_div32_bitwise():
     rng = np.random.default_rng(2)
     x = rng.standard_normal(150_000).astype(np.float32) * 1e3
