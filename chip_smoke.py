@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from the checkout, holds each against its
 plain PyTorch version, renders the in-repo scripts at 1024 rows through
 the port's main paths, and checks the audio: corpus/stress64.sk (64
 voices, the reference's design point), whose two tiers take the tier
-kernel; skred_tpu_torch/scripts/noise64.sk (stress64 with noise voices
+kernel with its in-kernel stereo mix and, in tier 1, its modulator-bank
+fold; skred_tpu_torch/scripts/noise64.sk (stress64 with noise voices
 in both tiers), whose tiers take the noise pass (phase walk, table
 lookup, filter/smoother); and corpus/fb1-fb5.sk, whose cyclic modulation
 graphs take the cyclic kernel.  Phases, in order (any failure exits
@@ -16,7 +17,11 @@ non-zero):
   2. build        nvcc for every csrc/*.cu, all started together
   3. kernel       every kernel vs its plain version on the card, bit for
                   bit, on random blocks (N=512, M=8192): tier on
-                  stress64's two tier feature sets; phase_walk and
+                  stress64's two tier feature sets, and with the mix,
+                  with the fold of each of fm / cz / am and of all three
+                  (per-lane sources, some outside the bank), and with
+                  both, writing into a block buffer's columns and adding
+                  onto earlier accumulators; phase_walk and
                   filt_smooth on noise64's; the lookups (grouped and
                   single-lane forms at 4096- and 32768-sample slots, and
                   the noise pass's base/limit form); cyclic on fb1's,
@@ -28,10 +33,17 @@ non-zero):
                   warm-up, one timed pass with the launch counts read
                   around it, a profiled chunk; then each kernel alone,
                   its plain version and its bound on the path's own
-                  first-block inputs
+                  first-block inputs.  Mix and fold are on (the
+                  default).  Then a 2-chunk batch of stress64 rendered
+                  with mix and fold on, off, off, on in turns, each
+                  configuration profiled and its tier calls timed alone
   5. short        stress64's first 4 blocks at 8 rows through the kernel
                   path and a plain-version path on the card (bit for
-                  bit), and against the port's CPU render (-100 dB)
+                  bit), against the port's CPU render (-100 dB) and
+                  against the card's render with mix and fold off
+                  (-120 dB: the voice sum's order); then the same for a
+                  repeat-passes script (two segments whose union graph
+                  is cyclic: no tiers, estimate passes)
   6. noise main   noise64 as in 4, cut to 2 chunks (344 blocks, 3.99 s
                   of audio per row) to keep the run short: each noise
                   kernel launched twice per block, the tier kernel never;
@@ -39,7 +51,9 @@ non-zero):
   7. noise short  noise64 as in 5
   8. cyclic main  each of fb1-fb5: stack_timelines (1024 rows) ->
                   pack_stacked(cyclic=True) ->
-                  render_cyclic_stream_device(chunk_blocks=172), 10 s:
+                  render_cyclic_stream_device(chunk_blocks=172), 10 s
+                  for fb2 and fb5, 2 chunks (3.99 s) for fb1, fb3 and
+                  fb4 to keep the run short:
                   one warm-up, one timed pass with the launch counts
                   read around it (one cyclic launch per block, no other
                   kernel); a profiled chunk of fb2 and of fb4 (4
@@ -76,6 +90,10 @@ STRESS64 = HERE / "corpus" / "stress64.sk"
 NOISE64 = HERE / "skred_tpu_torch" / "scripts" / "noise64.sk"
 NOISE64_SECONDS = 4.0              # 344 whole blocks: 2 chunks of 172
 FEEDBACK = [HERE / "corpus" / f"fb{i}.sk" for i in range(1, 6)]
+# each segment's modulation graph is acyclic, their union is not: the
+# pack gives no tiers and the render repeats estimate passes
+UNION_CYCLE = ["v0 w0 f330 a3 F1,0.5", "v1 w2 f2 a2",
+               "v2 w0 f220 a2 p0.3 ~.02 v0 F1,0 v1 F0,0.4"]
 WIDE_ROWS = 16 * ROWS              # the cyclic kernel's second row count
 KERNEL_N, KERNEL_M = 512, 8192
 
@@ -153,18 +171,37 @@ def to_card(arrs, dev):
 # renderer passed them.
 
 def tier_spec(tk):
-    from skred_tpu_torch.engine.kernels.tier import _flags, _state_keys
+    from skred_tpu_torch.engine.kernels.tier import (_FOLD_VECS, _flags,
+                                                     _folded, _state_keys)
 
     def pack(a, kw):
-        args, out, outs = tk._pack_args(*a, kw["feat"], kw.get("exact", True),
-                                        kw["n"])
+        args, out, outs = tk._pack_args(
+            *a, feat=kw["feat"], exact=kw.get("exact", True), n=kw["n"],
+            b=kw.get("b"), mixw=kw.get("mixw"), acc=kw.get("acc"),
+            fold=kw.get("fold"), out=kw.get("out"))
         return args, [out] + [outs[k] for k in sorted(outs)]
 
     def flat(result):
         out, res = result
         return [out] + [res[k] for k in sorted(res)]
 
+    def fresh(a, kw, plain):
+        """The call with accumulators of its own (a call adds onto them
+        in place); the plain version also gets an output of its own, so
+        that it does not write over the kernel's."""
+        kw = dict(kw)
+        if kw.get("acc") is not None:
+            kw["acc"] = tuple(x.clone() for x in kw["acc"])
+        if plain:
+            kw["out"] = None
+        return a, kw
+
     def bnd(a, kw):
+        """Bytes: every stream passed in, the bank columns this call's
+        lanes read (each once, whatever the number of readers, plus their
+        previous samples), the per-lane vectors and states; out, the end
+        states and, with the mix, the weights and the accumulators (read
+        too where the call adds onto earlier ones)."""
         table, cbase, inc, dm, amod, vecs, states = a
         fl, n = _flags(kw["feat"]), kw["n"]
         m = vecs["amp"].shape[0]
@@ -174,9 +211,29 @@ def tier_spec(tk):
             + (2 if fl["am"] else 0) + 1
         read = nbytes(table, inc, dm, amod, *vecs.values(), *states.values())
         write = n * m * 4 + m * 4 * (len(_state_keys(fl)) + 1)
+        fold = kw.get("fold")
+        folded = _folded(fl, fold)
+        if folded and fold.w:
+            b = kw["b"]
+            lane_b = torch.arange(m, device=vecs["amp"].device) % b
+            gate = {"fm": "use_fm", "cz": "cm_ge0", "am": "am_ge0"}
+            cols = []
+            for k in folded:
+                src = vecs[_FOLD_VECS[k][0]].long()
+                on = (src >= 0) & (src < fold.w) & (vecs[gate[k]] != 0)
+                cols.append((src * b + lane_b)[on])
+            read += (n + 1) * 4 * int(torch.unique(torch.cat(cols)).numel())
+        if kw.get("mixw") is not None:
+            b = kw["b"]
+            ops += 4
+            read += nbytes(*kw["mixw"])
+            write += 2 * n * b * 4 + m * 4
+            if kw.get("acc") is not None:
+                read += 2 * n * b * 4
         return bound(read, write, ops * n * m)
 
-    return dict(name="tier", fn=tk.tier, pack=pack,
+    return dict(name="tier", fn=tk.tier, pack=pack, fresh=fresh,
+                folded=lambda kw: _folded(_flags(kw["feat"]), kw.get("fold")),
                 run=lambda a, kw: flat(tk.tier(*a, **kw)),
                 plain=lambda a, kw: flat(tk.tier_plain(*a, **kw)),
                 bound=bnd, lanes=lambda a, kw: a[5]["amp"].shape[0])
@@ -314,6 +371,7 @@ def kernel_phase(dev, specs, errs):
              {k: t(v) for k, v in vecs.items()},
              {k: t(v) for k, v in states.items()})
         calls.append(("tier", label, a, dict(feat=feat, n=n)))
+    calls += tier_variant_calls(dev, n)
     for label, (fm, fin) in (("noise64 tier0", NOISE64_PW0),
                              ("noise64 tier1", NOISE64_PW1)):
         a = to_card(random_phase_inputs(fm, fin, n, m, seed=12), dev)
@@ -331,9 +389,11 @@ def kernel_phase(dev, specs, errs):
                        idx.T.contiguous()), {}))
     for name, label, a, kw in calls:
         sp = specs[name]
-        got = sp["run"](a, kw)
+        fresh = sp.get("fresh", lambda a, kw, plain: (a, kw))
+        got = [None if g is None else g.clone()
+               for g in sp["run"](*fresh(a, kw, False))]
         torch.cuda.synchronize()
-        want = sp["plain"](a, kw)
+        want = sp["plain"](*fresh(a, kw, True))
         bad = [i for i, (g, w) in enumerate(zip(got, want))
                if not same_bits(g, w)]
         err = max(max_abs(g, w) for g, w in zip(got, want)
@@ -365,6 +425,59 @@ def kernel_phase(dev, specs, errs):
                 fail(f"{fn.__name__} disagrees with its plain version")
         lib[ss] = (tab3, slot, idx, table, base)
     return lib
+
+
+def tier_variant_calls(dev, n):
+    """The tier kernel's mix and fold variants on random blocks of 8
+    voices x 1024 rows over a bank of 4 voices: stress64's tier-1
+    feature set (fm), and every stage at once (cz-mod and am streams,
+    am self-reads).  The folded calls write into the block buffer whose
+    first columns are their bank; "both" also adds onto accumulators."""
+    from skred_tpu_torch.engine.kernels.tier import Fold, _flags
+    from skred_tpu_torch.engine.kernels.tier_inputs import (
+        STRESS64_TIER1, random_fold_inputs, random_mix_weights,
+        random_tier_inputs)
+
+    every = (True,) * 12 + ((1, 2, 3, 4, 5, 6, 7), False)
+    b, v, w = KERNEL_M // 8, 8, 4
+    m = b * v
+    t = lambda x: None if x is None else torch.from_numpy(x).to(dev)
+    calls = []
+    for label, feat, seed in (("stress64 tier1", STRESS64_TIER1, 21),
+                              ("every stage", every, 22)):
+        table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
+            feat, n, m, seed=seed)
+        bank, prev, fv = random_fold_inputs(n, m, b, w, seed=seed)
+        wl, wr = random_mix_weights(m, seed=seed)
+        fl = _flags(feat)
+        have = tuple(k for k, on in (("fm", fl["fm"]), ("cz", fl["czm"]),
+                                     ("am", fl["am"])) if on)
+        tv = {k: t(x) for k, x in {**vecs, **fv}.items()}
+        ts = {k: t(x) for k, x in states.items()}
+        buf = torch.zeros((n, (w + v) * b), device=dev)
+        buf[:, :w * b] = t(bank)
+        given = {"fm": t(inc), "cz": t(dm), "am": t(amod)}
+        mixw = (t(wl), t(wr))
+        variants = [("mix", (), True)] + [(f"fold {k}", (k,), False)
+                                          for k in have]
+        if len(have) > 1:
+            variants.append(("fold " + "+".join(have), have, False))
+        variants.append(("mix + fold " + "+".join(have), have, True))
+        for what, streams, mix in variants:
+            g = {k: (None if k in streams else x) for k, x in given.items()}
+            kw = dict(feat=feat, n=n, b=b)
+            if streams:
+                kw.update(fold=Fold(buf[:, :w * b], t(prev), w, streams),
+                          out=buf[:, w * b:])
+            if mix:
+                kw["mixw"] = mixw
+            if mix and streams:
+                kw["acc"] = (torch.full((n, b), 0.25, device=dev),
+                             torch.full((n, b), -0.5, device=dev))
+            calls.append(("tier", f"{label}, {what}",
+                          (t(table), cbase, g["fm"], g["cz"], g["am"], tv,
+                           ts), kw))
+    return calls
 
 
 def table_lookup_timing(lk, lib, card):
@@ -419,18 +532,10 @@ def prepare(path, seconds):
     return lines, st
 
 
-def main_path(label, path, dev, card, specs, on_path, counters, errs,
-              seconds=SECONDS):
-    """Drive ``path`` at full width through render_fused_stream_device:
-    warm-up (capturing each kernel's first-block inputs), the timed pass
-    with every launch count (``counters``: name -> wrapper) set to 0
-    before and read after, one profiled chunk, then each kernel of
-    ``on_path`` alone on its captured inputs.  Returns (launches,
-    timings by kernel and lane count, the script's lines)."""
-    from skred_tpu_torch.engine import fused
-    from skred_tpu_torch.engine.kernels import cuda_call
-
-    lines, st = prepare(path, seconds)
+def capture_first_calls(fused, specs, on_path, render):
+    """Run ``render`` with every wrapper of ``on_path`` in ``fused``
+    recording the arguments of its first call per lane count.  Returns
+    {(kernel, lanes): (args, kwargs)}."""
     captured = {}
     real = {name: getattr(fused, name) for name in on_path}
 
@@ -444,12 +549,76 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs,
     for name in on_path:
         setattr(fused, name, capturer(name))
     try:
-        fused.render_fused_stream_device(st, CHUNK, warmup_only=True,
-                                         device=dev)
+        render()
     finally:
         for name in on_path:
             setattr(fused, name, real[name])
     torch.cuda.synchronize()
+    return captured
+
+
+def time_captured(label, captured, specs, dev, card, errs):
+    """Each captured call alone: the kernel (CUDA events, 20 launches)
+    against its plain version (bit for bit), its bound and, where there
+    is one, the library call.  Returns timings by kernel and lanes."""
+    from skred_tpu_torch.engine.kernels import cuda_call
+
+    timings = {}
+    for (name, m), (a, kw) in sorted(captured.items()):
+        sp = specs[name]
+        fresh = sp.get("fresh", lambda a, kw, plain: (a, kw))
+        ka, kkw = fresh(a, kw, False)
+        args, outs = sp["pack"](ka, kkw)
+        cuda_call.launch(name, args, dev)
+        torch.cuda.synchronize()
+        got = [None if g is None else g.clone() for g in outs]
+        ms = cuda_ms(lambda: cuda_call.launch(name, args, dev), 20)
+        plain_ms, want = host_ms(lambda: sp["plain"](*fresh(a, kw, True)))
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if not same_bits(g, w)]
+        errs[name] = max([errs.get(name, 0.0)]
+                         + [max_abs(g, w) for g, w in zip(got, want)
+                            if g is not None])
+        if bad:
+            fail(f"{name} kernel disagrees with its plain version on the "
+                 f"{label} path's M={m} call (outputs {bad})")
+        bound_ms, bound_by = sp["bound"](a, kw)
+        lib_ms = None
+        if "library" in sp:
+            lib = sp["library"](a)
+            lib_ms = cuda_ms(lib, 20)
+            if not same_bits(lib(), got[0]):
+                fail(f"the library call does not compute {name}'s function")
+        timings[name, m] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=lib_ms)
+        lib_part = "" if lib_ms is None else f", torch.take {lib_ms:.4f} ms"
+        how = ""
+        if name == "tier":
+            fold = kw.get("fold")
+            streams = sp["folded"](kw)
+            how = (" mix" if kw.get("mixw") is not None else " no mix") \
+                + (f", fold {'+'.join(streams)} over {fold.w} voices"
+                   if streams else ", no fold")
+        log(f"{name} M={m}{how} ({label}): kernel {ms:.4f} ms/call, plain "
+            f"{plain_ms:.1f} ms{lib_part}, bound {bound_ms:.4f} ms "
+            f"({bound_by}), path inputs bit-equal to plain, on {card}")
+    return timings
+
+
+def main_path(label, path, dev, card, specs, on_path, counters, errs,
+              seconds=SECONDS):
+    """Drive ``path`` at full width through render_fused_stream_device:
+    warm-up (capturing each kernel's first-block inputs), the timed pass
+    with every launch count (``counters``: name -> wrapper) set to 0
+    before and read after, one profiled chunk, then each kernel of
+    ``on_path`` alone on its captured inputs.  Returns (launches,
+    timings by kernel and lane count, the script's lines)."""
+    from skred_tpu_torch.engine import fused
+
+    lines, st = prepare(path, seconds)
+    captured = capture_first_calls(
+        fused, specs, on_path, lambda: fused.render_fused_stream_device(
+            st, CHUNK, warmup_only=True, device=dev))
 
     whole = st.num_blocks // CHUNK * CHUNK
     for fn in counters.values():
@@ -481,38 +650,58 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs,
         label, lambda: fused.render_fused_stream_device(
             st, CHUNK, warmup_only=True, device=dev), on_path))
 
-    timings = {}
-    for (name, m), (a, kw) in sorted(captured.items()):
-        sp = specs[name]
-        args, outs = sp["pack"](a, kw)
-        ms = cuda_ms(lambda: cuda_call.launch(name, args, dev), 20)
-        plain_ms, want = host_ms(lambda: sp["plain"](a, kw))
-        bad = [i for i, (g, w) in enumerate(zip(outs, want))
-               if not same_bits(g, w)]
-        errs[name] = max([errs.get(name, 0.0)]
-                         + [max_abs(g, w) for g, w in zip(outs, want)
-                            if g is not None])
-        if bad:
-            fail(f"{name} kernel disagrees with its plain version on the "
-                 f"{label} path's M={m} call (outputs {bad})")
-        bound_ms, bound_by = sp["bound"](a, kw)
-        lib_ms = None
-        if "library" in sp:
-            lib = sp["library"](a)
-            lib_ms = cuda_ms(lib, 20)
-            if not same_bits(lib(), outs[0]):
-                fail(f"the library call does not compute {name}'s function")
-        timings[name, m] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=lib_ms)
-        lib_part = "" if lib_ms is None else f", torch.take {lib_ms:.4f} ms"
-        log(f"{name} M={m} ({label}): kernel {ms:.4f} ms/call, plain "
-            f"{plain_ms:.1f} ms{lib_part}, bound {bound_ms:.4f} ms "
-            f"({bound_by}), path inputs bit-equal to plain, on {card}")
+    timings = time_captured(label, captured, specs, dev, card, errs)
     log(f"{label} summary: wall {wall:.3f} s, {audio_s / wall:.1f}x realtime, "
         + ", ".join(f"{name} {t['ms']:.4f} ms/call at M={m}"
                     for (name, m), t in sorted(timings.items()))
         + f" (CUDA events), on {card}")
     return launches, timings, lines
+
+
+def config_compare(dev, card, specs, errs):
+    """stress64 with the tier kernel's mix and fold on and off, in one
+    run on one card: a 2-chunk batch rendered on, off, off, on; then per
+    configuration a profiled chunk and the tier calls alone on its own
+    first-block inputs.  Nothing is asserted about which is faster."""
+    from skred_tpu_torch.engine import fused
+
+    _, st = prepare(STRESS64, NOISE64_SECONDS)
+    whole = st.num_blocks // CHUNK * CHUNK
+    configs = {"mix+fold on": dict(mix=True, fold=True),
+               "mix+fold off": dict(mix=False, fold=False)}
+    run = lambda cfg, **kw: fused.render_fused_stream_device(
+        st, CHUNK, device=dev, **configs[cfg], **kw)
+    captured = {cfg: capture_first_calls(
+        fused, specs, ["tier"], lambda: run(cfg, warmup_only=True))
+        for cfg in configs}
+    walls = {cfg: [] for cfg in configs}
+    sums = {}
+    for cfg in ("mix+fold on", "mix+fold off", "mix+fold off",
+                "mix+fold on"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sums[cfg] = run(cfg)
+        torch.cuda.synchronize()
+        walls[cfg].append(time.time() - t0)
+    audio_s = st.batch * whole * st.block / 44100.0
+    order = {"mix+fold on": "1 and 4", "mix+fold off": "2 and 3"}
+    for cfg, ws in walls.items():
+        log(f"config {cfg}: stress64, {whole} blocks ({whole // CHUNK} "
+            f"chunks), wall " + " / ".join(f"{w:.3f}" for w in ws)
+            + f" s (passes {order[cfg]} of 4), "
+            f"{audio_s / min(ws):.1f}x realtime at best, checksum "
+            f"{sums[cfg]} on {card}")
+    rel = abs(sums["mix+fold on"] - sums["mix+fold off"]) \
+        / sums["mix+fold off"]
+    if not rel < 1e-6:
+        fail(f"the two configurations' checksums differ by {rel:.3g}")
+    out = {}
+    for cfg in configs:
+        log(profile_line(f"config {cfg}",
+                         lambda: run(cfg, warmup_only=True), ["tier"]))
+        out[cfg] = time_captured(f"config {cfg}", captured[cfg], specs, dev,
+                                 card, errs)
+    return out
 
 
 def profile_line(label, run, names):
@@ -528,7 +717,7 @@ def profile_line(label, run, names):
             run()
             torch.cuda.synchronize()
             pwall = time.time() - t0
-        dev_us = {}
+        dev_us, host_ops = {}, {}
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", None)
             if us is None:
@@ -536,6 +725,8 @@ def profile_line(label, run, names):
             if us and e.device_type is not None \
                     and "cuda" in str(e.device_type).lower():
                 dev_us[e.key] = (us, e.count)
+            elif e.key.startswith("aten::"):
+                host_ops[e.key[6:]] = e.count
         if not dev_us:
             return f"profile ({label}): not measured (no device events)"
         busy = sum(u for u, _ in dev_us.values()) / 1e6
@@ -547,19 +738,27 @@ def profile_line(label, run, names):
                          f"ms/call x {hits[0][1]} = {hits[0][0] / 1e3:.1f} ms"
                          if hits else f"{name}_kernel not found")
         top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:6]
+        n_ops = sum(c for _, c in dev_us.values())
         return (f"profile ({label}, {CHUNK} blocks, wall {pwall:.3f} s): "
                 f"device busy {busy:.3f} s = {100 * busy / pwall:.1f}% of "
-                f"wall; " + "; ".join(parts) + "; top: " + "; ".join(
-                    f"{k[:40]} {u / 1e3:.1f} ms/{c}" for k, (u, c) in top))
+                f"wall; {n_ops} device operations = {n_ops / CHUNK:.1f} per "
+                f"block; " + "; ".join(parts) + "; top: " + "; ".join(
+                    f"{k[:40]} {u / 1e3:.1f} ms/{c}" for k, (u, c) in top)
+                + "; torch ops per block (nested calls counted too): "
+                + ", ".join(f"{k} {c / CHUNK:.1f}" for k, c in sorted(
+                    host_ops.items(), key=lambda kv: -kv[1])[:12]))
     except Exception as ex:   # noqa: BLE001 - the profiler is optional
         return f"profile ({label}): not measured ({type(ex).__name__}: {ex})"
 
 
-def short_path(label, st4, dev, module, render, plain_swap):
+def short_path(label, st4, dev, module, render, plain_swap,
+               unfolded=False):
     """The first 4 blocks at 8 rows: kernel path, plain-version path on
     the card (bit for bit), and the port's CPU render (-100 dB).
     ``render`` is ``module``'s entry point; ``plain_swap`` names the
-    wrappers in ``module`` and their plain versions."""
+    wrappers in ``module`` and their plain versions.  ``unfolded`` also
+    renders on the card with the tier kernel's mix and fold off: the
+    same samples, the voice sum in torch's order (-120 dB)."""
     if st4.num_blocks != 4 or st4.batch != 8:
         fail(f"short render has {st4.batch} rows x {st4.num_blocks} "
              f"blocks, not 8 x 4")
@@ -589,6 +788,17 @@ def short_path(label, st4, dev, module, render, plain_swap):
         fail(f"{label}: kernel path vs plain path {db_plain:.1f} dB")
     if db_cpu > -100:
         fail(f"{label}: card render vs CPU render {db_cpu:.1f} dB")
+    if unfolded:
+        d = render(st4, device=dev, mix=False, fold=False)
+        e = render(st4, device=dev, mix=False, fold=True)
+        db = 20 * np.log10(max(float(np.abs(a - d).max()), 1e-30) / peak)
+        log(f"{label}: mix+fold on vs off on the card "
+            f"{verdict(a, d, db)}; fold alone on vs off "
+            f"{'bit-equal' if np.array_equal(d, e) else 'DIFFERS'}")
+        if not np.array_equal(d, e):
+            fail(f"{label}: the fold alone changed the render")
+        if db > -120:
+            fail(f"{label}: mix+fold on vs off {db:.1f} dB")
 
 
 def short_batch(lines, cyclic=False):
@@ -627,7 +837,9 @@ def cyclic_main(dev, card, spec, counters, errs):
     for path in FEEDBACK:
         name = path.stem
         t0 = time.time()
-        tl = compile_script(path.read_text().splitlines(), SECONDS,
+        # fb2 and fb5 (the kernel's widest and narrowest) keep 10 s
+        seconds = SECONDS if name in ("fb2", "fb5") else NOISE64_SECONDS
+        tl = compile_script(path.read_text().splitlines(), seconds,
                             bank=WaveBank(), script_dir=path.parent)
         st = pack_stacked(stack_timelines([tl] * ROWS), cyclic=True)
         batches[name] = st
@@ -801,8 +1013,31 @@ def main():
     # ---- 4./5. stress64: the tier kernel's path ----
     s_launch, s_time, s_lines = main_path(
         "main", STRESS64, dev, card, specs, ["tier"], counters, errs)
+    cfg_time = config_compare(dev, card, specs, errs)
+    for cfg, tm in cfg_time.items():
+        log(f"config {cfg}: tier kernel " + ", ".join(
+            f"{t['ms']:.4f} ms/call at M={m} (bound {t['bound_ms']:.4f} ms)"
+            for (_, m), t in sorted(tm.items())) + f" on {card}")
     short_path("short", short_batch(s_lines), dev, fused,
-               fused.render_fused, {"tier": tk.tier_plain})
+               fused.render_fused, {"tier": tk.tier_plain}, unfolded=True)
+    st4 = short_batch(UNION_CYCLE)
+    if st4.tiers is not None or not st4.fused_passes >= 2 \
+            or not 0 < st4.n_src < st4.params["amp"].shape[-1]:
+        fail(f"repeat-passes short: tiers {st4.tiers}, passes "
+             f"{st4.fused_passes}, n_src {st4.n_src}: not the layout")
+    for fn in counters.values():
+        fn.launches = 0
+    short_path(f"repeat-passes short ({st4.fused_passes} passes, source "
+               f"prefix {st4.n_src} of {st4.params['amp'].shape[-1]} "
+               f"voices)", st4, dev, fused, fused.render_fused,
+               {"tier": tk.tier_plain}, unfolded=True)
+    # a block launches the estimate passes and the final pass; the kernel
+    # path and the two renders with mix and fold off launch, the
+    # plain-version path and the CPU render do not
+    want = 3 * 4 * st4.fused_passes
+    if tk.tier.launches != want:
+        fail(f"repeat-passes short: tier.launches {tk.tier.launches} != "
+             f"{want}")
 
     # ---- 6./7. noise64: the noise pass's path ----
     n_launch, n_time, n_lines = main_path(

@@ -11,6 +11,21 @@ the noise stream selected in for the noise voices.  After the tiers the
 stereo mix sums the voices and the master-volume smoother runs as an
 associative scan.
 
+Every pass writes its samples into its columns of one block buffer
+``[N, Vp*B]``, which is the modulator bank of the later tiers.  With
+``fold`` (the default) a tier-kernel tier past the first reads its fm /
+cz / am modulator streams from that bank inside the kernel; with ``mix``
+(the default) the kernel also sums its static-pan voices into the
+block's stereo accumulators, so torch is left with the pan-modulated
+lanes, the noise tiers' voices and the volume smoother.  ``mix=False,
+fold=False`` reads the streams (``_read_vm``) and mixes in torch.
+
+A batch whose segments' graphs are acyclic while their union is not has
+no tiers (``st.tiers is None``, the repeat-passes layout): every block
+runs ``fused_passes - 1`` estimate passes over the modulator-source
+prefix, starting from the previous block's last samples, then the final
+pass over all voices.
+
 Layout: per-lane streams are time-major ``[N, M]`` over voice-major lanes
 (lane ``v*B + b``, as the kernels take them), so the modulator reads,
 the kernels and the mix never transpose a block.  Per-voice parameters
@@ -20,7 +35,7 @@ Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_stream,
 render_fused_stream_device) on its Pallas paths.  A cyclic batch is a
 ValueError here, as in the JAX package: ``engine/cyclic.py`` renders it
 (``render_cyclic``).  Not ported yet, each raising NotImplementedError:
-capture, the repeat-passes layout and several devices.
+capture and several devices.
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ from skred_tpu_torch import config as C
 from skred_tpu_torch.engine.kernels.filt_smooth import filt_smooth
 from skred_tpu_torch.engine.kernels.lookup import lookup
 from skred_tpu_torch.engine.kernels.phase_walk import phase_walk
-from skred_tpu_torch.engine.kernels.tier import tier
+from skred_tpu_torch.engine.kernels.tier import Fold, fold_read_plain, tier
 from skred_tpu_torch.engine.numerics import cz_phasor, div32, f32, fma32
 from skred_tpu_torch.host.timeline import noise_stream
 
@@ -128,6 +143,33 @@ def _feat_tiers(st):
                  for i in range(len(st.tiers)))
 
 
+def _fold_tiers(st, fts):
+    """Per-tier modulator-bank fold decisions (None: no tier folds), the
+    port of the JAX package's ``_fold_tiers``: a tier past the first
+    reads its modulator streams inside the tier kernel when it has a
+    cross-tier stream (fm, effective cz-mod, or am) and holds no noise
+    voice (the noise pass runs other kernels).
+
+    The JAX package's further conditions are the TPU kernel's layout and
+    do not apply here.  Its read topology must be uniform across batch
+    rows, the rows a multiple of 1024 and the bank within 48 MiB of
+    VMEM, because that kernel picks (8,128) row windows of a VMEM copy
+    of the bank through per-voice row maps; this kernel takes the source
+    voice per lane and reads the bank from global memory, so rows may
+    differ, any row count will do and the bank is not copied.  A tier
+    whose am stream holds a self-read folds too: the kernel takes the
+    bank read first and lets the self-read lanes' select override it
+    per sample, as it does with a stream passed in (a self-read lane's
+    source lies past the bank and reads 0.0)."""
+    if not st.tiers or len(st.tiers) <= 1 or fts is None:
+        return None
+    out = [False]
+    for ft in fts[1:]:
+        streams = ft.fm or (ft.cz and ft.czm) or ft.am
+        out.append(bool(streams and not ft.noise))
+    return tuple(out) if any(out) else None
+
+
 # ---- voice-major lane layout (lane = v*B + b) ----
 
 def to_vm_vec(a: torch.Tensor) -> torch.Tensor:
@@ -190,24 +232,19 @@ def _read_vm(est_vm, prev_vm, osc, delayed, n, b):
     packed source index / delay flag.  A source outside [0, W) reads
     0.0, as the JAX package's one-hot product does (its +0.0 sum also
     turns -0.0 into +0.0).  Returns [N, V*B]."""
-    v = osc.shape[1]
     if est_vm is None:
-        return torch.zeros((n, v * b), dtype=F32, device=osc.device)
-    w = est_vm.shape[1] // b
-    osc_vm = to_vm_vec(osc)
-    valid = (osc_vm >= 0) & (osc_vm < w)
-    lane_b = torch.arange(v * b, device=osc.device) % b
-    col = osc_vm.clamp(0, max(w - 1, 0)).long() * b + lane_b
-    src = torch.where(valid, est_vm[:, col], 0.0) + 0.0
-    last = torch.where(valid, prev_vm[col], 0.0) + 0.0
-    shifted = torch.cat([last[None], src[:-1]], dim=0)
-    return torch.where(to_vm_vec(delayed)[None] != 0, shifted, src)
+        return torch.zeros((n, osc.shape[1] * b), dtype=F32,
+                           device=osc.device)
+    return fold_read_plain(est_vm, prev_vm, to_vm_vec(osc.to(I32)),
+                           to_vm_vec(delayed), est_vm.shape[1] // b, b, n)
 
 
-def _tier_params(p, full_inc, feat):
+def _tier_params(p, full_inc, feat, fold=False):
     """The tier kernel's per-lane parameter vectors that depend only on
     the block's parameters (not on the carry): built once per render
-    for a single-segment batch, else once per block."""
+    for a single-segment batch, else once per block.  ``fold`` adds the
+    per-lane source voice and delay flag of each modulator stream, which
+    may change from segment to segment like any other parameter."""
     i32v = lambda a: to_vm_vec(a.to(I32))
     f32v = lambda a: to_vm_vec(a.to(F32))
     active0 = p["amp"] != 0.0
@@ -284,6 +321,16 @@ def _tier_params(p, full_inc, feat):
     if feat.am:
         vecs.update(am_ge0=i32v(p["amp_mod_osc"] >= 0),
                     am_depth_a=f32v(p["amp_mod_depth"]))
+    if fold:
+        if feat.fm:
+            vecs.update(fm_src=i32v(p["freq_mod_osc"]),
+                        fm_del=i32v(p["fm_delayed"]))
+        if feat.cz and feat.czm:
+            vecs.update(cz_src=i32v(p["cz_mod_osc"]),
+                        cz_del=i32v(p["cm_delayed"]))
+        if feat.am:
+            vecs.update(am_src=i32v(p["amp_mod_osc"]),
+                        am_del=i32v(p["am_delayed"]))
     if feat.disc:
         contrib = (p["disconnect"] == 0) & active0
     else:
@@ -293,20 +340,31 @@ def _tier_params(p, full_inc, feat):
 
 
 def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
-                      feat, n, b):
-    """One tier over one block through the tier kernel.  Returns
-    (out_vm [N, V*B], contrib [B, V], (any_alive, il) [B, V], carry)."""
+                      feat, n, b, out=None, mixw=None, acc=None,
+                      fold=False):
+    """One tier over one block through the tier kernel.
+
+    ``out``: the tier's columns of the block buffer; ``mixw``: the
+    tier's (wl, wr) lane weights, for the in-kernel mix onto ``acc``
+    (the earlier tiers' accumulators, or None); ``fold``: the kernel
+    reads its modulator streams from ``est_vm`` itself (``tp`` then
+    holds the source vectors).  Returns (out_vm [N, V*B], contrib
+    [B, V], (any_alive, il) [B, V], carry, (acc_l, acc_r) or None)."""
     v_ = p["amp"].shape[1]
     reads = {}
-    if feat.fm:
-        reads["fm"] = _read_vm(est_vm, prev_vm, p["freq_mod_osc"],
-                               p["fm_delayed"], n, b)
-    if feat.cz and feat.czm:
-        reads["cz"] = _read_vm(est_vm, prev_vm, p["cz_mod_osc"],
-                               p["cm_delayed"], n, b)
-    if feat.am:
-        reads["am"] = _read_vm(est_vm, prev_vm, p["amp_mod_osc"],
-                               p["am_delayed"], n, b)
+    bank = None
+    if fold:
+        bank = Fold(est_vm, prev_vm, est_vm.shape[1] // b)
+    else:
+        if feat.fm:
+            reads["fm"] = _read_vm(est_vm, prev_vm, p["freq_mod_osc"],
+                                   p["fm_delayed"], n, b)
+        if feat.cz and feat.czm:
+            reads["cz"] = _read_vm(est_vm, prev_vm, p["cz_mod_osc"],
+                                   p["cm_delayed"], n, b)
+        if feat.am:
+            reads["am"] = _read_vm(est_vm, prev_vm, p["amp_mod_osc"],
+                                   p["am_delayed"], n, b)
     fin_prev = carry["finished"] != 0
     vecs = dict(tp["vecs"])
     vecs["adv"] = to_vm_vec((tp["active0"] & ~fin_prev).to(I32))
@@ -326,16 +384,17 @@ def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
              feat.hold, feat.quant, feat.am, feat.am_self, feat.finish,
              feat.direction, tuple(feat.cz_modes), feat.ts_pow2)
     out, res = tier(table, cbase,
-                    reads["fm"] if feat.fm else tp["inc_row"],
+                    reads.get("fm") if feat.fm else tp["inc_row"],
                     reads.get("cz", tp["dm_row"]), reads.get("am"),
-                    vecs, states, feat=kfeat, exact=exact, n=n)
+                    vecs, states, feat=kfeat, exact=exact, n=n, b=b,
+                    mixw=mixw, acc=acc, fold=bank, out=out)
     back = lambda a: from_vm_vec(a, b, v_)
     cnt = back(res["cnt"])
     new_carry = dict(
         phase=back(res["phase"]),
         finished=back(res["finished"]) if feat.finish
         else carry["finished"],
-        sample=back(out[n - 1]),
+        sample=back(res["out_last"] if mixw is not None else out[n - 1]),
         hold_count=back(res["hold_count"]) if feat.hold
         else carry["hold_count"],
         hold_val=back(res["hold_val"]) if feat.hold else carry["hold_val"],
@@ -347,7 +406,8 @@ def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
         pan_l=carry["pan_l"], pan_r=carry["pan_r"],
     )
     il = torch.clamp(cnt - 1, 0, n - 1)
-    return out, tp["contrib"], (cnt >= 1, il), new_carry
+    macc = (res["acc_l"], res["acc_r"]) if mixw is not None else None
+    return out, tp["contrib"], (cnt >= 1, il), new_carry, macc
 
 
 # ---- noise-voice tiers: phase walk -> lookup -> filter/smoother ----
@@ -375,7 +435,8 @@ def _noise_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat,
     """One noise-voice tier over one block: the port of the JAX package's
     ``_voice_block_pass`` on its Pallas non-mega branch
     (``skred_tpu/engine/fused.py:379-781``).  ``tp`` is the tier's
-    ``_pass_params``.  Returns what ``_voice_block_pass`` returns."""
+    ``_pass_params``.  Returns what ``_voice_block_pass`` returns, with
+    no accumulators: a noise tier's voices mix in torch."""
     v_ = p["amp"].shape[1]
     v = tp["vecs"]
     on = lambda k: v[k] != 0
@@ -471,14 +532,28 @@ def _noise_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat,
         pan_l=carry["pan_l"], pan_r=carry["pan_r"],
     )
     il = torch.clamp(cnt - 1, 0, n - 1)
-    return out, tp["contrib"], (cnt >= 1, il), new_carry
+    return out, tp["contrib"], (cnt >= 1, il), new_carry, None
 
 
-def _mix_parts(carry, p, parts, feat, n, b):
+def _mix_mask(p, feat):
+    """[B, Vp] the lanes whose static pan the tier kernel mixes: active,
+    connected, not pan-modulated (those ride ``_mix_parts``' slab)."""
+    mask = p["amp"] != 0.0
+    if feat.disc:
+        mask = mask & (p["disconnect"] == 0)
+    if feat.pm and feat.pm_lanes:
+        mask = mask.clone()
+        mask[:, list(feat.pm_lanes)] = False
+    return mask
+
+
+def _mix_parts(carry, p, parts, feat, n, b, acc=None):
     """Stereo mix of the tiers' kernel outputs ([N, B] each channel).
 
-    parts: list of (out_vm, contrib [B, V_t], any_alive, il, (ts, te)).
-    Static-pan lanes sum out·pan over voices; pan-modulated lanes
+    parts: list of (out_vm, contrib [B, V_t], any_alive, il, (ts, te),
+    mixed); ``acc``: the accumulator pair the tier kernel summed the
+    static-pan lanes of the ``mixed`` parts into.  The other parts'
+    static-pan lanes sum out·pan over voices here; pan-modulated lanes
     (feat.pm_lanes) take a per-sample pan from their modulator (or
     their own sample), and their pan carry freezes at the last alive
     sample.  Returns (mix_l, mix_r, pan update or None)."""
@@ -486,27 +561,35 @@ def _mix_parts(carry, p, parts, feat, n, b):
     srcs = tuple(feat.pm_srcs)
     mix_l = mix_r = None
     pm_s, pm_c, pm_aa, pm_il, src_s = [], [], [], [], []
-    for out_vm, contrib_t, aa_t, il_t, (ts, te) in parts:
+    for out_vm, contrib_t, aa_t, il_t, (ts, te), mixed in parts:
         o3 = out_vm.view(n, te - ts, b)
-        wl = torch.where(contrib_t, carry["pan_l"][:, ts:te], 0.0)
-        wr = torch.where(contrib_t, carry["pan_r"][:, ts:te], 0.0)
         loc = [v - ts for v in pms_lanes if ts <= v < te]
+        if not mixed:
+            wl = torch.where(contrib_t, carry["pan_l"][:, ts:te], 0.0)
+            wr = torch.where(contrib_t, carry["pan_r"][:, ts:te], 0.0)
         if loc:
             pm_s.append(o3[:, loc])
             pm_c.append(contrib_t[:, loc])
             pm_aa.append(aa_t[:, loc])
             pm_il.append(il_t[:, loc])
-            stat = torch.ones(te - ts, dtype=torch.bool, device=wl.device)
-            stat[loc] = False
-            wl = torch.where(stat, wl, 0.0)
-            wr = torch.where(stat, wr, 0.0)
+            if not mixed:
+                stat = torch.ones(te - ts, dtype=torch.bool,
+                                  device=wl.device)
+                stat[loc] = False
+                wl = torch.where(stat, wl, 0.0)
+                wr = torch.where(stat, wr, 0.0)
         sloc = [v - ts for v in srcs if ts <= v < te]
         if sloc:
             src_s.append(o3[:, sloc])
+        if mixed:
+            continue
         l_t = (o3 * wl.T[None]).sum(dim=1)
         r_t = (o3 * wr.T[None]).sum(dim=1)
         mix_l = l_t if mix_l is None else mix_l + l_t
         mix_r = r_t if mix_r is None else mix_r + r_t
+    if acc is not None:
+        mix_l = acc[0] if mix_l is None else mix_l + acc[0]
+        mix_r = acc[1] if mix_r is None else mix_r + acc[1]
     if not pms_lanes:
         return mix_l, mix_r, None
     pms = torch.cat(pm_s, dim=1)                     # [N, P, B]
@@ -625,10 +708,16 @@ class _Render:
     exact: bool
     single_seg: bool
     mod_passes: int = 1
+    n_src: int = 0                # modulator-source prefix (no tiers)
+    mix: bool = True              # tier-kernel tiers mix in the kernel
+    fold_tiers: Optional[tuple] = None
+    buf: Optional[torch.Tensor] = None       # [N, Vp*B] block buffer
     p_const: Optional[dict] = None
     o_const: Optional[dict] = None
     groups: Optional[tuple] = None
     tier_params: Optional[list] = None
+    src_params: Optional[dict] = None        # the source prefix's params
+    mix_mask: Optional[torch.Tensor] = None  # [B, Vp] _mix_mask
     noise: Optional[torch.Tensor] = None     # the render's noise stream
 
 
@@ -651,10 +740,10 @@ def _gather_seg(groups, arrs, seg, B):
     return out
 
 
-def _pass_params(p_t, full_inc, ft):
+def _pass_params(p_t, full_inc, ft, fold=False):
     """A tier's per-lane vectors (``_tier_params``); a noise tier's pass
     also takes the lookup's per-lane limit and the noise-voice mask."""
-    tp = _tier_params(p_t, full_inc, ft)
+    tp = _tier_params(p_t, full_inc, ft, fold)
     if ft.noise:
         is_noise = p_t["table_index"] == C.WAVE_TABLE_NOISE_ALT
         # limit = max(size, 1): an empty table reads its first entry, as
@@ -664,6 +753,31 @@ def _pass_params(p_t, full_inc, ft):
         tp.update(is_noise=to_vm_vec(is_noise),
                   adv0=tp["active0"] & ~is_noise)
     return tp
+
+
+def _estimate(r, run, carry, p, tp, prev_vm, cbase):
+    """The last pass's modulator estimate where the batch has one tier
+    or none (the repeat-passes layout): it starts as the previous
+    block's last samples, and each of the ``mod_passes - 1`` earlier
+    passes renders into a tensor of its own, over the ``n_src``
+    modulator-source prefix only where the pack made one (no other
+    voice is read).  Returns [N, Vp*B]."""
+    B, n, ns = r.B, r.block, r.n_src
+    est = prev_vm[None].expand(n, -1)
+    args = (cbase, r.table, r.exact, r.feat, n, B)
+    if 0 < ns < r.Vp and r.mod_passes > 1:
+        p_s = _tier_slice(p, 0, ns, r.Vp)
+        c_s = _tier_slice(carry, 0, ns, r.Vp)
+        tp_s = r.src_params if r.single_seg \
+            else _pass_params(p_s, p["phase_inc"], r.feat)
+        for _ in range(r.mod_passes - 1):
+            s_src = run(est[:, :ns * B], prev_vm[:ns * B], c_s, p_s, tp_s,
+                        *args)[0]
+            est = torch.cat([s_src, est[:, ns * B:]], dim=1)
+    else:
+        for _ in range(r.mod_passes - 1):
+            est = run(est, prev_vm, carry, p, tp, *args)[0]
+    return est
 
 
 def _block_step(r: _Render, carry, k_glob):
@@ -683,16 +797,24 @@ def _block_step(r: _Render, carry, k_glob):
     feat = r.feat
     any_mod = feat.fm or (feat.cz and feat.czm) or feat.am
     bounds = np.cumsum((0,) + tuple(r.tiers))
+    layered = len(r.tiers) > 1
+    # taken after the segment-start ops: a delayed read at t = 0 sees a
+    # sample the segment has just set
     prev_vm = to_vm_vec(carry["sample"])
     full_inc = p["phase_inc"]
     nblk = None if r.noise is None else r.noise[k_glob * n:(k_glob + 1) * n]
+    if r.mix:
+        mask = r.mix_mask if r.single_seg else _mix_mask(p, feat)
+        wl_vm = to_vm_vec(torch.where(mask, carry["pan_l"], 0.0))
+        wr_vm = to_vm_vec(torch.where(mask, carry["pan_r"], 0.0))
     parts, nc_parts = [], []
-    done = None                          # [N, W*B] earlier tiers' samples
+    acc = None                           # the kernel-mixed tiers' sums
     for ti in range(len(r.tiers)):
         ts, te = int(bounds[ti]), int(bounds[ti + 1])
         p_t = _tier_slice(p, ts, te, r.Vp)
         c_t = _tier_slice(carry, ts, te, r.Vp)
         ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
+        fold = bool(r.fold_tiers and r.fold_tiers[ti])
         if ft.noise:
             run = functools.partial(_noise_pass, noise_blk=nblk)
         else:
@@ -700,26 +822,34 @@ def _block_step(r: _Render, carry, k_glob):
         if r.single_seg:
             tp = r.tier_params[ti]
         else:
-            tp = _pass_params(p_t, full_inc, ft)
-        if len(r.tiers) == 1:
-            # one tier: the fixed-point passes read the estimate, which
-            # starts as the previous block's last samples
-            est = prev_vm[None].expand(n, -1) if any_mod else None
-            prev = prev_vm
-            for _ in range(r.mod_passes - 1):
-                est, _, _, _ = run(est, prev, c_t, p_t, tp, cbase, r.table,
-                                   r.exact, ft, n, B)
+            tp = _pass_params(p_t, full_inc, ft, fold)
+        if layered:
+            # earlier tiers' columns of the block buffer are the bank
+            est = r.buf[:, :ts * B] if any_mod and ts else None
         else:
-            est, prev = done, prev_vm[:ts * B]
-        out_t, contrib_t, (aa_t, il_t), nc_t = run(
-            est, prev, c_t, p_t, tp, cbase, r.table, r.exact, ft, n, B)
-        if any_mod and ti + 1 < len(r.tiers):
-            done = out_t if done is None else torch.cat([done, out_t], 1)
+            # fixed-point passes read columns that have not converged
+            est = _estimate(r, run, c_t, p_t, tp, prev_vm, cbase) \
+                if any_mod else None
+        out_cols = r.buf[:, ts * B:te * B]
+        kw = {}
+        if not ft.noise:
+            kw = dict(out=out_cols, fold=fold)
+            if r.mix:
+                kw.update(mixw=(wl_vm[ts * B:te * B], wr_vm[ts * B:te * B]),
+                          acc=acc)
+        out_t, contrib_t, (aa_t, il_t), nc_t, macc = run(
+            est, prev_vm[:ts * B] if layered else prev_vm, c_t, p_t, tp,
+            cbase, r.table, r.exact, ft, n, B, **kw)
+        if macc is not None:
+            acc = macc
+        if ft.noise and any_mod and ti + 1 < len(r.tiers):
+            out_cols.copy_(out_t)        # a later tier may read it
         nc_parts.append(nc_t)
-        parts.append((out_t, contrib_t, aa_t, il_t, (ts, te)))
+        parts.append((out_t, contrib_t, aa_t, il_t, (ts, te),
+                      macc is not None))
     new_carry = {kk: torch.cat([nc[kk] for nc in nc_parts], dim=1)
                  for kk in _CK}
-    mix_l, mix_r, pan_upd = _mix_parts(carry, p, parts, feat, n, B)
+    mix_l, mix_r, pan_upd = _mix_parts(carry, p, parts, feat, n, B, acc)
     if pan_upd is not None:
         lanes, new_pl, new_pr = pan_upd
         new_carry["pan_l"][:, lanes] = new_pl
@@ -754,10 +884,12 @@ def from_stacked(st, device="cuda") -> dict:
 
 
 def _prepare(st, exact, device, capture=False, noise_blocks=None,
-             noise=None):
+             noise=None, mix=True, fold=True):
     """The batch on ``device`` for the block loop; the noise stream
     (``noise``, or the engine's own), when a tier has noise voices,
-    covers ``noise_blocks`` (default: all) blocks."""
+    covers ``noise_blocks`` (default: all) blocks.  ``mix`` and ``fold``
+    choose the tier kernel's in-kernel stereo mix and modulator-bank
+    fold (see the module docstring)."""
     from skred_tpu_torch.parallel.batch import pack_stacked
 
     if st.fused_passes is None:
@@ -769,10 +901,6 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
                                   "not ported yet (ROADMAP item 8)")
     if "fm_delayed" not in st.params:
         st = pack_stacked(st)
-    if not st.tiers:
-        raise NotImplementedError(
-            "repeat-passes layout (cyclic union graph) is not ported: "
-            "ROADMAP item 3")
     feat = compute_feat(st)
     if exact is None:
         exact = True
@@ -785,6 +913,9 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
     d = from_stacked(st, device)
     params, ops = d["params"], d["ops"]
     Vp = params["amp"].shape[-1]
+    # no tiers (the repeat-passes layout): one pass group of all voices
+    tiers = tuple(st.tiers) if st.tiers else (Vp,)
+    fts = _feat_tiers(st)
     single_seg = all(v.shape[1] == 1 for v in params.values()) \
         and all(v.shape[1] == 1 for v in ops.values())
     r = _Render(params=params, ops=ops,
@@ -793,9 +924,14 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
                 seg_is_start=torch.as_tensor(d["seg_is_start"],
                                              device=device),
                 table=d["table_buffer"], B=st.batch, Vp=Vp, block=st.block,
-                tiers=tuple(st.tiers), feat=feat,
-                feat_tiers=_feat_tiers(st), exact=bool(exact),
-                single_seg=single_seg, mod_passes=st.fused_passes)
+                tiers=tiers, feat=feat, feat_tiers=fts, exact=bool(exact),
+                single_seg=single_seg, mod_passes=st.fused_passes,
+                n_src=int(st.n_src or 0),
+                # only a tier that takes the tier kernel mixes in it
+                mix=bool(mix) and not all(ft.noise for ft in fts or (feat,)),
+                fold_tiers=_fold_tiers(st, fts) if fold else None,
+                buf=torch.empty((st.block, Vp * st.batch), dtype=F32,
+                                device=device))
     if feat.noise:
         nb = st.num_blocks if noise_blocks is None else noise_blocks
         stream = noise_stream(nb * st.block) if noise is None \
@@ -810,8 +946,14 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
             ts, te = int(bounds[ti]), int(bounds[ti + 1])
             p_t = _tier_slice(r.p_const, ts, te, Vp)
             ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
-            r.tier_params.append(_pass_params(p_t, r.p_const["phase_inc"],
-                                              ft))
+            r.tier_params.append(_pass_params(
+                p_t, r.p_const["phase_inc"], ft,
+                bool(r.fold_tiers and r.fold_tiers[ti])))
+        if 0 < r.n_src < Vp and len(tiers) == 1:
+            r.src_params = _pass_params(
+                _tier_slice(r.p_const, 0, r.n_src, Vp),
+                r.p_const["phase_inc"], feat)
+        r.mix_mask = _mix_mask(r.p_const, feat)
     else:
         r.groups = (_pack_by_dtype(params, Vp), _pack_by_dtype(ops, Vp))
     return st, r, d["carry"]
@@ -826,10 +968,12 @@ def _render_chunk(r: _Render, carry, block0, nb):
 
 
 def render_fused(st, exact: Optional[bool] = None, capture: bool = False,
-                 device="cuda") -> np.ndarray:
+                 device="cuda", mix: bool = True,
+                 fold: bool = True) -> np.ndarray:
     """Render a StackedTimelines batch with the fused engine → numpy
-    [B, T, 2].  Runs on the card unless ``device="cpu"``."""
-    st, r, carry = _prepare(st, exact, device, capture)
+    [B, T, 2].  Runs on the card unless ``device="cpu"``.  ``mix`` and
+    ``fold``: see the module docstring."""
+    st, r, carry = _prepare(st, exact, device, capture, mix=mix, fold=fold)
     with torch.no_grad():
         carry, outs = _render_chunk(r, carry, 0, st.num_blocks)
     return outs.permute(2, 0, 1, 3).reshape(
@@ -838,14 +982,16 @@ def render_fused(st, exact: Optional[bool] = None, capture: bool = False,
 
 def render_fused_stream(st, chunk_blocks: int = 256, noise=None,
                         exact: Optional[bool] = None,
-                        keep_rows: Optional[int] = None, device="cuda"):
+                        keep_rows: Optional[int] = None, device="cuda",
+                        mix: bool = True, fold: bool = True):
     """Generator yielding rendered chunks as numpy ``[rows, chunk*block,
     2]`` (the last chunk may be shorter): device memory is bounded by the
     chunk, whatever the render's length, and the carry goes from chunk
     to chunk.  ``keep_rows`` downloads only the first rows of each chunk
     (a replicated batch skips the transfer of redundant rows).  Runs on
     the card unless ``device="cpu"``."""
-    st, r, carry = _prepare(st, exact, device, noise=noise)
+    st, r, carry = _prepare(st, exact, device, noise=noise, mix=mix,
+                            fold=fold)
     rows = st.batch if keep_rows is None else min(keep_rows, st.batch)
     for b0 in range(0, st.num_blocks, chunk_blocks):
         nb = min(chunk_blocks, st.num_blocks - b0)
@@ -858,12 +1004,14 @@ def render_fused_stream(st, chunk_blocks: int = 256, noise=None,
 def render_fused_stream_device(st, chunk_blocks: int = 173,
                                exact: Optional[bool] = None,
                                warmup_only: bool = False,
-                               device="cuda") -> float:
+                               device="cuda", mix: bool = True,
+                               fold: bool = True) -> float:
     """Streamed render that keeps the carry and the audio on the device,
     chunk by chunk (only whole chunks render, as in the JAX package);
     returns a checksum, the |out| sum of the final chunk in f64."""
     whole = (st.num_blocks // chunk_blocks) * chunk_blocks
-    st, r, carry = _prepare(st, exact, device, noise_blocks=whole)
+    st, r, carry = _prepare(st, exact, device, noise_blocks=whole, mix=mix,
+                            fold=fold)
     outs = None
     with torch.no_grad():
         for b0 in range(0, whole, chunk_blocks):

@@ -1,20 +1,46 @@
 // The tier kernel for Hopper (sm_90a): one block of one tier's per-voice
-// DSP chain, one thread per lane.
+// DSP chain, one thread per lane, with the modulator-bank fold and the
+// static-pan stereo mix.
 //
 // Replaces skred_tpu/engine/kernels.py:tier_pallas (body
-// _make_tier_kernel), without its in-kernel mix (phase 5) and
-// modulator-bank fold; the caller does those two steps in torch.
+// _make_tier_kernel) whole: phases 0-4, the fold (its bank_read) and
+// phase 5 (the mix with its out_last output).
 //
-// Bound on this card: per lane-sample the kernel must read the raw
-// modulator-read streams (inc / dm / amod, 4 B each where the tier has
-// them) and write the output sample (4 B): at least 8 B per lane-sample
-// for an FM tier, over 3.35 TB/s.  Its real limit is the serial
-// dependency chain of each sample (phase walk -> warp -> lookup ->
-// biquad -> smoother, with fmodf and exact fmas on it), which is why the
-// TPU kernel's phase split over (8,128) planes is not carried over: each
-// thread keeps its lane's whole state in registers and walks the block's
-// N samples once, running phases 0-4 per sample.  Neighbouring threads
-// own neighbouring lanes, so every [N, M] read and write coalesces.
+// Bound on this card: per lane-sample the kernel must read each modulator
+// stream the tier has (4 B each: a raw [N, M] stream, or with the fold
+// the bank column of the lane's source voice) and write the output sample
+// (4 B): at least 8 B per lane-sample for an FM tier, over 3.35 TB/s; the
+// mix adds one read of the output and 8 B per (sample, batch row).  Its
+// real limit is the serial dependency chain of each sample (phase walk ->
+// warp -> lookup -> biquad -> smoother, with fmodf and exact fmas on it),
+// which is why the TPU kernel's phase split over (8,128) planes is not
+// carried over: each thread keeps its lane's whole state in registers
+// and walks the block's N samples once, running phases 0-4 per sample.
+// Neighbouring threads own neighbouring lanes, so every [N, M] read and
+// write coalesces.
+//
+// The fold.  The TPU kernel copies the earlier tiers' whole output into
+// VMEM and picks (8,128) row windows of it through scalar-prefetched row
+// maps, which needs one read topology for all batch rows.  Here lane
+// v*B + b with source voice s reads column s*B + b of the bank straight
+// from global memory: neighbouring threads read neighbouring addresses,
+// so the read coalesces with no staging, and the source is per lane, so
+// rows may differ.  A delayed lane (the reference's serial-order rule)
+// keeps its last read in a register: sample t-1 costs no second load, and
+// t = 0 takes the previous block's last sample.  A source outside the
+// bank's [0, W) voices reads +0.0, never another voice's column.  Every
+// read adds +0.0, as the caller's one-hot read does, so a -0.0 sample
+// reads as +0.0 and the folded kernel equals the unfolded one bit for bit.
+// The bank is the block buffer the earlier tiers' launches wrote their
+// out columns into (out_stride), so nothing is gathered between launches.
+//
+// The mix.  acc[t, b] = sum over the tier's voices of out[t, v*B + b] *
+// w[v*B + b], product and sum each rounded once, in ascending voice
+// order from +0.0; with acc_add the sum is added onto the earlier tiers'
+// acc.  A batch row's voices belong to different thread blocks of
+// tier_kernel, and float atomics would leave the order open, so a second
+// kernel of the same launch call (tier_mix_kernel, one thread per (t, b),
+// coalesced over b) re-reads out once, most of it still in the L2 cache.
 //
 // Tables are read from the flat buffer in global memory through the
 // read-only cache (__ldg): a PCM table can be larger than a block's
@@ -40,10 +66,22 @@ struct TierArgs {
     int has_fm, has_cz, has_czm, has_env, has_flt, has_sm, has_hold,
         has_quant, has_am, has_am_self, has_finish, has_direction, cz_mask,
         ts_pow2;
+    int b;               // batch rows: lane = voice * b + row
+    int out_stride;      // floats between two samples of out
+    int has_mix, acc_add;
+    int fold_fm, fold_cz, fold_am;
+    int bank_w;          // voices in the bank (earlier tiers)
+    int bank_stride;     // floats between two samples of the bank
     const float* table;
     const float* inc;    // [n, m] raw fm-read stream, or [m] increment
     const float* dm;     // [n, m] raw cz-read stream, or [m] offset
     const float* amod;   // [n, m] raw am-read stream
+    const float* bank;   // [n, bank_stride]: columns [0, bank_w * b) read
+    const float* prev;   // [bank_w * b] the bank's samples at t = -1
+    const int* fm_src; const int* fm_del;   // [m] source voice, delay flag
+    const int* cz_src; const int* cz_del;
+    const int* am_src; const int* am_del;
+    const float* wl; const float* wr;       // [m] stereo mix weights
     const int* use_fm; const float* mis; const float* pinc;
     const float* fm_depth; const int* dirneg;
     const int* cm_ge0; const float* cz_depth;
@@ -69,6 +107,37 @@ struct TierArgs {
     float* out; int* cnt_e; float* phase_e; int* finished_e;
     float* x1_e; float* x2_e; float* y1_e; float* y2_e; float* smoother_e;
     int* hold_count_e; float* hold_val_e;
+    float* acc_l; float* acc_r;   // [n, b]
+    float* out_last;              // [m] out at the block's last sample
+};
+
+// One folded modulator stream of one lane: the source voice's column of
+// the bank, read once per sample.
+struct FoldRead {
+    const float* col;    // null: the stream reads +0.0
+    float last;          // the column's sample at t - 1
+    bool del;
+
+    __device__ __forceinline__ void init(const TierArgs& a, bool on,
+                                         const int* src, const int* dly,
+                                         int m) {
+        col = nullptr; last = 0.0f; del = false;
+        if (!on) return;
+        const int s = src[m];
+        if (s < 0 || s >= a.bank_w) return;
+        const int c = s * a.b + m % a.b;
+        col = a.bank + c;
+        last = a.prev[c];
+        del = dly[m] != 0;
+    }
+
+    __device__ __forceinline__ float at(int t, int stride) {
+        if (col == nullptr) return 0.0f;
+        const float cur = col[(size_t)t * stride];
+        const float r = del ? last : cur;
+        last = cur;
+        return r + 0.0f;
+    }
 };
 
 __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
@@ -130,6 +199,13 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
     float amdep_a = 0.0f;
     if (a.has_am) { am_ge = a.am_ge0[m] != 0; amdep_a = a.am_depth_a[m]; }
     const bool hoist_am = a.has_am && !a.has_am_self;
+    // a lane whose select drops the read (no edge) loads nothing
+    FoldRead rd_fm, rd_cz, rd_am;
+    rd_fm.init(a, a.has_fm && a.fold_fm && use_fm, a.fm_src, a.fm_del, m);
+    rd_cz.init(a, a.has_cz && a.has_czm && a.fold_cz && cm_ge, a.cz_src,
+               a.cz_del, m);
+    rd_am.init(a, a.has_am && a.fold_am && am_ge, a.am_src, a.am_del, m);
+    const int bstride = a.bank_stride;
     const bool hoist_gain = a.has_env || hoist_am;
 
     float b0 = 0, b1 = 0, b2 = 0, na1 = 0, na2 = 0;
@@ -166,13 +242,15 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
     float ph_c = a.phase_0[m];
     int fin_c = a.has_finish ? a.finished_0[m] : 0;
     int cnt = 0;
+    float o_last = 0.0f;
 
     for (int t = 0; t < n; ++t) {
         const size_t tm = (size_t)t * M + m;
         // ---- phase 0: FM increment ----
         float inc_t;
         if (a.has_fm) {
-            float g3 = a.inc[tm] * fmdep;
+            float rdf = a.fold_fm ? rd_fm.at(t, bstride) : a.inc[tm];
+            float g3 = rdf * fmdep;
             inc_t = use_fm ? xfma(mis, g3, pinc, exact) : pinc;
             if (dirneg) inc_t = -inc_t;
         } else {
@@ -215,7 +293,9 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
             else phase = __fdiv_rn(ph2, tsz);
             float warped;
             if (a.has_czm) {
-                float dm3 = cm_ge ? a.dm[tm] * czdep : 1.0f;
+                float rdc = a.fold_cz ? rd_cz.at(t, bstride)
+                                      : (cm_ge ? a.dm[tm] : 0.0f);
+                float dm3 = cm_ge ? rdc * czdep : 1.0f;
                 CzScales s = cz_scales(dist + dm3, exact, a.cz_mask);
                 warped = cz_warp_k(mode, phase, s, tsz, exact, a.cz_mask);
             } else {
@@ -230,6 +310,12 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
         // ---- phase 3: table lookup ----
         float f = __ldg(a.table + (base + idx));
         // ---- phase 3.5: gain amp·env(·amod) ----
+        float amod_t = 1.0f;
+        if (a.has_am) {
+            float rda = a.fold_am ? rd_am.at(t, bstride)
+                                  : (am_ge ? a.amod[tm] : 0.0f);
+            amod_t = am_ge ? rda * amdep_a : 1.0f;
+        }
         float base_gain = amp;
         if (hoist_gain) {
             float g = amp;
@@ -248,7 +334,7 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
                 float env_t = use_env ? v * vel : 1.0f;
                 g = amp * env_t;
             }
-            if (hoist_am) g = g * (am_ge ? a.amod[tm] * amdep_a : 1.0f);
+            if (hoist_am) g = g * amod_t;
             base_gain = g;
         }
         // ---- phase 4: S&H + quantize + biquad + smoother ----
@@ -281,8 +367,6 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
         }
         float final_t = base_gain;
         if (a.has_am_self) {
-            float amod_t = 1.0f;
-            if (a.has_am) amod_t = am_ge ? a.amod[tm] * amdep_a : 1.0f;
             if (am_self) amod_t = s3 * am_depth;
             final_t = base_gain * amod_t;
         }
@@ -292,8 +376,10 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
             if (use_sm) final2 = sg2;
             if (alive_t && use_sm) sg = sg2;
         }
-        a.out[tm] = alive_t ? s3 * final2 : 0.0f;
+        o_last = alive_t ? s3 * final2 : 0.0f;
+        a.out[(size_t)t * a.out_stride + m] = o_last;
     }
+    if (a.has_mix) a.out_last[m] = o_last;
 
     a.phase_e[m] = ph_c;
     a.cnt_e[m] = a.has_finish ? cnt : (act ? n : 0);
@@ -305,10 +391,39 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
     if (a.has_hold) { a.hold_count_e[m] = hc; a.hold_val_e[m] = hv; }
 }
 
+// Phase 5, the static-pan stereo mix: one thread per (sample, batch row)
+// sums the tier's voices in ascending order (see the note at the top).
+__global__ void __launch_bounds__(128) tier_mix_kernel(const TierArgs a) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (size_t)a.n * a.b) return;
+    const int t = (int)(i / a.b), b = (int)(i % a.b);
+    const int voices = a.m / a.b;
+    const float* o = a.out + (size_t)t * a.out_stride + b;
+    float sl = 0.0f, sr = 0.0f;
+    for (int v = 0; v < voices; ++v) {
+        const int lane = v * a.b;
+        const float x = o[lane];
+        sl = __fadd_rn(sl, __fmul_rn(x, a.wl[lane + b]));
+        sr = __fadd_rn(sr, __fmul_rn(x, a.wr[lane + b]));
+    }
+    if (a.acc_add) {
+        sl = __fadd_rn(a.acc_l[i], sl);
+        sr = __fadd_rn(a.acc_r[i], sr);
+    }
+    a.acc_l[i] = sl;
+    a.acc_r[i] = sr;
+}
+
 extern "C" int tier_launch(const TierArgs* args, void* stream) {
     const int threads = 128;
     const int blocks = (args->m + threads - 1) / threads;
     if (blocks > 0)
         tier_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    int rc = (int)cudaGetLastError();
+    if (rc != 0 || !args->has_mix) return rc;
+    const size_t cells = (size_t)args->n * args->b;
+    const int mblocks = (int)((cells + threads - 1) / threads);
+    if (mblocks > 0)
+        tier_mix_kernel<<<mblocks, threads, 0, (cudaStream_t)stream>>>(*args);
     return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 """The tier kernel: one block of one tier's per-voice DSP chain.
 
-``tier`` is the port of ``skred_tpu.engine.kernels.tier_pallas`` without
-its in-kernel mix and modulator-bank fold (the caller does those two
-steps in torch).  Per lane and per sample it runs:
+``tier`` is the port of ``skred_tpu.engine.kernels.tier_pallas``, with its
+modulator-bank fold and its in-kernel stereo mix.  Per lane and per
+sample it runs:
 
   0. the FM increment from the raw modulator-read stream;
   1. the serial phase walk (osc_next, synth.c:217-258) and alive count;
@@ -10,7 +10,17 @@ steps in torch).  Per lane and per sample it runs:
   3. the table lookup at global flat indices into the packed buffer;
   3.5 the gain amp·envelope·amp-mod;
   4. the serial sample&hold, quantizer, biquad and amp smoother
-     (synth.c:560-592), with exact fmas at gcc's contracted sites.
+     (synth.c:560-592), with exact fmas at gcc's contracted sites;
+  5. with ``mixw``: the static-pan stereo mix, the sum over the tier's
+     voices of out·weight into an ``[N, B]`` accumulator pair, in
+     ascending voice order, plus ``out_last``, the block's last samples.
+
+With ``fold`` the fm / cz / am modulator streams are not passed in: the
+kernel reads them from a bank of the earlier tiers' output (``Fold``),
+lane ``v*B + b`` with source voice ``s`` taking column ``s*B + b``, one
+sample late where the lane's delay flag is set.  The per-lane source and
+delay vectors ride in ``vecs`` (``fm_src``/``fm_del``, ``cz_src``/
+``cz_del``, ``am_src``/``am_del``).
 
 Layout: time-major ``[N, M]`` streams over voice-major lanes (lane
 ``v*B + b``), per-lane ``[M]`` parameters and states, as the JAX kernel
@@ -24,6 +34,7 @@ quant, am, am_self, finish, direction, cz_modes, ts_pow2).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -65,6 +76,63 @@ _FEAT_NAMES = ("fm", "cz", "czm", "env", "flt", "sm", "hold", "quant", "am",
                "am_self", "finish", "direction")
 
 
+# a folded stream's extra per-lane vectors: (source voice, delay flag)
+_FOLD_VECS = {"fm": ("fm_src", "fm_del"), "cz": ("cz_src", "cz_del"),
+              "am": ("am_src", "am_del")}
+
+
+class Fold(NamedTuple):
+    """The modulator bank of a folded tier pass.
+
+    bank: [N, >= w*b] f32, unit stride along lanes (a column slice of a
+    wider block buffer will do): the earlier tiers' output, voice-major;
+    prev: [>= w*b] f32, their samples just before the block; w: the
+    voices the bank holds; streams: which of "fm", "cz", "am" the kernel
+    reads from it."""
+    bank: torch.Tensor
+    prev: torch.Tensor
+    w: int
+    streams: tuple = ("fm", "cz", "am")
+
+
+def fold_read_plain(bank, prev, src, delayed, w, b, n):
+    """A modulator-read stream over a block in voice-major lanes, with
+    the reference's serial-order rule (synth.c:526): a lane whose delay
+    flag is set sees its source one sample late, the previous block's
+    last sample at t = 0.
+
+    bank: [N, >= w*b] (or None when w == 0); prev: [>= w*b]; src,
+    delayed: [M] i32 per-lane source voice and delay flag.  A source
+    outside [0, w) reads 0.0, never another voice, and every read adds
+    +0.0, as the JAX package's one-hot product does (which also turns
+    -0.0 into +0.0).  Returns [N, M]."""
+    m = src.shape[0]
+    if w == 0 or bank is None:
+        return torch.zeros((n, m), dtype=F32, device=src.device)
+    valid = (src >= 0) & (src < w)
+    lane_b = torch.arange(m, device=src.device) % b
+    col = src.clamp(0, w - 1).long() * b + lane_b
+    cur = torch.where(valid, bank[:, col], 0.0) + 0.0
+    last = torch.where(valid, prev[col], 0.0) + 0.0
+    shifted = torch.cat([last[None], cur[:-1]], dim=0)
+    return torch.where(delayed[None] != 0, shifted, cur)
+
+
+def mix_plain(out, wl, wr, b, acc=None):
+    """Phase 5 in torch ops: per channel the sum over voices of
+    out[:, v*b:(v+1)*b] * w[v*b:(v+1)*b], product and sum each rounded
+    once, in ascending voice order from +0.0, then added onto ``acc``
+    (the earlier tiers' pair) when given.  Returns (acc_l, acc_r)."""
+    n, m = out.shape
+    res = []
+    for w, prior in zip((wl, wr), acc if acc is not None else (None, None)):
+        s = torch.zeros((n, b), dtype=F32, device=out.device)
+        for v in range(m // b):
+            s = s + out[:, v * b:(v + 1) * b] * w[v * b:(v + 1) * b]
+        res.append(s if prior is None else prior + s)
+    return tuple(res)
+
+
 def _flags(feat):
     fl = dict(zip(_FEAT_NAMES, (bool(x) for x in feat[:12])))
     fl["czm"] = fl["czm"] and fl["cz"]
@@ -73,8 +141,10 @@ def _flags(feat):
     return fl
 
 
-def _vec_keys(fl):
+def _vec_keys(fl, folded=()):
     keys = list(_VEC_BASE)
+    for name in folded:
+        keys += [(k, I32) for k in _FOLD_VECS[name]]
     for name in ("fm", "czm", "am", "finish", "cz", "env", "flt", "sm",
                  "am_self", "hold", "quant"):
         if fl[name]:
@@ -92,13 +162,38 @@ def _state_keys(fl):
     return keys
 
 
+def _folded(fl, fold):
+    """The streams of ``fold`` that the feature set has, in fm/cz/am
+    order."""
+    if fold is None:
+        return ()
+    has = {"fm": fl["fm"], "cz": fl["czm"], "am": fl["am"]}
+    bad = [k for k in fold.streams if k not in has]
+    if bad:
+        raise ValueError(f"tier: unknown folded stream {bad}")
+    return tuple(k for k in ("fm", "cz", "am")
+                 if k in fold.streams and has[k])
+
+
 def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
-               exact=True, n):
+               exact=True, n, b=None, mixw=None, acc=None, fold=None,
+               out=None):
     """The tier kernel's arithmetic in torch ops on any device: the
     vector phases run over the whole ``[N, M]`` block, the two serial
-    recurrences (phases 1 and 4) as a loop over samples.  Returns
-    ``(out [N, M], end-state dict of [M] vectors incl. cnt)``."""
+    recurrences (phases 1 and 4) as a loop over samples; the folded
+    reads and the mix as ``fold_read_plain`` and ``mix_plain``.  Takes
+    and returns what ``tier`` does."""
     fl = _flags(feat)
+    folded = _folded(fl, fold)
+    if folded or mixw is not None:
+        if b is None:
+            raise ValueError("tier: the fold and the mix need b")
+    reads = {k: fold_read_plain(fold.bank, fold.prev, vecs[_FOLD_VECS[k][0]],
+                                vecs[_FOLD_VECS[k][1]], fold.w, b, n)
+             for k in folded}
+    inc = reads.get("fm", inc)
+    dm = reads.get("cz", dm)
+    amod = reads.get("am", amod)
     fm, cz, czm = fl["fm"], fl["cz"], fl["czm"]
     env_a, flt, sm, hold, quant = (fl[k] for k in ("env", "flt", "sm",
                                                     "hold", "quant"))
@@ -236,7 +331,8 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
     if quant:
         quant_on = v["quant_on"] != 0
         levels, inv_lev = v["levels"], v["inv_levels"]
-    out = torch.empty((n, m), dtype=F32, device=dev)
+    if out is None:
+        out = torch.empty((n, m), dtype=F32, device=dev)
     for t in range(n):
         alive_t = alive[t]
         f_t = torch.where(alive_t, f_s[t], 0.0)
@@ -296,6 +392,14 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
         res["smoother"] = sg
     if hold:
         res.update(hold_count=hc, hold_val=hv)
+    if mixw is not None:
+        res["out_last"] = out[n - 1].clone()
+        mixed = mix_plain(out, mixw[0], mixw[1], b, acc)
+        if acc is not None:         # in place, as the kernel
+            acc[0].copy_(mixed[0])
+            acc[1].copy_(mixed[1])
+            mixed = acc
+        res["acc_l"], res["acc_r"] = mixed
     return out, res
 
 
@@ -303,9 +407,13 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
 
 _INT_FIELDS = (("n", "m", "cbase", "exact")
                + tuple("has_" + k for k in _FEAT_NAMES)
-               + ("cz_mask", "ts_pow2"))
+               + ("cz_mask", "ts_pow2", "b", "out_stride", "has_mix",
+                  "acc_add", "fold_fm", "fold_cz", "fold_am", "bank_w",
+                  "bank_stride"))
 _PTR_FIELDS = (
     "table", "inc", "dm", "amod",
+    "bank", "prev", "fm_src", "fm_del", "cz_src", "cz_del", "am_src",
+    "am_del", "wl", "wr",
     "use_fm", "mis", "pinc", "fm_depth", "dirneg",
     "cm_ge0", "cz_depth", "am_ge0", "am_depth_a",
     "base_off", "clip_i", "adv", "act", "lo", "hi", "L", "amp",
@@ -318,7 +426,8 @@ _PTR_FIELDS = (
     "phase_0", "finished_0", "x1_0", "x2_0", "y1_0", "y2_0", "smoother_0",
     "hold_count_0", "hold_val_0",
     "out", "cnt_e", "phase_e", "finished_e", "x1_e", "x2_e", "y1_e",
-    "y2_e", "smoother_e", "hold_count_e", "hold_val_e")
+    "y2_e", "smoother_e", "hold_count_e", "hold_val_e",
+    "acc_l", "acc_r", "out_last")
 
 
 class TierArgs(ctypes.Structure):
@@ -326,14 +435,21 @@ class TierArgs(ctypes.Structure):
                 + [(k, ctypes.c_void_p) for k in _PTR_FIELDS])
 
 
-def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n):
+def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n,
+               b, mixw, acc, fold, out):
     """Check the CUDA tensors and fill the kernel's argument struct.
     Returns (TierArgs, out [N, M], end-state dict incl. cnt)."""
     fl = _flags(feat)
+    folded = _folded(fl, fold)
     dev = table.device
     m = vecs["amp"].shape[0]
+    if folded or mixw is not None:
+        if b is None or b < 1 or m % b:
+            raise ValueError(f"tier: the fold and the mix need b rows "
+                             f"dividing the {m} lanes, got {b}")
     a = TierArgs()
     a.n, a.m, a.cbase, a.exact = n, m, int(cbase), int(bool(exact))
+    a.b = m if b is None else int(b)
     for k in _FEAT_NAMES:
         setattr(a, "has_" + k, int(fl[k]))
     a.cz_mask = sum(1 << k for k in fl["cz_modes"] if 1 <= k <= 7)
@@ -342,12 +458,27 @@ def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n):
         raise ValueError("tier: table must be the flat [R] buffer")
     _check = lambda *x: cuda_call.check("tier", *x)
     a.table = _check("table", table, dev, F32, tuple(table.shape))
-    a.inc = _check("inc", inc, dev, F32, (n, m) if fl["fm"] else (m,))
-    if fl["cz"]:
+    if "fm" not in folded:
+        a.inc = _check("inc", inc, dev, F32, (n, m) if fl["fm"] else (m,))
+    if fl["cz"] and "cz" not in folded:
         a.dm = _check("dm", dm, dev, F32, (n, m) if fl["czm"] else (m,))
-    if fl["am"]:
+    if fl["am"] and "am" not in folded:
         a.amod = _check("amod", amod, dev, F32, (n, m))
-    for k, dt in _vec_keys(fl):
+    for k in folded:
+        setattr(a, "fold_" + k, 1)
+    if folded:
+        w = int(fold.w)
+        a.bank_w = w
+        if w:
+            _check("prev", fold.prev, dev, F32, tuple(fold.prev.shape))
+            _strided("bank", fold.bank, dev, n)
+            if fold.prev.dim() != 1 or fold.prev.shape[0] < w * a.b \
+                    or fold.bank.shape[1] < w * a.b:
+                raise ValueError(f"tier: the bank holds fewer than "
+                                 f"{w} voices of {a.b} rows")
+            a.bank, a.prev = fold.bank.data_ptr(), fold.prev.data_ptr()
+            a.bank_stride = fold.bank.stride(0)
+    for k, dt in _vec_keys(fl, folded):
         if k not in vecs:
             raise KeyError(f"tier: feat needs vecs[{k!r}]")
         setattr(a, k, _check(k, vecs[k], dev, dt, (m,)))
@@ -358,14 +489,53 @@ def _pack_args(table, cbase, inc, dm, amod, vecs, states, feat, exact, n):
         setattr(a, k + "_0", _check(k, states[k], dev, dt, (m,)))
         outs[k] = torch.empty(m, dtype=dt, device=dev)
         setattr(a, k + "_e", outs[k].data_ptr())
-    out = torch.empty((n, m), dtype=F32, device=dev)
+    if out is None:
+        out = torch.empty((n, m), dtype=F32, device=dev)
+    else:
+        _strided("out", out, dev, n)
+        if out.shape[1] != m:
+            raise ValueError(f"tier: out has {out.shape[1]} lanes, needs {m}")
+    a.out_stride = out.stride(0)
     outs["cnt"] = torch.empty(m, dtype=I32, device=dev)
     a.out, a.cnt_e = out.data_ptr(), outs["cnt"].data_ptr()
+    if mixw is not None:
+        a.has_mix = 1
+        a.wl = _check("wl", mixw[0], dev, F32, (m,))
+        a.wr = _check("wr", mixw[1], dev, F32, (m,))
+        if acc is None:
+            acc = (torch.empty((n, a.b), dtype=F32, device=dev),
+                   torch.empty((n, a.b), dtype=F32, device=dev))
+        else:
+            a.acc_add = 1
+        a.acc_l = _check("acc_l", acc[0], dev, F32, (n, a.b))
+        a.acc_r = _check("acc_r", acc[1], dev, F32, (n, a.b))
+        outs["acc_l"], outs["acc_r"] = acc
+        outs["out_last"] = torch.empty(m, dtype=F32, device=dev)
+        a.out_last = outs["out_last"].data_ptr()
+    elif acc is not None:
+        raise ValueError("tier: acc without mixw")
     return a, out, outs
 
 
+def _strided(name, x, dev, n):
+    """``x`` is an [n, *] f32 tensor on ``dev`` with unit stride along
+    its lanes (its rows may be a wider buffer's): raise otherwise."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"tier: {name} must be a tensor")
+    if x.device != dev:
+        raise ValueError(f"tier: {name} on {x.device}, needs {dev}")
+    if x.dtype != F32:
+        raise TypeError(f"tier: {name} is {x.dtype}, needs {F32}")
+    if x.dim() != 2 or x.shape[0] != n:
+        raise ValueError(f"tier: {name} has shape {tuple(x.shape)}, "
+                         f"needs [{n}, lanes]")
+    if x.shape[1] > 1 and x.stride(1) != 1 \
+            or n > 1 and x.stride(0) < x.shape[1]:
+        raise ValueError(f"tier: {name} needs unit stride along lanes")
+
+
 def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
-         n):
+         n, b=None, mixw=None, acc=None, fold=None, out=None):
     """One tier pass over one block (see the module docstring).
 
     table: [R] f32 packed table buffer; cbase: int, the 1-based global
@@ -375,15 +545,27 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
     amod: [N, M] raw am-read stream or None; vecs/states: dicts of [M]
     per-lane vectors.  The kernel reads base_off + [0, clip_i] of the
     table unchecked: the caller keeps those inside it (the fused
-    renderer checks every lane once per render, on the host).  Returns
-    (out [N, M], end-state dict incl. cnt)."""
+    renderer checks every lane once per render, on the host).
+
+    b: batch rows (lane = voice*b + row), needed by the mix and the fold.
+    mixw: (wl, wr) [M] f32 stereo weights: the result gains ``acc_l``,
+    ``acc_r`` [N, b] and ``out_last`` [M].  acc: the earlier tiers'
+    (acc_l, acc_r), which this tier's sums are added onto in place.
+    fold: a ``Fold``; a stream it names (and feat has) is read from the
+    bank, its argument here ignored (pass None), and vecs carries its
+    ``*_src`` / ``*_del`` vectors.  out: an [N, M] view to write the
+    samples into, e.g. the tier's columns of a block buffer that is the
+    bank of later tiers; it must not overlap the bank's read columns.
+
+    Returns (out [N, M], end-state dict incl. cnt)."""
+    kw = dict(feat=feat, exact=exact, n=n, b=b, mixw=mixw, acc=acc,
+              fold=fold, out=out)
     if table.device.type == "cpu":
-        return tier_plain(table, cbase, inc, dm, amod, vecs, states,
-                          feat=feat, exact=exact, n=n)
+        return tier_plain(table, cbase, inc, dm, amod, vecs, states, **kw)
     if table.device.type != "cuda":
         raise ValueError(f"tier: no kernel for device {table.device}")
     args, out, outs = _pack_args(table, cbase, inc, dm, amod, vecs, states,
-                                 feat, exact, n)
+                                 **kw)
     cuda_call.launch("tier", args, table.device)
     tier.launches += 1
     return out, outs

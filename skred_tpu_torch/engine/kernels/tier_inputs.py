@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from skred_tpu_torch.engine.kernels.tier import _flags, _state_keys, _vec_keys
+from skred_tpu_torch.engine.kernels.tier import (_FOLD_VECS, _flags,
+                                                 _state_keys, _vec_keys)
 
 # stress64's two tier feature sets (per-tier flags of corpus/stress64.sk)
 STRESS64_TIER0 = (False, False, False, False, False, True, False, False,
@@ -104,3 +105,45 @@ def random_tier_inputs(feat, n, m, seed=0, table_len=65536):
         dm = None
     amod = f(-1, 1, (n, m)) if fl["am"] else None
     return table, cbase, inc, dm, amod, vecs, states
+
+
+def random_mix_weights(m, seed=0):
+    """Per-lane stereo weights (wl, wr) [M] f32 as the renderer builds
+    them: a pan pair in [0, 1], zero on about a fifth of the lanes
+    (silent, disconnected or pan-modulated voices)."""
+    rng = np.random.default_rng(seed + 101)
+    pan = rng.uniform(0, 1, m).astype(np.float32)
+    on = rng.uniform(0, 1, m) < 0.8
+    wl = np.where(on, np.float32(1) - pan, 0).astype(np.float32)
+    wr = np.where(on, pan, 0).astype(np.float32)
+    return wl, wr
+
+
+def random_fold_inputs(n, m, b, w, seed=0, streams=("fm", "cz", "am"),
+                       per_voice=False, bad_frac=0.1, zeros=True):
+    """A modulator bank for a folded tier pass: (bank [N, w*b], prev
+    [w*b], {``*_src``/``*_del``: [M] i32} for ``streams``).
+
+    Sources are drawn per lane (per voice with ``per_voice``, the JAX
+    kernel's row-uniform topology); ``bad_frac`` of them lie outside
+    [0, w) on either side and must read 0.0.  The bank holds audio-range
+    samples, with ``zeros`` a few exact and negative zeros among them."""
+    rng = np.random.default_rng(seed + 202)
+    bank = rng.uniform(-1, 1, (n, w * b)).astype(np.float32)
+    zero = rng.uniform(0, 1, bank.shape)
+    if zeros:
+        bank[zero < 0.01] = 0.0
+        bank[zero > 0.99] = -0.0
+    prev = rng.uniform(-1, 1, w * b).astype(np.float32)
+    vecs = {}
+    for k in streams:
+        src_k, del_k = _FOLD_VECS[k]
+        shape = m // b if per_voice else m
+        src = rng.integers(0, max(w, 1), shape)
+        bad = rng.uniform(0, 1, shape) < bad_frac
+        src = np.where(bad, rng.choice(np.array([-1, w, w + 3]), shape), src)
+        if per_voice:
+            src = np.repeat(src, b)
+        vecs[src_k] = src.astype(np.int32)
+        vecs[del_k] = (rng.uniform(0, 1, m) < 0.4).astype(np.int32)
+    return bank, prev, vecs

@@ -113,6 +113,18 @@ def test_tier_args_match_cuda_struct():
     want = [(k, "ptr" if t is tt.ctypes.c_void_p else "int")
             for k, t in tt.TierArgs._fields_]
     assert fields == want
+    # the mix's and the fold's arguments are part of the struct
+    names = {k for k, _ in fields}
+    assert {"b", "out_stride", "has_mix", "acc_add", "fold_fm", "fold_cz",
+            "fold_am", "bank_w", "bank_stride", "bank", "prev", "fm_src",
+            "fm_del", "cz_src", "cz_del", "am_src", "am_del", "wl", "wr",
+            "acc_l", "acc_r", "out_last"} <= names
+    # and its natural layout is what ctypes builds: ints, then pointers
+    n_int = sum(1 for _, kind in fields if kind == "int")
+    assert [kind for _, kind in fields] == \
+        ["int"] * n_int + ["ptr"] * (len(fields) - n_int)
+    assert tt.ctypes.sizeof(tt.TierArgs) == \
+        (n_int * 4 + 7) // 8 * 8 + 8 * (len(fields) - n_int)
 
 
 def test_tier_cpu_tensor_takes_plain_version():
