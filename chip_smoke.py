@@ -14,7 +14,10 @@ graphs take the cyclic kernel.  Phases, in order (any failure exits
 non-zero):
 
   1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc for every csrc/*.cu, all started together
+  2. build        nvcc for every csrc/*.cu and for the cyclic kernel's
+                  keys (fb1-fb5 as the main path and the kernel phase
+                  render them, and the all-features script), all
+                  started together; seconds, registers and spills of each
   3. kernel       every kernel vs its plain version on the card, bit for
                   bit, on random blocks (N=512, M=8192): tier on
                   stress64's two tier feature sets, and with the mix,
@@ -24,9 +27,13 @@ non-zero):
                   onto earlier accumulators; phase_walk and
                   filt_smooth on noise64's; the lookups (grouped and
                   single-lane forms at 4096- and 32768-sample slots, and
-                  the noise pass's base/limit form); cyclic on fb1's,
-                  fb2's, fb3's, fb5's and an all-features script's own
-                  vectors with random states (512 frames x 1024 rows)
+                  the noise pass's base/limit form); cyclic, keyed and
+                  general variants, on fb1's, fb2's, fb3's, fb5's and an
+                  all-features script's own vectors with random states
+                  (512 frames x 1024 rows) and on the all-features
+                  script with operands outside the keyed variant's fast
+                  range (64 frames), the general one also on a 64-voice
+                  ring above the keyed variant's cap (16 frames)
   4. main         stress64: bucket_key -> fill_bucket -> stack_timelines
                   (1024 rows) -> pack_stacked -> pad_segments_pow2 ->
                   render_fused_stream_device(chunk_blocks=172): one
@@ -55,12 +62,16 @@ non-zero):
                   for fb2 and fb5, 2 chunks (3.99 s) for fb1, fb3 and
                   fb4 to keep the run short:
                   one warm-up, one timed pass with the launch counts
-                  read around it (one cyclic launch per block, no other
-                  kernel); a profiled chunk of fb2 and of fb4 (4
-                  segments); the kernel alone on
+                  read around it (one keyed-variant launch per block, no
+                  other kernel); then a 16-voice ring, above the keyed
+                  variant's cap, for 1 chunk of 43 blocks (one
+                  general-variant launch per block); a profiled chunk of
+                  fb2 and of fb4 (4 segments); both variants alone on
                   fb2's and fb5's first-block inputs at 1024 and at
-                  16,384 rows (the same inputs tiled), its plain version
-                  and its bound
+                  16,384 rows (the same inputs tiled), timed in turns
+                  (general, keyed, keyed, general), each bit-equal to
+                  the plain version (at 16,384 rows its 1024-row result
+                  tiled), with clocks.sm beside them, and the bound
   9. cyclic short fb2, and fb4 with its waits cut to 0.012 s (a segment
                   per block), at 8 rows x 4 blocks, as in 5
  10. batch        render_batch over stress64, noise64 and fb1-fb5 at
@@ -95,6 +106,9 @@ FEEDBACK = [HERE / "corpus" / f"fb{i}.sk" for i in range(1, 6)]
 UNION_CYCLE = ["v0 w0 f330 a3 F1,0.5", "v1 w2 f2 a2",
                "v2 w0 f220 a2 p0.3 ~.02 v0 F1,0 v1 F0,0.4"]
 WIDE_ROWS = 16 * ROWS              # the cyclic kernel's second row count
+# a ring of FM edges over 16 voices: above the keyed variant's cap
+RING16 = [f"v{v} w{v % 3} f{50 + 7 * v} a5 F{(v + 1) % 16},0.3"
+          for v in range(16)]
 KERNEL_N, KERNEL_M = 512, 8192
 
 
@@ -105,6 +119,13 @@ def fail(msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+T0 = time.time()
+
+
+def phase(name):
+    log(f"== {name} (at {time.time() - T0:.1f} s)")
 
 
 def cuda_ms(fn, reps):
@@ -334,9 +355,24 @@ def cyclic_spec(ck):
                                             ck._state_keys(fl))) + rows * 4
         return bound(read, write, n * rows * (k * per_voice + 5))
 
+    def launcher(a, variant):
+        """Pack ``a`` once for ``variant``; returns (a launch that counts
+        no launch, the output tensors)."""
+        from skred_tpu_torch.engine.kernels import cuda_call
+
+        args, outs = pack(a, {})
+        exact = a[10] if len(a) > 10 else True
+        key = ck.fixed_key(a[7], a[8], exact) if variant == "fixed" else ()
+        entry = f"cyclic_{variant}_launch"
+        return (lambda: cuda_call.launch("cyclic", args, a[6].device, key,
+                                         entry)), outs
+
+    plain_kw = lambda kw: {k: v for k, v in kw.items() if k != "variant"}
     return dict(name="cyclic", fn=ck.cyclic_block, pack=pack,
+                launcher=launcher,
                 run=lambda a, kw: outs_of(*ck.cyclic_block(*a, **kw)),
-                plain=lambda a, kw: outs_of(*ck.cyclic_block_plain(*a, **kw)),
+                plain=lambda a, kw: outs_of(*ck.cyclic_block_plain(
+                    *a, **plain_kw(kw))),
                 bound=bnd, lanes=lambda a, kw: a[6].shape[0])
 
 
@@ -355,13 +391,26 @@ def kernel_phase(dev, specs, errs):
 
     n, m = KERNEL_N, KERNEL_M
     calls = []
-    for path in FEEDBACK[:3] + FEEDBACK[4:]:
-        a = ci.on_device(ci.block_inputs(path.read_text().splitlines(),
-                                         ROWS, seed=16, n=n), dev)
-        calls.append(("cyclic", f"{path.stem}, {a[8]} voices", a, {}))
-    a = ci.on_device(ci.block_inputs(ci.ALL_FEATURES, ROWS, seed=17, n=n),
-                     dev)
-    calls.append(("cyclic", f"all-features script, {a[8]} voices", a, {}))
+    cyc = [(f"{p.stem}, {{}} voices", p.read_text().splitlines(), 16, n)
+           for p in FEEDBACK[:3] + FEEDBACK[4:]]
+    cyc.append(("all-features script, {} voices", ci.ALL_FEATURES, 17, n))
+    for label, lines, seed, frames in cyc:
+        a = ci.on_device(ci.block_inputs(lines, ROWS, seed=seed, n=frames),
+                         dev)
+        for variant in ("fixed", "general"):
+            calls.append(("cyclic", label.format(a[8]) + f", {variant}", a,
+                          dict(variant=variant)))
+    a = ci.on_device(ci.out_of_range(ci.block_inputs(
+        ci.ALL_FEATURES, ROWS, seed=19, n=64), seed=19), dev)
+    for variant in ("fixed", "general"):
+        calls.append(("cyclic", f"all-features script, operands outside "
+                      f"the fast range (64 frames), {variant}", a,
+                      dict(variant=variant)))
+    ring = [f"v{v} w{v % 3} f{50 + 7 * v} a5 F{(v + 1) % 64},0.3 "
+            f"J1 K3000 Q2 h3 c1,0.4" for v in range(64)]
+    a = ci.on_device(ci.block_inputs(ring, ROWS, seed=18, n=16), dev)
+    calls.append(("cyclic", "64-voice ring (16 frames), general", a,
+                  dict(variant="general")))
     for label, feat in (("stress64 tier0", STRESS64_TIER0),
                         ("stress64 tier1", STRESS64_TIER1)):
         table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
@@ -387,18 +436,26 @@ def kernel_phase(dev, specs, errs):
         calls.append(("lookup", f"pass form, {ss}-sample tables",
                       (table, base, torch.full_like(base, ss),
                        idx.T.contiguous()), {}))
+    plains = {}
     for name, label, a, kw in calls:
         sp = specs[name]
         fresh = sp.get("fresh", lambda a, kw, plain: (a, kw))
         got = [None if g is None else g.clone()
                for g in sp["run"](*fresh(a, kw, False))]
         torch.cuda.synchronize()
-        want = sp["plain"](*fresh(a, kw, True))
+        if name == "cyclic":
+            # both variants against one plain run of the same inputs
+            if id(a) not in plains:
+                plains[id(a)] = sp["plain"](*fresh(a, kw, True))
+            want = plains[id(a)]
+        else:
+            want = sp["plain"](*fresh(a, kw, True))
         bad = [i for i, (g, w) in enumerate(zip(got, want))
                if not same_bits(g, w)]
         err = max(max_abs(g, w) for g, w in zip(got, want)
                   if g is not None)
-        errs[name] = max(errs.get(name, 0.0), err)
+        ekey = "cyclic_general" if kw.get("variant") == "general" else name
+        errs[ekey] = max(errs.get(ekey, 0.0), err)
         log(f"kernel {name} ({label}): max|diff| {err} vs plain, "
             f"{'bit-equal' if not bad else f'outputs {bad} DIFFER'}")
         if bad:
@@ -822,31 +879,35 @@ def tile_rows(x, times):
     return x.T.repeat(times, 1).T
 
 
+def sm_clock():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
 def cyclic_main(dev, card, spec, counters, errs):
-    """Drive fb1-fb5 at full width through render_cyclic_stream_device
-    (see the module docstring).  Returns (launches by script, timings by
-    script and row count)."""
-    from skred_tpu_torch.assets.bank import WaveBank
+    """Drive fb1-fb5, and a ring above the keyed variant's cap, at full
+    width through render_cyclic_stream_device (see the module docstring).
+    Returns (launches by script and counter, timings by script, row
+    count and variant)."""
     from skred_tpu_torch.engine import cyclic
-    from skred_tpu_torch.engine.kernels import cuda_call
-    from skred_tpu_torch.host.timeline import compile_script
-    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+    from skred_tpu_torch.engine.kernels import cyclic as ck
 
     real = cyclic.cyclic_block
     launches, captured, batches = {}, {}, {}
-    for path in FEEDBACK:
-        name = path.stem
+    runs = [(p.stem, p.read_text().splitlines(),
+             SECONDS if p.stem in ("fb2", "fb5") else NOISE64_SECONDS, CHUNK)
+            for p in FEEDBACK]
+    # the ring: one chunk of 43 blocks, enough to show the rule's other arm
+    runs.append(("ring16", RING16, 43 * 512 / 44100.0 + 0.001, 43))
+    for name, lines, seconds, chunk in runs:
         t0 = time.time()
-        # fb2 and fb5 (the kernel's widest and narrowest) keep 10 s
-        seconds = SECONDS if name in ("fb2", "fb5") else NOISE64_SECONDS
-        tl = compile_script(path.read_text().splitlines(), seconds,
-                            bank=WaveBank(), script_dir=path.parent)
-        st = pack_stacked(stack_timelines([tl] * ROWS), cyclic=True)
+        st = cyclic_batch(lines, seconds, ROWS)
         batches[name] = st
         k = st.params["amp"].shape[-1]
         segs = st.params["amp"].shape[1]
         reason = cyclic.cyclic_gate(st)
-        if tl.fused_passes is not None or reason is not None:
+        if st.fused_passes is not None or reason is not None:
             fail(f"{name}: not a cyclic batch the kernel takes ({reason})")
         host_s = time.time() - t0
 
@@ -856,84 +917,134 @@ def cyclic_main(dev, card, spec, counters, errs):
 
         cyclic.cyclic_block = capture
         try:
-            cyclic.render_cyclic_stream_device(st, CHUNK, warmup_only=True,
+            cyclic.render_cyclic_stream_device(st, chunk, warmup_only=True,
                                                device=dev)
         finally:
             cyclic.cyclic_block = real
         torch.cuda.synchronize()
-        whole = st.num_blocks // CHUNK * CHUNK
+        whole = st.num_blocks // chunk * chunk
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        cs = cyclic.render_cyclic_stream_device(st, CHUNK, device=dev)
+        cs = cyclic.render_cyclic_stream_device(st, chunk, device=dev)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {nm: fn.launches for nm, fn in counters.items()}
-        launches[name] = counts["cyclic"]
+        launches[name] = counts
+        variant = ck.variant_for(k)
         audio_s = st.batch * whole * st.block / 44100.0
-        log(f"cyclic main {name}: {st.batch} rows x {k} voices, {segs} "
-            f"segment(s), host compile+pack {host_s:.1f} s; wall "
-            f"{wall:.3f} s, {audio_s / wall:.1f}x realtime ({st.batch} rows "
-            f"x {whole * st.block / 44100.0:.3f} s rendered), launches "
-            f"{counts} ({whole} blocks), checksum {cs}, peak "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+        log(f"cyclic main {name}: {st.batch} rows x {k} voices ({variant} "
+            f"variant), {segs} segment(s), host compile+pack {host_s:.1f} "
+            f"s; wall {wall:.3f} s, {audio_s / wall:.1f}x realtime "
+            f"({st.batch} rows x {whole * st.block / 44100.0:.3f} s "
+            f"rendered), launches {counts} ({whole} blocks), checksum {cs}, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+            f"{card}")
+        want = {"cyclic": whole, f"cyclic_{variant}": whole}
         for nm, count in counts.items():
-            want = whole if nm == "cyclic" else 0
-            if count != want:
-                fail(f"{nm}.launches {count} != {want} on cyclic main "
-                     f"{name} ({whole} blocks)")
+            if count != want.get(nm, 0):
+                fail(f"{nm}.launches {count} != {want.get(nm, 0)} on cyclic "
+                     f"main {name} ({whole} blocks, {variant} variant)")
+        if (name == "ring16") != (variant == "general"):
+            fail(f"cyclic main {name}: the rule chose the {variant} variant")
         if not (np.isfinite(cs) and cs > 0):
             fail(f"cyclic main {name}: bad checksum {cs}")
-    log(profile_line(
-        "cyclic main fb2", lambda: cyclic.render_cyclic_stream_device(
-            batches["fb2"], CHUNK, warmup_only=True, device=dev),
-        ["cyclic"]))
-    log(profile_line(
-        "cyclic main fb4", lambda: cyclic.render_cyclic_stream_device(
-            batches["fb4"], CHUNK, warmup_only=True, device=dev),
-        ["cyclic"]))
+    for name in ("fb2", "fb4"):
+        log(profile_line(
+            f"cyclic main {name}",
+            lambda: cyclic.render_cyclic_stream_device(
+                batches[name], CHUNK, warmup_only=True, device=dev),
+            ["cyclic_fixed"]))
 
     timings = {}
     for name in ("fb2", "fb5"):
         a, kw = captured[name]
-        args, outs = spec["pack"](a, kw)
-        ms = cuda_ms(lambda: cuda_call.launch("cyclic", args, dev), 20)
-        plain_ms, want = host_ms(lambda: spec["plain"](a, kw))
-        bad = [i for i, (g, w) in enumerate(zip(outs, want))
-               if not same_bits(g, w)]
-        errs["cyclic"] = max([errs.get("cyclic", 0.0)]
-                             + [max_abs(g, w) for g, w in zip(outs, want)])
-        if bad:
-            fail(f"cyclic kernel disagrees with its plain version on "
-                 f"{name}'s first block (outputs {bad})")
-        bound_ms, bound_by = spec["bound"](a, kw)
-        timings[name, ROWS] = dict(ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by,
-                                   library_ms=None)
-        # the same inputs tiled to 16 times the rows
-        times = WIDE_ROWS // ROWS
-        wide = list(a)
-        wide[4] = {kk: tile_rows(v, times) for kk, v in a[4].items()}
-        wide[5] = {kk: tile_rows(v, times) for kk, v in a[5].items()}
-        wide[6] = tile_rows(a[6], times)
-        args_w, outs_w = spec["pack"](tuple(wide), kw)
-        ms_w = cuda_ms(lambda: cuda_call.launch("cyclic", args_w, dev), 20)
-        if not (same_bits(outs_w[0][:ROWS], outs[0])
-                and same_bits(outs_w[0][-ROWS:], outs[0])):
-            fail(f"cyclic kernel at {WIDE_ROWS} rows disagrees with itself "
-                 f"at {ROWS} on {name}'s tiled inputs")
-        bound_w, by_w = spec["bound"](tuple(wide), kw)
-        timings[name, WIDE_ROWS] = dict(ms=ms_w, bound_ms=bound_w,
-                                        bound_by=by_w)
-        log(f"cyclic {name} first block, {a[8]} voices x {a[9]} frames: "
-            f"kernel {ms:.4f} ms/call at {ROWS} rows (bound {bound_ms:.4f} "
-            f"ms, {bound_by}), {ms_w:.4f} ms/call at {WIDE_ROWS} rows "
-            f"(bound {bound_w:.4f} ms, {by_w}; {ms_w / ms:.2f}x the time "
-            f"for 16x the rows), plain {plain_ms:.1f} ms at {ROWS} rows, "
-            f"library call: none, path inputs bit-equal to plain, "
-            f"(CUDA events, 20 calls) on {card}")
+        plain_ms, want1 = host_ms(lambda: spec["plain"](a, kw))
+        for rows in (ROWS, WIDE_ROWS):
+            times_r = rows // ROWS
+            aa = a if rows == ROWS else widen(a, times_r)
+            # the plain version works row by row: at 16 times the rows
+            # (the same rows tiled) its result is the 1024-row one tiled
+            want = [w.repeat(times_r, 1) if i < 2 else tile_rows(w, times_r)
+                    for i, w in enumerate(want1)]
+            clk0 = sm_clock()
+            times = {"general": [], "fixed": []}
+            for variant in ("general", "fixed", "fixed", "general"):
+                go, outs = spec["launcher"](aa, variant)
+                times[variant].append(cuda_ms(go, 20))
+                bad = [i for i, (g, w) in enumerate(zip(outs, want))
+                       if not same_bits(g, w)]
+                ekey = "cyclic" if variant == "fixed" else "cyclic_general"
+                errs[ekey] = max([errs.get(ekey, 0.0)]
+                                 + [max_abs(g, w) for g, w in zip(outs, want)])
+                if bad:
+                    fail(f"cyclic {variant} variant disagrees with its plain "
+                         f"version on {name}'s first block at {rows} rows "
+                         f"(outputs {bad})")
+            clk1 = sm_clock()
+            bound_ms, bound_by = spec["bound"](aa, kw)
+            for variant, ts in times.items():
+                timings[name, rows, variant] = dict(
+                    ms=sum(ts) / len(ts), plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            log(f"cyclic {name} first block, {a[8]} voices x {a[9]} frames "
+                f"at {rows} rows: general "
+                + " / ".join(f"{t:.4f}" for t in times["general"])
+                + " ms/call, keyed "
+                + " / ".join(f"{t:.4f}" for t in times["fixed"])
+                + f" ms/call (in turns general, keyed, keyed, general; CUDA "
+                f"events, 20 calls each), "
+                f"{min(times['general']) / max(times['fixed']):.2f}x at "
+                f"least; plain {plain_ms:.1f} ms at {ROWS} rows, bound {bound_ms:.4f} ms "
+                f"({bound_by}), library call: none; both bit-equal to the "
+                f"plain version; clocks.sm {clk0} -> {clk1}, on {card}")
     return launches, timings
+
+
+def cyclic_batch(lines, seconds, rows):
+    """``lines`` compiled for ``seconds`` and packed for the cyclic engine
+    at ``rows`` replicated rows."""
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.host.timeline import compile_script
+    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+
+    tl = compile_script(lines, seconds, bank=WaveBank(),
+                        script_dir=HERE / "corpus")
+    return pack_stacked(stack_timelines([tl] * rows), cyclic=True)
+
+
+def widen(a, times):
+    """The cyclic kernel's arguments with every row repeated ``times``
+    times."""
+    wide = list(a)
+    wide[4] = {kk: tile_rows(v, times) for kk, v in a[4].items()}
+    wide[5] = {kk: tile_rows(v, times) for kk, v in a[5].items()}
+    wide[6] = tile_rows(a[6], times)
+    return tuple(wide)
+
+
+def cyclic_keys():
+    """{label: key} of the cyclic kernel's keyed builds the run needs:
+    fb1-fb5 as the main path renders them (their whole segment list) and
+    as the kernel phase draws them (one block), and the all-features
+    script."""
+    from skred_tpu_torch.engine.fused import compute_feat
+    from skred_tpu_torch.engine.kernels import cyclic as ck
+    from skred_tpu_torch.engine.kernels import cyclic_inputs as ci
+
+    keys = {}
+    for p in FEEDBACK:
+        lines = p.read_text().splitlines()
+        seconds = SECONDS if p.stem in ("fb2", "fb5") else NOISE64_SECONDS
+        st = cyclic_batch(lines, seconds, 2)
+        keys[p.stem] = ck.fixed_key(compute_feat(st),
+                                    st.params["amp"].shape[-1])
+        a = ci.block_inputs(lines, 2, seed=16, n=8)
+        keys.setdefault(f"{p.stem} block", ck.fixed_key(a[7], a[8]))
+    a = ci.block_inputs(ci.ALL_FEATURES, 2, seed=17, n=8)
+    keys["all-features"] = ck.fixed_key(a[7], a[8])
+    return keys
 
 
 def batch_phase(dev, card, counters):
@@ -988,15 +1099,32 @@ def main():
     card = f"{kind} ({smi})"
 
     # ---- 2. build ----
+    phase("build")
     t0 = time.time()
-    secs = build.build_all()
-    log(f"build: {len(secs)} source(s) in {time.time() - t0:.1f} s")
-    for name, (s, out) in build.LOG.items():
-        for line in out.splitlines():
+    keys = cyclic_keys()
+    sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    secs = build.build_all(sources + [("cyclic", key)
+                                      for key in keys.values()])
+    log(f"build: {len(secs)} build(s) ({len(sources)} sources, "
+        f"{len(set(keys.values()))} keys of the cyclic kernel) in "
+        f"{time.time() - t0:.1f} s")
+    scripts_of = {}
+    for label, key in keys.items():
+        scripts_of.setdefault(key, []).append(label)
+    for name, key in ([(src, ()) for src in sources]
+                      + [("cyclic", key) for key in scripts_of]):
+        lab = build.label(name, key)
+        what = f" ({', '.join(scripts_of[key])})" if key else ""
+        sec = f"{secs[lab]:.1f} s" if lab in secs else "built before"
+        log(f"  {lab}{what}: {sec}")
+        for line in build.report(name, key).splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
-    for name in ("tier", "phase_walk", "lookup", "filt_smooth", "cyclic"):
+                log(f"    {line.strip()}")
+    for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
         build.load(name)
+    build.load("cyclic", (), "cyclic_general_launch")
+    for key in keys.values():
+        build.load("cyclic", key, "cyclic_fixed_launch")
 
     specs = {s["name"]: s for s in (tier_spec(tk), phase_walk_spec(pw),
                                     lookup_spec(lk), filt_smooth_spec(fs),
@@ -1004,13 +1132,17 @@ def main():
     noise_kernels = ["phase_walk", "lookup", "filt_smooth"]
     counters = {name: sp["fn"] for name, sp in specs.items()}
     counters.update(table_lookup=lk.table_lookup_pallas,
-                    table_lookup_grouped=lk.table_lookup_grouped)
+                    table_lookup_grouped=lk.table_lookup_grouped,
+                    cyclic_fixed=ck.cyclic_fixed,
+                    cyclic_general=ck.cyclic_general)
 
     # ---- 3. kernel vs plain on random blocks ----
+    phase("kernel")
     errs = {}
     lib = kernel_phase(dev, specs, errs)
 
     # ---- 4./5. stress64: the tier kernel's path ----
+    phase("main, config, short")
     s_launch, s_time, s_lines = main_path(
         "main", STRESS64, dev, card, specs, ["tier"], counters, errs)
     cfg_time = config_compare(dev, card, specs, errs)
@@ -1040,6 +1172,7 @@ def main():
              f"{want}")
 
     # ---- 6./7. noise64: the noise pass's path ----
+    phase("noise main, noise short")
     n_launch, n_time, n_lines = main_path(
         "noise main", NOISE64, dev, card, specs, noise_kernels, counters,
         errs, seconds=NOISE64_SECONDS)
@@ -1051,6 +1184,7 @@ def main():
     tl_time = table_lookup_timing(lk, lib, card)
 
     # ---- 8./9. fb1-fb5: the cyclic kernel's path ----
+    phase("cyclic main, cyclic short")
     c_launch, c_time = cyclic_main(dev, card, specs["cyclic"], counters,
                                    errs)
     fb2, fb4 = (p.read_text().splitlines() for p in (FEEDBACK[1],
@@ -1067,6 +1201,7 @@ def main():
                cyclic.render_cyclic, {"cyclic_block": ck.cyclic_block_plain})
 
     # ---- 10. every in-repo script through render_batch ----
+    phase("batch")
     batch_phase(dev, card, counters)
 
     def record(name, launches, timings, replaces, source):
@@ -1090,14 +1225,24 @@ def main():
              replaces="skred_tpu/engine/kernels.py:648",
              launches=n_launch["table_lookup"],
              max_abs_err=errs.get("table_lookup", 0.0), **tl_time),
-        # fb2's timed pass (each of fb1-fb5 showed one launch per block)
-        # and fb2's first-block inputs at 1024 rows
+        # the keyed variant: fb2's timed pass (each of fb1-fb5 showed one
+        # launch per block) and fb2's first-block inputs at 1024 rows
         dict(name="cyclic", route="cuda",
              source="skred_tpu_torch/engine/kernels/csrc/cyclic.cu",
              replaces="skred_tpu/engine/cyclic.py:544",
-             launches=c_launch["fb2"],
-             max_abs_err=errs.get("cyclic", 0.0), **c_time["fb2", ROWS]),
+             launches=c_launch["fb2"]["cyclic_fixed"],
+             max_abs_err=errs.get("cyclic", 0.0),
+             **c_time["fb2", ROWS, "fixed"]),
+        # the general variant: the 16-voice ring's timed pass, and the same
+        # fb2 inputs, timed in turns with the keyed variant
+        dict(name="cyclic_general", route="cuda",
+             source="skred_tpu_torch/engine/kernels/csrc/cyclic.cu",
+             replaces="skred_tpu/engine/cyclic.py:544",
+             launches=c_launch["ring16"]["cyclic_general"],
+             max_abs_err=errs.get("cyclic_general", 0.0),
+             **c_time["fb2", ROWS, "general"]),
     ]
+    phase("done")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": 1}}))

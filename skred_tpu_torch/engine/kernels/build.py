@@ -1,12 +1,17 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on first use into
-``build/kernels/<name>-<hash>.so`` at the repository root (the hash is of
-the source, the shared ``csrc/*.cuh`` headers and the flags), with a plain C
-entry point (no PyTorch headers, so a build takes seconds).  Importing
-this module compiles nothing.  The flags keep the reference rounding:
-no multiply-add contraction (``-fmad=false``), IEEE division and square
-root, denormals kept, never ``--use_fast_math``.
+``build/kernels/<name>-<hash>.so`` at the repository root, with a plain C
+entry point (no PyTorch headers, so a build takes seconds); nvcc's output
+(ptxas's registers and spills) is kept beside it as ``<name>-<hash>.txt``
+and read back by ``report``.  A source may
+also be built under a set of ``-D`` defines (a *key*: a tuple of
+``"NAME=VALUE"`` strings), as the cyclic kernel is once per voice count
+and feature set; each key is a library of its own.  The hash covers the
+source, the shared ``csrc/*.cuh`` headers, the flags and the key.
+Importing this module compiles nothing.  The flags keep the reference
+rounding: no multiply-add contraction (``-fmad=false``), IEEE division and
+square root, denormals kept, never ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-ftz=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
-LOG: dict = {}          # name -> (seconds, compiler output) of this process
+LOG: dict = {}          # label -> (seconds, compiler output) of this process
 
 
 def _nvcc() -> str:
@@ -38,56 +43,88 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> pathlib.Path:
+def _spec(item):
+    """(name, key) of a build item: a source name or (name, key)."""
+    if isinstance(item, str):
+        return item, ()
+    name, key = item
+    return name, tuple(key)
+
+
+def label(name: str, key=()) -> str:
+    """A short name for a build: the source, and the key's hash."""
+    if not key:
+        return name
+    return f"{name}[{hashlib.sha1(' '.join(key).encode()).hexdigest()[:8]}]"
+
+
+def _target(name: str, key=()) -> pathlib.Path:
     # the hash covers the shared headers too: an edit of a .cuh rebuilds
     # every source that may include it
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(src + " ".join(NVCC_FLAGS + ["-D" + d for d in key])
+                     .encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
-def build_all(names=None) -> dict:
-    """Compile every (or the named) kernel source that has no current
-    library, one nvcc process per source, all started together.  Returns
-    {name: seconds} for the sources compiled by this call."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None \
-        else list(names)
-    todo = [n for n in names if not _target(n).exists()]
+def build_all(items=None) -> dict:
+    """Compile every (or each named) kernel source or key that has no
+    current library, one nvcc process each, all started together.
+    ``items``: source names or (name, key) pairs.  Returns {label:
+    seconds} for the builds made by this call; raises if any failed."""
+    specs = [(p.stem, ()) for p in sorted(CSRC.glob("*.cu"))] \
+        if items is None else [_spec(i) for i in items]
+    todo = list(dict.fromkeys(
+        s for s in specs if not (_target(*s).exists()
+                                 and _target(*s).with_suffix(".txt").exists())))
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.time()
     procs = {}
-    for n in todo:
-        tmp = _target(n).with_suffix(".tmp.so")
-        procs[n] = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+    for name, key in todo:
+        tmp = _target(name, key).with_suffix(".tmp.so")
+        procs[name, key] = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *("-D" + d for d in key), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     secs = {}
     failed = []
-    for n, p in procs.items():
+    for (name, key), p in procs.items():
         out, _ = p.communicate()
-        secs[n] = time.time() - t0
-        LOG[n] = (secs[n], out)
+        lab = label(name, key)
+        secs[lab] = time.time() - t0
+        LOG[lab] = (secs[lab], out)
         if p.returncode != 0:
-            failed.append(f"{n}.cu:\n{out}")
+            failed.append(f"{name}.cu {' '.join(key)}:\n{out}")
             continue
-        _target(n).with_suffix(".tmp.so").rename(_target(n))
+        _target(name, key).with_suffix(".txt").write_text(out)
+        _target(name, key).with_suffix(".tmp.so").rename(_target(name, key))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return secs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, key=(), entry: str | None = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (under ``key``'s
+    defines), built if needed; ``entry`` (default ``<name>_launch``) is
+    its launch function."""
+    key = tuple(key)
+    lib = _LIBS.get((name, key))
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        build_all([(name, key)])
+        lib = ctypes.CDLL(str(_target(name, key)))
+        _LIBS[name, key] = lib
+    fn = getattr(lib, entry or f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def report(name: str, key=()) -> str:
+    """nvcc's output for ``csrc/<name>.cu`` under ``key``, built if needed:
+    the same text whether this process built the library or found it."""
+    build_all([(name, key)])
+    return _target(name, key).with_suffix(".txt").read_text()

@@ -9,25 +9,37 @@
 // states once and write two [n, rows] output streams, a few megabytes at
 // 1024 rows, microseconds at 3.35 TB/s.  Its real limit is latency: each
 // thread walks n frames, and inside a frame the k voices in order, every
-// voice a dependent chain (modulator read -> fmodf -> warp -> table load
-// -> biquad -> smoother -> pan) that the next voice may read.  Nothing of
-// the TPU kernel's memory plan is carried over:
-//   * tables stay in the flat buffer in global memory and are read
-//     through the read-only cache (__ldg) at table_off[v] + idx; there is
-//     no per-voice window, so a table larger than shared memory (a
-//     60,406-sample PCM loop is 236 KB) needs no special case;
-//   * a modulator read is one dynamically indexed shared-memory load
-//     (cur/prev sample of voice m), not a k-deep select chain;
-//   * k and the feature set are run-time arguments (uniform across the
-//     grid, so branches never diverge inside a warp): nothing is rebuilt
-//     per script.  The per-voice states, which cannot live in registers
-//     for k up to 64, sit in shared memory as [field][k][thread] columns
-//     (bank-conflict free); the per-voice parameters, [k, rows] with
-//     the rows contiguous, are re-read each frame from global memory
-//     through L1, coalesced.  The states come and go through strides, so
-//     the renderer's [rows, k] carry needs no transpose;
-//   * blocks are one warp (32 rows), so a 1024-row batch spreads over 32
-//     SMs instead of 8.
+// voice a dependent chain (modulator read -> phase wrap -> warp -> table
+// load -> biquad -> smoother -> pan) that the next voice may read.  At
+// 1024 rows a call is 32 one-warp blocks, one warp per SM: nothing hides
+// that latency, so the design shortens the chain.  Nothing of the TPU
+// kernel's memory plan is carried over: tables stay in the flat buffer in
+// global memory and are read through the read-only cache (__ldg) at
+// table_off[v] + idx, so a table larger than shared memory (a
+// 60,406-sample PCM loop is 236 KB) needs no special case.
+//
+// One source, two variants:
+//   * built with -DCYC_K=<k> and the feature defines below (the keyed
+//     variant, cyclic_fixed_launch): k, the feature set, the CZ mode mask
+//     and the arithmetic mode are compile-time constants, as in the JAX
+//     package, which compiles one kernel per (features, cz modes, k).
+//     The voice loop is unrolled into one frame body without uniform
+//     branches; every per-voice state, the current and the previous
+//     frame's samples and the volume gain live in registers; a modulator
+//     read is a select over those registers by the lane's source index
+//     (no store-to-load round trip through memory); the per-voice
+//     parameters are built once per block (booleans in one flag word,
+//     source indices resolved against the serial-frame rule, the CZ
+//     scales hoisted) and held in registers or read from shared memory
+//     as 16-byte quads (PREG); the phase wrap and the CZ divide run
+//     without their slow paths, and a row whose operands need one
+//     renders the block again with the exact helpers (run_block);
+//   * built without them (the general variant, cyclic_general_launch):
+//     any k up to 64.  k and the feature flags are run-time arguments;
+//     the per-voice states sit in shared memory as [field][k][thread]
+//     columns and the parameters are re-read each frame through L1.
+// The wrapper (kernels/cyclic.py) takes the keyed variant for k up to its
+// cap and builds each key at first use; both share CyclicArgs.
 //
 // Numerics are the JAX kernel's, bit for bit: __fmaf_rn where it calls
 // _kfma whatever the mode (quantizer, envelope decay) and, in exact mode,
@@ -86,6 +98,12 @@ struct CyclicArgs {
     float* out_l; float* out_r;
 };
 
+#ifndef CYC_K
+
+// ======================================================================
+// The general variant: k and the features at run time.
+// ======================================================================
+
 #define CYC_THREADS 32
 
 // [k][CYC_THREADS] shared-memory columns a block needs for these features
@@ -111,7 +129,7 @@ __device__ __forceinline__ float read_mod(const float* cur, const float* prev,
 }
 
 __global__ void __launch_bounds__(CYC_THREADS)
-cyclic_kernel(const CyclicArgs a) {
+cyclic_general_kernel(const CyclicArgs a) {
     extern __shared__ float smem[];
     const int tid = threadIdx.x;
     const int b = blockIdx.x * CYC_THREADS + tid;
@@ -379,7 +397,7 @@ cyclic_kernel(const CyclicArgs a) {
     a.vol_gain_e[b] = vg;
 }
 
-extern "C" int cyclic_launch(const CyclicArgs* args, void* stream) {
+extern "C" int cyclic_general_launch(const CyclicArgs* args, void* stream) {
     const int blocks = (args->rows + CYC_THREADS - 1) / CYC_THREADS;
     if (blocks <= 0 || args->k <= 0) return (int)cudaGetLastError();
     const size_t smem = (size_t)cyclic_fields(*args) * args->k * CYC_THREADS
@@ -387,10 +405,536 @@ extern "C" int cyclic_launch(const CyclicArgs* args, void* stream) {
     if (smem > 48 * 1024) {
         // above 48 KB a block's dynamic shared memory is an opt-in
         cudaError_t rc = cudaFuncSetAttribute(
-            cyclic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            cyclic_general_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (rc != cudaSuccess) return (int)rc;
     }
-    cyclic_kernel<<<blocks, CYC_THREADS, smem, (cudaStream_t)stream>>>(*args);
+    cyclic_general_kernel<<<blocks, CYC_THREADS, smem,
+                            (cudaStream_t)stream>>>(*args);
     return (int)cudaGetLastError();
 }
+
+#else  // CYC_K
+
+// ======================================================================
+// The keyed variant: built with
+//   -DCYC_K=<voices> -DCYC_EXACT=<0|1> -DCYC_CZ_MASK=<bit m: CZ mode m>
+//   -DCYC_HAS_<FEATURE>=<0|1> for every flag of CyclicArgs (FM, CZ, CZM, AM, AM_SELF, PM, PM_SELF,
+// ENV, FLT, SM, HOLD, QUANT, NOISE, FINISH, DIRECTION, DISC).
+// ======================================================================
+
+constexpr int K = CYC_K;
+constexpr int EXACT = CYC_EXACT;
+constexpr int CZ_MASK = CYC_CZ_MASK;
+constexpr int TF = 32;                    // rows a block: one warp
+constexpr bool FM = CYC_HAS_FM, CZ = CYC_HAS_CZ, CZM = CYC_HAS_CZM,
+    AM = CYC_HAS_AM, AM_SELF = CYC_HAS_AM_SELF, PM = CYC_HAS_PM,
+    PM_SELF = CYC_HAS_PM_SELF, ENV = CYC_HAS_ENV, FLT = CYC_HAS_FLT,
+    SM = CYC_HAS_SM, HOLD = CYC_HAS_HOLD, QUANT = CYC_HAS_QUANT,
+    NOISE = CYC_HAS_NOISE, FINISH = CYC_HAS_FINISH, DIRN = CYC_HAS_DIRECTION,
+    DISC = CYC_HAS_DISC;
+constexpr bool CZC = CZ && !CZM;          // CZ scales constant over a block
+
+// the per-voice booleans of one row, one bit each
+enum : int {
+    F_LIVE = 1 << 0,      // amp != 0
+    F_USE_FM = 1 << 1, F_DIRNEG = 1 << 2, F_OSN = 1 << 3,
+    F_ONE_SHOT = 1 << 4, F_NOISE = 1 << 5, F_HOLD = 1 << 6,
+    F_QUANT = 1 << 7, F_FLT = 1 << 8, F_USE_ENV = 1 << 9,
+    F_ENV_ACT = 1 << 10, F_NO_REL = 1 << 11, F_CM_GE = 1 << 12,
+    F_AM_GE = 1 << 13, F_AM_SELF = 1 << 14, F_PAN_ON = 1 << 15,
+    F_PM_SELF = 1 << 16, F_DC0 = 1 << 17, F_USE_SM = 1 << 18,
+};
+
+// slots of a voice's parameter record (ints stored as their bits); a
+// feature's slots exist only when it is compiled in
+constexpr int P_FLAGS = 0, P_PINC = 1, P_LO = 2, P_HI = 3, P_L = 4,
+    P_AMP = 5, P_CLIP = 6, P_TOFF = 7;
+constexpr int P_FM = 8;                              // src, mis, fm_dep
+constexpr int P_HIOS = P_FM + (FM ? 3 : 0);          // hi - 1e-6
+constexpr int P_CZ = P_HIOS + (FINISH ? 1 : 0);      // mode, tsize, inv_ts
+constexpr int P_CZM = P_CZ + (CZ ? 3 : 0);           // src, cz_dist, cm_dep
+constexpr int P_CZC = P_CZM + (CZM ? 3 : 0);         // the 7 CzScales
+constexpr int P_HOLD = P_CZC + (CZC ? 7 : 0);        // hmax
+constexpr int P_QUANT = P_HOLD + (HOLD ? 1 : 0);     // levels, inv_lev
+constexpr int P_FLT = P_QUANT + (QUANT ? 2 : 0);     // b0 b1 b2 na1 na2
+constexpr int P_ENV = P_FLT + (FLT ? 5 : 0);
+    // env_start, env_relat, att, dec, sus, rel, vel, att + dec
+constexpr int P_AM = P_ENV + (ENV ? 8 : 0);          // src, am_dep
+constexpr int P_PM = P_AM + (AM ? 2 : 0);            // src, pm_dep
+constexpr int P_SM = P_PM + (PM ? 2 : 0);            // smoothing
+constexpr int NP = P_SM + (SM ? 1 : 0);
+constexpr int NQ = (NP + 3) / 4;                     // 16-byte quads
+
+// Where a frame reads the parameter records from: registers, loaded once
+// per block, where they fit beside the states (K * (4 NQ + NS) <= 200;
+// fb2's 5 voices take 188 registers, no spill); shared memory, one
+// 128-bit load per quad, otherwise.
+constexpr int NS = 5 + FINISH + 2 * HOLD + 4 * FLT + SM;  // states a voice
+constexpr bool PREG = K * (4 * NQ + NS) <= 200;
+
+// a modulator edge resolved once per block against the serial-frame rule
+// (read_mod): -1 reads +0.0, j < K the previous frame's sample of voice
+// j, K + j this frame's (a voice below `done`, not delayed)
+__device__ __forceinline__ int src_code(int m, int delayed, int done) {
+    if (m < 0 || m >= K) return -1;
+    return (delayed == 0 && m < done) ? K + m : m;
+}
+
+// the read: a select over the sample registers, this frame's last, so
+// the voice rendered just before is the last select of the chain
+__device__ __forceinline__ float read_src(int code, const float* cur,
+                                          const float* prev, int done) {
+    float val = 0.0f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) val = code == j ? prev[j] : val;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+        if (j < done) val = code == K + j ? cur[j] : val;
+    return val;
+}
+
+// The block runs first with the wrap and the CZ divide that have no slow
+// path (FAST): exact wherever their operands are in range, and a lane
+// whose operand is not sets `slow` and renders the block again with the
+// exact helpers (it reads the same inputs; every output is written
+// again).  The slow paths are branches, and a branch in the frame body
+// keeps the compiler from overlapping one voice's chain with another's.
+template <bool FAST>
+__device__ __forceinline__ float wrap(float x, float L, bool& slow) {
+    if (!FAST) return wrap_fmod(x, L);
+    const bool once = x >= L && x < 2.0f * L;   // wrap_fmod's two ranges
+    slow = slow || !(once || fabsf(x) < L);
+    return once ? x - L : x;
+}
+
+template <bool FAST>
+__device__ __forceinline__ float div_inv(float a, float y1, float b,
+                                         bool& slow) {
+    if (!FAST) return kdiv_inv(a, y1, b);
+    const float q0 = __fmul_rn(a, y1);          // kdiv_inv while finite
+    const float q = kfma(kfma(-b, q0, a), y1, q0);
+    slow = slow || !isfinite(q);
+    return q;
+}
+
+// cz_warp_k over the compiled modes only, as selects
+template <bool FAST>
+__device__ __forceinline__ float cz_warp_fixed(int mode, float phase,
+                                               const CzScales& s, float tsz,
+                                               bool& slow) {
+    float out = phase;
+    if (CZ_MASK & (1 << 1)) {
+        const float w = phase < s.d ? phase * s.s1a
+                                    : xfma(phase - s.d, s.s1b, 0.5f, EXACT);
+        out = mode == 1 ? w : out;
+    }
+    if (CZ_MASK & (1 << 2)) {
+        const float w = phase < 0.5f ? phase * s.sc2
+                                     : xfma(-(1.0f - phase), s.sc2, 1.0f,
+                                            EXACT);
+        out = mode == 2 ? w : out;
+    }
+    if (CZ_MASK & (1 << 3)) {
+        const float w = phase < 0.5f ? phase * s.sc2
+                                     : xfma(phase - 0.5f, s.sc2, 0.5f, EXACT);
+        out = mode == 3 ? w : out;
+    }
+    if (CZ_MASK & (1 << 4)) {
+        const float w = wrap<FAST>(phase * 2.0f, 1.0f, slow);
+        out = mode == 4 ? w : out;
+    }
+    if (CZ_MASK & (1 << 5)) {
+        const float w = phase < 0.5f ? phase * s.sc2
+                                     : xfma(phase - 0.5f, s.sc5b, 0.5f, EXACT);
+        out = mode == 5 ? w : out;
+    }
+    if (CZ_MASK & (1 << 6)) {
+        const float w = k_fast_pow(phase, s.p6, EXACT);
+        out = mode == 6 ? w : out;
+    }
+    if (CZ_MASK & (1 << 7)) {
+        const float w = k_fast_pow(phase, s.p7, EXACT);
+        out = mode == 7 ? w : out;
+    }
+    return out * tsz;
+}
+
+__device__ __forceinline__ int as_i(float x) { return __float_as_int(x); }
+__device__ __forceinline__ float as_f(int x) { return __int_as_float(x); }
+
+// States in, the frame loop, states out, for row b; returns whether a
+// fast helper met an operand outside its range (FAST only).
+template <bool FAST>
+__device__ __forceinline__ bool run_block(const CyclicArgs& a,
+                                          const float4* par4, int b,
+                                          int tid) {
+    const int n = a.n, B = a.rows;
+    bool slow = false;
+    // ---- states in, into registers ----
+    float ph[K], prev[K], cur[K], pnl[K], pnr[K];
+    int fin[K], hc[K];
+    float hv[K], x1[K], x2[K], y1[K], y2[K], sg[K];
+#pragma unroll
+    for (int v = 0; v < K; ++v) {
+        const int so = v * a.st_sv + b * a.st_sb;
+        ph[v] = a.phase_0[so];
+        prev[v] = a.sample_0[so];
+        cur[v] = prev[v];
+        pnl[v] = a.pan_l_0[so];
+        pnr[v] = a.pan_r_0[so];
+        fin[v] = FINISH ? a.finished_0[so] : 0;
+        hc[v] = HOLD ? a.hold_count_0[so] : 0;
+        hv[v] = HOLD ? a.hold_val_0[so] : 0.0f;
+        x1[v] = FLT ? a.x1_0[so] : 0.0f;
+        x2[v] = FLT ? a.x2_0[so] : 0.0f;
+        y1[v] = FLT ? a.y1_0[so] : 0.0f;
+        y2[v] = FLT ? a.y2_0[so] : 0.0f;
+        sg[v] = SM ? a.smoother_0[so] : 0.0f;
+    }
+    const float vf = a.vf[b];
+    float vg = a.vol_gain_0[b];
+    float4 preg[K][NQ];                      // unused unless PREG
+    if (PREG) {
+#pragma unroll
+        for (int v = 0; v < K; ++v)
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+                preg[v][q] = par4[(v * NQ + q) * TF + tid];
+    }
+
+    for (int t = 0; t < n; ++t) {
+        const float whiteish = NOISE ? __ldg(a.noise + t) : 0.0f;
+        float mix_l = 0.0f, mix_r = 0.0f;
+#pragma unroll
+        for (int v = 0; v < K; ++v) {
+            float p[NQ * 4];
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+                const float4 x = PREG ? preg[v][q]
+                                      : par4[(v * NQ + q) * TF + tid];
+                p[4 * q] = x.x; p[4 * q + 1] = x.y;
+                p[4 * q + 2] = x.z; p[4 * q + 3] = x.w;
+            }
+            const int fl = as_i(p[P_FLAGS]);
+            const float amp = p[P_AMP];
+            const bool active = (fl & F_LIVE) && !(FINISH && fin[v] != 0);
+            // ---- mod read ----
+            const float pinc = p[P_PINC];
+            float g = 0.0f;
+            if (FM) g = read_src(as_i(p[P_FM]), cur, prev, v) * p[P_FM + 2];
+            // ---- increment ----
+            float inc = pinc;
+            if (FM && (fl & F_USE_FM)) inc = xfma(p[P_FM + 1], g, pinc, EXACT);
+            if (DIRN && (fl & F_DIRNEG)) inc = -inc;
+            // ---- wrap ----
+            const float lo = p[P_LO], hi = p[P_HI];
+            const float phv = ph[v] + inc;
+            const bool bad = !isfinite(phv);
+            const bool over = phv >= hi;
+            const bool under = phv < lo;
+            const float r = wrap<FAST>(phv - lo, p[P_L], slow);
+            const float wrap_over = lo + r;
+            const float wrap_under = hi + r;
+            const bool osn_b = FINISH && (fl & F_OSN);
+            float ph2 = over ? (osn_b ? (FINISH ? p[P_HIOS] : 0.0f)
+                                      : wrap_over)
+                             : (under ? (osn_b ? lo : wrap_under) : phv);
+            if (bad) ph2 = 0.0f;
+            // ---- cz warp ----
+            float idx_f = ph2;
+            if (CZ) {
+                const int mode = as_i(p[P_CZ]);
+                const float tsz = p[P_CZ + 1];
+                CzScales s;
+                if (CZM) {
+                    const float rdm = read_src(as_i(p[P_CZM]), cur, prev, v);
+                    const float dm = (fl & F_CM_GE) ? rdm * p[P_CZM + 2]
+                                                    : 1.0f;
+                    s = cz_scales(p[P_CZM + 1] + dm, EXACT, CZ_MASK);
+                } else {
+                    s.d = p[P_CZC]; s.s1a = p[P_CZC + 1];
+                    s.s1b = p[P_CZC + 2]; s.sc2 = p[P_CZC + 3];
+                    s.sc5b = p[P_CZC + 4]; s.p6 = p[P_CZC + 5];
+                    s.p7 = p[P_CZC + 6];
+                }
+                const float phase3 = EXACT
+                    ? div_inv<FAST>(ph2, p[P_CZ + 2], tsz, slow)
+                    : __fdiv_rn(ph2, tsz);
+                const float warped = cz_warp_fixed<FAST>(mode, phase3, s,
+                                                         tsz, slow);
+                if (mode != 0) idx_f = warped;
+            }
+            // ---- lookup ----
+            int idx = (int)idx_f;
+            idx = idx < 0 ? 0 : idx;
+            const int clip = as_i(p[P_CLIP]);
+            idx = idx > clip ? clip : idx;
+            float f = __ldg(a.table + (as_i(p[P_TOFF]) + idx));
+            if (bad) f = 0.0f;
+            bool adv = active;
+            if (NOISE && (fl & F_NOISE)) {
+                f = whiteish;
+                adv = false;
+            }
+            if (adv) ph[v] = ph2;
+            if (FINISH) {
+                const bool fin_osc = (bad && (fl & F_ONE_SHOT))
+                                     || ((over || under) && osn_b);
+                if (adv && fin_osc) fin[v] = 1;
+            }
+            // ---- dsp ----
+            float s1 = f;
+            if (HOLD) {
+                const bool h_on = fl & F_HOLD;
+                const float hv2 = (h_on && hc[v] == 0) ? f : hv[v];
+                if (h_on) s1 = hv2;
+                int hcn = hc[v] + 1;
+                if (hcn >= as_i(p[P_HOLD])) hcn = 0;
+                if (active && h_on) hc[v] = hcn;
+                if (active) hv[v] = hv2;
+            }
+            float s2 = s1;
+            if (QUANT) {
+                const float iv = (float)(int)kfma(s1, p[P_QUANT], 0.5f);
+                if (fl & F_QUANT) s2 = iv * p[P_QUANT + 1];
+            }
+            float s3 = s2;
+            if (FLT) {
+                float fv = p[P_FLT + 1] * x1[v];
+                fv = xfma(p[P_FLT], s2, fv, EXACT);
+                fv = xfma(p[P_FLT + 2], x2[v], fv, EXACT);
+                fv = xfma(p[P_FLT + 3], y1[v], fv, EXACT);
+                fv = xfma(p[P_FLT + 4], y2[v], fv, EXACT);
+                const bool uf = fl & F_FLT;
+                if (uf) s3 = fv;
+                if (active && uf) {
+                    x2[v] = x1[v]; x1[v] = s2; y2[v] = y1[v]; y1[v] = fv;
+                }
+            }
+            // ---- gain and smoother ----
+            float final_g = amp;
+            if (ENV) {
+                const int count = a.cbase + t;
+                const int env_relat = as_i(p[P_ENV + 1]);
+                const float tf = (float)(count - as_i(p[P_ENV]));
+                const float trf = (float)(count - env_relat);
+                const float att = p[P_ENV + 2], dec = p[P_ENV + 3];
+                const float sus = p[P_ENV + 4], rel = p[P_ENV + 5];
+                float ev;
+                if (tf < att) ev = __fdiv_rn(tf, att);
+                else if (tf < p[P_ENV + 7])
+                    ev = kfma(-__fdiv_rn(tf - att, dec), 1.0f - sus, 1.0f);
+                else if (fl & F_NO_REL) ev = sus;
+                else if (trf < rel)
+                    ev = sus * (1.0f - __fdiv_rn(trf, rel));
+                else ev = 0.0f;
+                if (!(fl & F_ENV_ACT)) ev = 0.0f;
+                const float env = (fl & F_USE_ENV) ? ev * p[P_ENV + 6]
+                                                   : 1.0f;
+                final_g = amp * env;
+            }
+            if (AM) {
+                float amr = read_src(as_i(p[P_AM]), cur, prev, v);
+                if (AM_SELF && (fl & F_AM_SELF)) amr = s3;
+                const float ampmod = (fl & F_AM_GE) ? amr * p[P_AM + 1]
+                                                    : 1.0f;
+                final_g = final_g * ampmod;
+            }
+            float final2 = final_g;
+            if (SM) {
+                const float sg2 = xfma(p[P_SM], final_g - sg[v], sg[v],
+                                       EXACT);
+                const bool u_sm = fl & F_USE_SM;
+                if (u_sm) final2 = sg2;
+                if (active && u_sm) sg[v] = sg2;
+            }
+            const float sample_out = active ? s3 * final2 : 0.0f;
+            cur[v] = sample_out;
+            // ---- pan and mix ----
+            float plv = pnl[v], prv = pnr[v];
+            if (PM) {
+                float pmr = read_src(as_i(p[P_PM]), cur, prev, v + 1);
+                if (PM_SELF && (fl & F_PM_SELF)) pmr = sample_out;
+                const bool pan_on = fl & F_PAN_ON;
+                const float dep = p[P_PM + 1];
+                const float one_m_q = xfma(-pmr, dep, 1.0f, EXACT);
+                const float one_p_q = xfma(pmr, dep, 1.0f, EXACT);
+                if (pan_on) { plv = one_m_q * 0.5f; prv = one_p_q * 0.5f; }
+                if (active && pan_on) { pnl[v] = plv; pnr[v] = prv; }
+            }
+            const bool contrib = active && (fl & F_DC0);
+            mix_l = mix_l + (contrib ? sample_out * plv : 0.0f);
+            mix_r = mix_r + (contrib ? sample_out * prv : 0.0f);
+        }
+        // ---- master volume ----
+#pragma unroll
+        for (int v = 0; v < K; ++v) prev[v] = cur[v];
+        vg = xfma(0.002f, vf - vg, vg, EXACT);
+        a.out_l[(size_t)t * B + b] = mix_l * vg;
+        a.out_r[(size_t)t * B + b] = mix_r * vg;
+    }
+
+    // ---- states out ----
+#pragma unroll
+    for (int v = 0; v < K; ++v) {
+        const int so = v * a.st_sv + b * a.st_sb;
+        a.sample_e[so] = prev[v];
+        a.phase_e[so] = ph[v];
+        a.pan_l_e[so] = pnl[v];
+        a.pan_r_e[so] = pnr[v];
+        if (FINISH) a.finished_e[so] = fin[v];
+        if (HOLD) { a.hold_count_e[so] = hc[v]; a.hold_val_e[so] = hv[v]; }
+        if (FLT) { a.x1_e[so] = x1[v]; a.x2_e[so] = x2[v];
+                   a.y1_e[so] = y1[v]; a.y2_e[so] = y2[v]; }
+        if (SM) a.smoother_e[so] = sg[v];
+    }
+    a.vol_gain_e[b] = vg;
+    return slow;
+}
+
+__global__ void __launch_bounds__(TF)
+cyclic_fixed_kernel(const CyclicArgs a) {
+    extern __shared__ float4 par4[];         // [K][NQ][TF] quads
+    const int tid = threadIdx.x;
+    const int b = blockIdx.x * TF + tid;
+    if (b >= a.rows) return;
+    const int B = a.rows;
+
+    // ---- per-voice parameter records, once per block ----
+#pragma unroll
+    for (int v = 0; v < K; ++v) {
+        const int vo = v * B + b;
+        float p[NQ * 4];
+#pragma unroll
+        for (int i = 0; i < NQ * 4; ++i) p[i] = 0.0f;
+        const float amp = a.amp[vo];
+        int fl = amp != 0.0f ? F_LIVE : 0;
+        p[P_PINC] = a.pinc[vo];
+        p[P_LO] = a.lo[vo];
+        p[P_HI] = a.hi[vo];
+        p[P_L] = a.L[vo];
+        p[P_AMP] = amp;
+        p[P_CLIP] = as_f(a.clip_i[vo]);
+        p[P_TOFF] = as_f(a.table_off[v]);
+        if (FM) {
+            p[P_FM] = as_f(src_code(a.fm_osc[vo], a.fm_del[vo], v));
+            p[P_FM + 1] = a.mis[vo];
+            p[P_FM + 2] = a.fm_dep[vo];
+            if (a.use_fm[vo] != 0) fl |= F_USE_FM;
+        }
+        if (DIRN && a.dirneg[vo] != 0) fl |= F_DIRNEG;
+        if (FINISH) {
+            p[P_HIOS] = p[P_HI] - 1e-6f;
+            if (a.osn[vo] != 0) fl |= F_OSN;
+            if (a.one_shot[vo] != 0) fl |= F_ONE_SHOT;
+        }
+        if (CZ) {
+            p[P_CZ] = as_f(a.cz_mode[vo]);
+            p[P_CZ + 1] = a.tsize[vo];
+            p[P_CZ + 2] = a.inv_ts[vo];
+        }
+        if (CZM) {
+            p[P_CZM] = as_f(src_code(a.cm_osc[vo], a.cm_del[vo], v));
+            p[P_CZM + 1] = a.cz_dist[vo];
+            p[P_CZM + 2] = a.cm_dep[vo];
+            if (a.cm_ge[vo] != 0) fl |= F_CM_GE;
+        }
+        if (CZC) {
+            const CzScales s = cz_scales(a.cz_dist[vo] + a.dm_row[vo], EXACT,
+                                         CZ_MASK);
+            p[P_CZC] = s.d; p[P_CZC + 1] = s.s1a; p[P_CZC + 2] = s.s1b;
+            p[P_CZC + 3] = s.sc2; p[P_CZC + 4] = s.sc5b;
+            p[P_CZC + 5] = s.p6; p[P_CZC + 6] = s.p7;
+        }
+        if (NOISE && a.is_noise[vo] != 0) fl |= F_NOISE;
+        if (HOLD) {
+            p[P_HOLD] = as_f(a.hmax[vo]);
+            if (a.hold_on[vo] != 0) fl |= F_HOLD;
+        }
+        if (QUANT) {
+            p[P_QUANT] = a.levels[vo];
+            p[P_QUANT + 1] = a.inv_lev[vo];
+            if (a.quant_on[vo] != 0) fl |= F_QUANT;
+        }
+        if (FLT) {
+            p[P_FLT] = a.b0[vo]; p[P_FLT + 1] = a.b1[vo];
+            p[P_FLT + 2] = a.b2[vo]; p[P_FLT + 3] = a.na1[vo];
+            p[P_FLT + 4] = a.na2[vo];
+            if (a.use_flt[vo] != 0) fl |= F_FLT;
+        }
+        if (ENV) {
+            const int relat = a.env_relat[vo];
+            p[P_ENV] = as_f(a.env_start[vo]);
+            p[P_ENV + 1] = as_f(relat);
+            p[P_ENV + 2] = a.att[vo]; p[P_ENV + 3] = a.dec[vo];
+            p[P_ENV + 4] = a.sus[vo]; p[P_ENV + 5] = a.rel[vo];
+            p[P_ENV + 6] = a.vel[vo];
+            p[P_ENV + 7] = a.att[vo] + a.dec[vo];
+            if (a.use_env[vo] != 0) fl |= F_USE_ENV;
+            if (a.env_act[vo] != 0) fl |= F_ENV_ACT;
+            if (relat == 0) fl |= F_NO_REL;
+        }
+        const bool dc0 = !DISC || a.disconn[vo] == 0;
+        if (dc0) fl |= F_DC0;
+        if (AM) {
+            const int am_osc = a.am_osc[vo];
+            p[P_AM] = as_f(src_code(am_osc, a.am_del[vo], v));
+            p[P_AM + 1] = a.am_dep[vo];
+            if (am_osc >= 0) fl |= F_AM_GE;
+            if (AM_SELF && am_osc == v) fl |= F_AM_SELF;
+        }
+        if (PM) {
+            const int pm_osc = a.pm_osc[vo];
+            // the pan read comes after the voice's own sample
+            p[P_PM] = as_f(src_code(pm_osc, a.pm_del[vo], v + 1));
+            p[P_PM + 1] = a.pm_dep[vo];
+            if (pm_osc >= 0 && dc0) fl |= F_PAN_ON;
+            if (PM_SELF && a.pm_self[vo] != 0) fl |= F_PM_SELF;
+        }
+        if (SM) {
+            p[P_SM] = a.smoothing[vo];
+            if (a.use_sm[vo] != 0) fl |= F_USE_SM;
+        }
+        p[P_FLAGS] = as_f(fl);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+            par4[(v * NQ + q) * TF + tid] =
+                make_float4(p[4 * q], p[4 * q + 1], p[4 * q + 2],
+                            p[4 * q + 3]);
+    }
+
+    if (run_block<true>(a, par4, b, tid))
+        run_block<false>(a, par4, b, tid);
+}
+
+// -1: the arguments are not this build's key (k, mode, features)
+extern "C" int cyclic_fixed_launch(const CyclicArgs* a, void* stream) {
+    const int want[] = {FM, CZ, CZM, AM, AM_SELF, PM, PM_SELF, ENV, FLT, SM,
+                        HOLD, QUANT, NOISE, FINISH, DIRN, DISC};
+    const int got[] = {a->has_fm, a->has_cz, a->has_czm, a->has_am,
+                       a->has_am_self, a->has_pm, a->has_pm_self, a->has_env,
+                       a->has_flt, a->has_sm, a->has_hold, a->has_quant,
+                       a->has_noise, a->has_finish, a->has_direction,
+                       a->has_disc};
+    bool same = a->k == K && (a->exact != 0) == (EXACT != 0)
+                && (!CZ || a->cz_mask == CZ_MASK);
+    for (int i = 0; i < 16; ++i)
+        same = same && (got[i] != 0) == (want[i] != 0);
+    if (!same) return -1;
+    const int blocks = (a->rows + TF - 1) / TF;
+    if (blocks <= 0) return (int)cudaGetLastError();
+    const size_t smem = (size_t)K * NQ * TF * sizeof(float4);
+    if (smem > 48 * 1024) {
+        // above 48 KB a block's dynamic shared memory is an opt-in
+        cudaError_t rc = cudaFuncSetAttribute(
+            cyclic_fixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (rc != cudaSuccess) return (int)rc;
+    }
+    cyclic_fixed_kernel<<<blocks, TF, smem, (cudaStream_t)stream>>>(*a);
+    return (int)cudaGetLastError();
+}
+
+#endif  // CYC_K

@@ -56,6 +56,20 @@ __device__ __forceinline__ float k_fast_pow(float a, float b, int exact) {
     return a <= 0.0f ? 0.0f : r;
 }
 
+// fmodf(x, L) bit for bit, without its loop where the result is one
+// subtraction or x itself: for L <= x < 2L, x - L is exact (Sterbenz)
+// and is the remainder; for |x| < L the remainder is x (-0.0 kept).
+// Any other operands, non-finite ones included, take fmodf.
+static __device__ __noinline__ float fmod_slow(float x, float L) {
+    return fmodf(x, L);
+}
+
+__device__ __forceinline__ float wrap_fmod(float x, float L) {
+    if (x >= L && x < 2.0f * L) return x - L;
+    if (fabsf(x) < L) return x;
+    return fmod_slow(x, L);
+}
+
 __device__ __forceinline__ bool has_mode(int mask, int k) {
     return (mask >> k) & 1;
 }

@@ -1,8 +1,9 @@
 """Argument checks and the launch call shared by the kernels' wrappers.
 
 Each ``csrc/<name>.cu`` exports ``int <name>_launch(const Args*, void*
-stream)``; its wrapper fills a ctypes mirror of ``Args`` with pointers
-from tensors checked here, and launches on the device's current stream.
+stream)`` (or another entry point, under a build key); its wrapper fills a
+ctypes mirror of ``Args`` with pointers from tensors checked here, and
+launches on the device's current stream.
 """
 
 from __future__ import annotations
@@ -29,15 +30,19 @@ def check(kernel, name, x, dev, dtype, shape):
     return x.data_ptr()
 
 
-def launch(name: str, args: ctypes.Structure, device) -> None:
-    """Launch ``csrc/<name>.cu`` on ``device``'s current stream; raise if
-    CUDA refuses the launch."""
+def launch(name: str, args: ctypes.Structure, device, key=(),
+           entry: str | None = None) -> None:
+    """Launch ``csrc/<name>.cu`` (built under ``key``; entry point
+    ``entry``, default ``<name>_launch``) on ``device``'s current stream;
+    raise if the launch is refused."""
     from skred_tpu_torch.engine.kernels import build
 
-    lib = build.load(name)
+    entry = entry or f"{name}_launch"
+    lib = build.load(name, key, entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"{name}_launch")(ctypes.byref(args),
-                                            ctypes.c_void_p(stream))
+        rc = getattr(lib, entry)(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} failed: "
+                           + ("the arguments are not the build's key"
+                              if rc == -1 else f"CUDA error {rc}"))

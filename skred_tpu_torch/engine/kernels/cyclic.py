@@ -19,7 +19,11 @@ strides, and the new states come back in the same layout); ``vf`` and
 ``[n, B]`` buffers.  Tables stay in the flat buffer; voice
 ``v`` reads ``table[table_off[v] + idx]``.  A CPU tensor runs
 ``cyclic_block_plain``, the same arithmetic in torch ops; a CUDA tensor
-launches ``csrc/cyclic.cu`` or raises.
+launches one of ``csrc/cyclic.cu``'s two variants or raises:
+``cyclic_fixed`` (voice count, features, CZ modes and arithmetic mode
+compiled in; one library per ``fixed_key``, built at first use) for ``k``
+up to ``FIXED_K_MAX``, ``cyclic_general`` (all of them run-time
+arguments) above it.
 """
 
 from __future__ import annotations
@@ -423,6 +427,10 @@ def _check_states(items, dev, k, B):
     return ptrs, layouts.pop()
 
 
+def _cz_mask(fl):
+    return sum(1 << m for m in fl["cz_modes"] if 1 <= m <= 7)
+
+
 def _pack_args(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
                k, n, exact):
     """Check the CUDA tensors and fill the kernel's argument struct.
@@ -436,7 +444,7 @@ def _pack_args(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
         int(bool(exact))
     for name in _FLAG_NAMES:
         setattr(a, "has_" + name, int(fl[name]))
-    a.cz_mask = sum(1 << m for m in fl["cz_modes"] if 1 <= m <= 7)
+    a.cz_mask = _cz_mask(fl)
     if table.dim() != 1:
         raise ValueError("cyclic: table must be the flat [R] buffer")
     a.table = chk("table", table, dev, F32, tuple(table.shape))
@@ -467,8 +475,49 @@ def _pack_args(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
     return a, out[0].T, out[1].T, new_states
 
 
+# The keyed variant's cap: its per-voice states live in registers, so the
+# voice count is bounded by the register file.  The rule, from ptxas's
+# report and the SASS of the all-features key: at every count up to the
+# cap it stays clear of the 255-register ceiling (below 248) and spills
+# nothing inside its frame loops (ptxas may spill a few bytes in the
+# once-per-block prologue); at 9 voices it reaches the ceiling (PERF.md,
+# the kernel table).
+FIXED_K_MAX = 8
+
+
+def fixed_key(feat, k, exact=True):
+    """The build key (``-D`` defines) of the keyed variant for ``feat``
+    at ``k`` voices: one library per key, as the JAX package compiles
+    one kernel per (features, CZ modes, k).  Deterministic; the CZ mode
+    mask counts only where CZ is on."""
+    fl = _flags(feat)
+    return ((f"CYC_K={int(k)}", f"CYC_EXACT={int(bool(exact))}",
+             f"CYC_CZ_MASK={_cz_mask(fl) if fl['cz'] else 0}")
+            + tuple(f"CYC_HAS_{name.upper()}={int(fl[name])}"
+                    for name in _FLAG_NAMES))
+
+
+def variant_for(k):
+    """The rule: the keyed variant up to the cap, the general one above
+    it (and for a block with no voice)."""
+    return "fixed" if 1 <= k <= FIXED_K_MAX else "general"
+
+
+def cyclic_fixed(args, key, dev):
+    """Launch the keyed variant built under ``key`` (built at first use;
+    a failed build raises)."""
+    cuda_call.launch("cyclic", args, dev, key, "cyclic_fixed_launch")
+    cyclic_fixed.launches += 1
+
+
+def cyclic_general(args, dev):
+    """Launch the general variant."""
+    cuda_call.launch("cyclic", args, dev, (), "cyclic_general_launch")
+    cyclic_general.launches += 1
+
+
 def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
-                 k, n, exact=True):
+                 k, n, exact=True, variant=None):
     """One block of the cyclic engine over all batch rows.
 
     table: [R] f32 flat table buffer; table_off: [k] i32, each voice's
@@ -476,10 +525,13 @@ def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
     block's first frame (envelope); noise_blk: [n] f32 or None (one noise
     value per frame serves every noise voice and row); vecs / states:
     dicts of [k, B] per-voice tensors (vecs contiguous; see the module
-    docstring for the states' layouts), states["vol_gain"] [B]; vf: [B] volume_final; feat:
-    the renderer's ``Feat``.  The kernel reads ``table_off[v] + [0,
-    clip_i]`` unchecked: the caller keeps those inside the buffer (the
-    cyclic renderer checks once per render, on the host).  Returns
+    docstring for the states' layouts), states["vol_gain"] [B]; vf: [B]
+    volume_final; feat: the renderer's ``Feat``.  The kernel reads
+    ``table_off[v] + [0, clip_i]`` unchecked: the caller keeps those
+    inside the buffer (the cyclic renderer checks once per render, on the
+    host).  ``variant``:
+    None takes ``variant_for(k)``; "fixed" or "general" names one (the
+    tests and chip_smoke.py hold both to the plain version).  Returns
     ``(out_l [B, n], out_r [B, n], new_states)``; new_states holds the
     states that ``feat`` lets the block change, and vol_gain."""
     dev = vf.device
@@ -488,12 +540,23 @@ def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
                                   states, vf, feat, k, n, exact)
     if dev.type != "cuda":
         raise ValueError(f"cyclic: no kernel for device {dev}")
+    variant = variant or variant_for(k)
+    if variant == "fixed" and not 1 <= k <= FIXED_K_MAX:
+        raise ValueError(f"cyclic: the keyed variant takes 1 to "
+                         f"{FIXED_K_MAX} voices, not {k}")
+    if variant not in ("fixed", "general"):
+        raise ValueError(f"cyclic: no variant {variant!r}")
     args, out_l, out_r, new_states = _pack_args(
         table, table_off, cbase, noise_blk, vecs, states, vf, feat, k, n,
         exact)
-    cuda_call.launch("cyclic", args, dev)
+    if variant == "fixed":
+        cyclic_fixed(args, fixed_key(feat, k, exact), dev)
+    else:
+        cyclic_general(args, dev)
     cyclic_block.launches += 1
     return out_l, out_r, new_states
 
 
 cyclic_block.launches = 0
+cyclic_fixed.launches = 0
+cyclic_general.launches = 0

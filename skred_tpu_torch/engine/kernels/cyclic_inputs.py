@@ -105,6 +105,34 @@ def block_inputs(lines, rows, seed, n=512, seconds=0.05):
             p["volume_final"].contiguous(), r.feat, r.k, n)
 
 
+def out_of_range(args, seed):
+    """``block_inputs``' tuple with operands outside the range of the
+    keyed kernel's fast wrap and CZ divide on some rows: increments of
+    7.3 table lengths (10% of the lanes), NaN and infinite phases (5%
+    each) and, with CZ, denormal table sizes whose reciprocal is
+    infinite (10%).  The kernel renders such rows again with the exact
+    helpers; the results must not change."""
+    table, table_off, cbase, noise_blk, vecs, states, vf, feat, k, n = args
+    rng = np.random.default_rng(seed)
+    shape = vecs["pinc"].shape
+    pick = lambda p: torch.from_numpy(rng.uniform(size=shape) < p)
+    vecs, states = dict(vecs), dict(states)
+    vecs["pinc"] = torch.where(pick(0.1), vecs["L"] * 7.3,
+                               vecs["pinc"]).contiguous()
+    phase = states["phase"].clone()
+    phase[pick(0.05)] = float("nan")
+    phase[pick(0.05)] = float("inf")
+    states["phase"] = phase
+    if "tsize" in vecs:
+        tiny = pick(0.1)
+        vecs["tsize"] = torch.where(tiny, torch.tensor(1e-39),
+                                    vecs["tsize"]).contiguous()
+        vecs["inv_ts"] = torch.where(tiny, torch.tensor(float("inf")),
+                                     vecs["inv_ts"]).contiguous()
+    return (table, table_off, cbase, noise_blk, vecs, states, vf, feat, k,
+            n)
+
+
 def on_device(args, dev):
     """``block_inputs``' tuple with every tensor on ``dev``."""
     table, table_off, cbase, noise_blk, vecs, states, vf, feat, k, n = args

@@ -105,6 +105,16 @@ def div32(x, y):
     return (x.to(torch.float64) / y.to(torch.float64)).to(F32)
 
 
+def wrap_fmod(x, L):
+    """``fmod(x, L)`` as the cyclic kernel computes it (``wrap_fmod`` in
+    csrc/numerics.cuh): ``x - L`` for ``L <= x < 2L`` (exact, Sterbenz),
+    ``x`` for ``|x| < L``, ``torch.fmod`` otherwise; bit for bit
+    ``torch.fmod(x, L)`` everywhere."""
+    x, L = _f32_tensors(x, L)
+    return torch.where((x >= L) & (x < 2.0 * L), x - L,
+                       torch.where(x.abs() < L, x, torch.fmod(x, L)))
+
+
 def fast_pow(a, b):
     """``fused._fast_pow``: the reference's bit-trick pow (synth.c:140)."""
     i = _as_i32(a)

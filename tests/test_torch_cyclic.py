@@ -8,6 +8,9 @@ fb5.sk and of an inline feedback script that holds every other stage
 voices), with random in-range states from a numpy seed.  Also the gate,
 the chunked stream against the one-shot render, and the argument struct.  The CUDA kernel is held against the plain
 version on the card by tests/test_torch_cyclic_cuda.py and chip_smoke.py.
+The kernel's wrap helper against ``torch.fmod``, the keyed variant's build
+key, the compiler report kept beside each build and the rule that picks a
+variant.
 """
 
 import ctypes
@@ -25,8 +28,10 @@ from skred_tpu.engine import kernels as jk
 from skred_tpu.host import timeline as jt
 from skred_tpu.parallel import batch as jb
 from skred_tpu_torch.engine import cyclic as tc
+from skred_tpu_torch.engine.kernels import build
 from skred_tpu_torch.engine.kernels import cyclic as ck
 from skred_tpu_torch.engine.kernels import cyclic_inputs as ci
+from skred_tpu_torch.engine.numerics import wrap_fmod
 
 torch.set_num_threads(1)
 
@@ -234,7 +239,140 @@ def _c_struct_fields(src, name):
 
 
 def test_args_match_cuda_struct():
-    src = open(ck.__file__.rsplit("/", 1)[0] + "/csrc/cyclic.cu").read()
+    """Every argument struct of csrc/cyclic.cu (both variants take
+    CyclicArgs) against its ctypes mirror."""
+    src = (build.CSRC / "cyclic.cu").read_text()
+    names = re.findall(r"^struct (\w+Args) \{", src, re.M)
+    assert names == ["CyclicArgs"]
     kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int"}
-    want = [(k, kinds[t]) for k, t in ck.CyclicArgs._fields_]
-    assert _c_struct_fields(src, "CyclicArgs") == want
+    for name in names:
+        want = [(k, kinds[t]) for k, t in getattr(ck, name)._fields_]
+        assert _c_struct_fields(src, name) == want
+
+
+def _bits(x):
+    return x.numpy().view(np.int32)
+
+
+def test_wrap_fmod_is_fmod_bit_for_bit():
+    """The cyclic kernel's wrap (one subtraction for L <= x < 2L, x for
+    |x| < L, fmodf elsewhere) against torch.fmod: its edges, then 10^6
+    random operands (in-range phases, wide magnitudes, raw bit
+    patterns)."""
+    f = np.float32
+    Ls = [f(1.0), f(4096.0), f(60406.0), f(3.5), f(1e-40), f(2e38),
+          f(np.inf), f(np.nan), f(0.0), f(-2.0)]
+    xs, ls = [], []
+    with np.errstate(over="ignore", invalid="ignore"):
+        for L in Ls:
+            two = f(2) * L
+            edge = [L, two, np.nextafter(two, f(0)), -L, f(0.0), f(-0.0),
+                    f(1e-45), f(-1e-45), f(np.inf), f(-np.inf), f(np.nan),
+                    L * f(1.5), -L * f(0.5), L * f(0.999), f(3) * L,
+                    f(-3) * L, np.nextafter(L, f(0)),
+                    np.nextafter(L, f(np.inf))]
+            xs += edge
+            ls += [L] * len(edge)
+    x, L = torch.tensor(np.array(xs, f)), torch.tensor(np.array(ls, f))
+    assert np.array_equal(_bits(wrap_fmod(x, L)), _bits(torch.fmod(x, L)))
+
+    rng = np.random.default_rng(5)
+    n = 1_000_000
+    L = np.exp(rng.uniform(-8, 12, n)).astype(f)
+    parts = [
+        (L * rng.uniform(-1.2, 2.2, n)).astype(f),
+        (L * rng.uniform(-50, 50, n)).astype(f),
+        rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+        .view(f),
+    ]
+    for x in parts:
+        xt, Lt = torch.from_numpy(x), torch.from_numpy(L)
+        assert np.array_equal(_bits(wrap_fmod(xt, Lt)),
+                              _bits(torch.fmod(xt, Lt)))
+    # the shortcuts were taken, both of them, on the in-range phases
+    x = parts[0]
+    assert ((x >= L) & (x < 2 * L)).mean() > 0.2
+    assert (np.abs(x) < L).mean() > 0.3
+
+
+def _script(name):
+    return ci.ALL_FEATURES if name == "all_features" else SCRIPTS.get(
+        name) or (ci.CORPUS / f"{name}.sk").read_text().splitlines()
+
+
+def test_fixed_key_is_deterministic_and_per_feature_set():
+    """fb1-fb5's keys: the same from a fresh pack, different from each
+    other and from the all-features key; the mode and the voice count
+    are part of it, and the library path follows the key."""
+    names = ("fb1", "fb2", "fb3", "fb4", "fb5", "all_features")
+    keys = {}
+    for name in names:
+        a = ci.block_inputs(_script(name), 2, seed=1, n=8)
+        b = ci.block_inputs(_script(name), 3, seed=2, n=8)
+        keys[name] = ck.fixed_key(a[7], a[8])
+        assert ck.fixed_key(b[7], b[8]) == keys[name]
+        assert ck.fixed_key(a[7], a[8], exact=False) != keys[name]
+        assert ck.fixed_key(a[7], a[8] + 1) != keys[name]
+        assert f"CYC_K={a[8]}" in keys[name]
+    assert len(set(keys.values())) == len(names)
+    paths = {build._target("cyclic", key) for key in keys.values()}
+    assert len(paths) == len(names)
+    assert build._target("cyclic", keys["fb2"]) \
+        == build._target("cyclic", tuple(keys["fb2"]))
+    assert build._target("cyclic") not in paths
+
+
+def test_variant_rule_and_cap():
+    """The keyed variant up to the cap (at least 8 voices: fb1-fb5 and
+    the all-features script), the general one above it."""
+    assert ck.FIXED_K_MAX >= 8
+    for k in range(1, ck.FIXED_K_MAX + 1):
+        assert ck.variant_for(k) == "fixed"
+    for k in (0, ck.FIXED_K_MAX + 1, 64):
+        assert ck.variant_for(k) == "general"
+    ring = [f"v{v} w0 f{50 + v} a5 F{(v + 1) % 64},0.3" for v in range(64)]
+    assert ck.variant_for(ci.block_inputs(ring, 2, seed=1, n=8)[8]) \
+        == "general"
+    for name in ("fb1", "fb2", "fb3", "fb4", "fb5", "all_features"):
+        k = ci.block_inputs(_script(name), 2, seed=1, n=8)[8]
+        assert ck.variant_for(k) == "fixed", name
+
+
+def test_build_keeps_the_compiler_report_beside_each_library(
+        tmp_path, monkeypatch):
+    """nvcc's output is kept beside the library it built, so ``report``
+    gives ptxas's registers and spills for a cached build as for a fresh
+    one; a library without its report builds again, and a key that fails
+    leaves neither behind.  A stand-in for nvcc writes the library."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "for a; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+        "case \"$*\" in *CYC_K=bad*) echo 'error: bad key'; exit 1;; esac\n"
+        "echo 'ptxas info    : Used 7 registers'\n"
+        "echo '    0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads'\n"
+        "echo lib > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "LOG", {})
+    key = ck.fixed_key(ci.block_inputs(_script("fb2"), 2, seed=1, n=8)[7], 5)
+    assert list(build.build_all([("cyclic", key)])) \
+        == [build.label("cyclic", key)]
+    lib = build._target("cyclic", key)
+    assert lib.read_text() == "lib\n"
+    want = build.LOG[build.label("cyclic", key)][1]
+    assert "Used 7 registers" in want and " 0 bytes spill stores" in want
+    build.LOG.clear()
+    assert build.build_all([("cyclic", key)]) == {}
+    assert build.report("cyclic", key) == want
+    lib.with_suffix(".txt").unlink()
+    assert list(build.build_all([("cyclic", key)])) \
+        == [build.label("cyclic", key)]
+    assert build.report("cyclic", key) == want
+    bad = tuple("CYC_K=bad" if d.startswith("CYC_K=") else d for d in key)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.report("cyclic", bad)
+    assert not build._target("cyclic", bad).exists()
+    assert not build._target("cyclic", bad).with_suffix(".txt").exists()

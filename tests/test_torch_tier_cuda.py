@@ -129,14 +129,12 @@ def test_tier_cuda_build_log(cuda_device):
     """ptxas' registers and spills for both kernels of tier.cu."""
     from skred_tpu_torch.engine.kernels import build
 
-    build.load("tier")
-    if "tier" in build.LOG:
-        lines = [ln.strip() for ln in build.LOG["tier"][1].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print("\n".join(lines))
-        assert not any("bytes spill stores" in ln
-                       and not ln.lstrip().startswith("0 bytes")
-                       for ln in lines), lines
+    lines = [ln.strip() for ln in build.report("tier").splitlines()
+             if "registers" in ln or "spill" in ln]
+    print("\n".join(lines))
+    assert not any("bytes spill stores" in ln
+                   and not ln.lstrip().startswith("0 bytes")
+                   for ln in lines), lines
 
 
 @pytest.mark.cuda
