@@ -14,35 +14,44 @@ graphs take the cyclic kernel.  Phases, in order (any failure exits
 non-zero):
 
   1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc for every csrc/*.cu and for the cyclic kernel's
-                  keys (fb1-fb5 as the main path and the kernel phase
-                  render them, and the all-features script), all
-                  started together; seconds, registers and spills of each
+  2. build        nvcc for every csrc/*.cu, for the cyclic kernel's keys
+                  (fb1-fb5 as the main path and the kernel phase render
+                  them, and the all-features script) and for the tier
+                  kernel's keys (stress64's tiers with mix and fold on and
+                  off, and the kernel phase's calls), all started
+                  together; seconds, registers and spills of each (a tier
+                  key that spills fails the run)
   3. kernel       every kernel vs its plain version on the card, bit for
-                  bit, on random blocks (N=512, M=8192): tier on
-                  stress64's two tier feature sets, and with the mix,
-                  with the fold of each of fm / cz / am and of all three
-                  (per-lane sources, some outside the bank), and with
-                  both, writing into a block buffer's columns and adding
-                  onto earlier accumulators; phase_walk and
-                  filt_smooth on noise64's; the lookups (grouped and
-                  single-lane forms at 4096- and 32768-sample slots, and
-                  the noise pass's base/limit form); cyclic, keyed and
-                  general variants, on fb1's, fb2's, fb3's, fb5's and an
-                  all-features script's own vectors with random states
-                  (512 frames x 1024 rows) and on the all-features
-                  script with operands outside the keyed variant's fast
-                  range (64 frames), the general one also on a 64-voice
-                  ring above the keyed variant's cap (16 frames)
+                  bit, on random blocks (N=512, M=8192): tier, keyed and
+                  general variants, on stress64's two tier feature sets,
+                  and with the mix, with the fold of each of fm / cz / am
+                  and of all three (per-lane sources, some outside the
+                  bank), and with both, writing into a block buffer's
+                  columns and adding onto earlier accumulators;
+                  phase_walk and filt_smooth on noise64's; the lookups
+                  (grouped and single-lane forms at 4096- and
+                  32768-sample slots, and the noise pass's base/limit
+                  form); cyclic, keyed and general variants, on fb1's,
+                  fb2's, fb3's, fb5's and an all-features script's own
+                  vectors with random states (512 frames x 1024 rows) and
+                  on the all-features script with operands outside the
+                  keyed variant's fast range (64 frames), the general one
+                  also on a 64-voice ring above the keyed variant's cap
+                  (16 frames)
   4. main         stress64: bucket_key -> fill_bucket -> stack_timelines
                   (1024 rows) -> pack_stacked -> pad_segments_pow2 ->
                   render_fused_stream_device(chunk_blocks=172): one
                   warm-up, one timed pass with the launch counts read
-                  around it, a profiled chunk; then each kernel alone,
-                  its plain version and its bound on the path's own
-                  first-block inputs.  Mix and fold are on (the
-                  default).  Then a 2-chunk batch of stress64 rendered
-                  with mix and fold on, off, off, on in turns, each
+                  around it (every tier launch the keyed variant's), a
+                  profiled chunk; then each kernel alone, its plain
+                  version and its bound on the path's own first-block
+                  inputs, and the tier kernel's two variants in turns
+                  (general, keyed, keyed, general) at tier 1 and tier 0
+                  with clocks.sm, the mix kernel alone, the
+                  SASS instructions of one sample step, and the issue and
+                  chain floors beside the bytes bound.  Mix and fold are
+                  on (the default).  Then a 2-chunk batch of stress64
+                  rendered with mix and fold on, off, off, on, each
                   configuration profiled and its tier calls timed alone
   5. short        stress64's first 4 blocks at 8 rows through the kernel
                   path and a plain-version path on the card (bit for
@@ -82,6 +91,7 @@ The line before the last is the kernels' JSON record; the last line is
 nothing of JAX.
 """
 
+import ctypes
 import json
 import pathlib
 import subprocess
@@ -253,10 +263,28 @@ def tier_spec(tk):
                 read += 2 * n * b * 4
         return bound(read, write, ops * n * m)
 
-    return dict(name="tier", fn=tk.tier, pack=pack, fresh=fresh,
+    def key(kw):
+        return tk.tier_key(kw["feat"], kw.get("exact", True),
+                           kw.get("mixw") is not None,
+                           _folded(_flags(kw["feat"]), kw.get("fold")))
+
+    def launch(args, kw, dev, variant="keyed", entry=None):
+        """A launch of packed ``args`` that counts no launch: the keyed
+        variant's library for ``kw``'s key, or the general one; ``entry``
+        "mix" launches the mix kernel alone (the one both share)."""
+        from skred_tpu_torch.engine.kernels import cuda_call
+
+        k = () if variant == "general" else key(kw)
+        e = "tier_mix_launch" if entry == "mix" \
+            else None if variant == "general" else "tier_keyed_launch"
+        return lambda: cuda_call.launch("tier", args, dev, k, e)
+
+    plain_kw = lambda kw: {k: v for k, v in kw.items() if k != "variant"}
+    return dict(name="tier", fn=tk.tier, pack=pack, fresh=fresh, key=key,
+                launch=launch,
                 folded=lambda kw: _folded(_flags(kw["feat"]), kw.get("fold")),
                 run=lambda a, kw: flat(tk.tier(*a, **kw)),
-                plain=lambda a, kw: flat(tk.tier_plain(*a, **kw)),
+                plain=lambda a, kw: flat(tk.tier_plain(*a, **plain_kw(kw))),
                 bound=bnd, lanes=lambda a, kw: a[5]["amp"].shape[0])
 
 
@@ -421,6 +449,10 @@ def kernel_phase(dev, specs, errs):
              {k: t(v) for k, v in states.items()})
         calls.append(("tier", label, a, dict(feat=feat, n=n)))
     calls += tier_variant_calls(dev, n)
+    calls = [c for c in calls if c[0] != "tier"] + [
+        ("tier", f"{label}, {variant}", a, dict(kw, variant=variant))
+        for name, label, a, kw in calls if name == "tier"
+        for variant in ("keyed", "general")]
     for label, (fm, fin) in (("noise64 tier0", NOISE64_PW0),
                              ("noise64 tier1", NOISE64_PW1)):
         a = to_card(random_phase_inputs(fm, fin, n, m, seed=12), dev)
@@ -443,7 +475,7 @@ def kernel_phase(dev, specs, errs):
         got = [None if g is None else g.clone()
                for g in sp["run"](*fresh(a, kw, False))]
         torch.cuda.synchronize()
-        if name == "cyclic":
+        if name in ("cyclic", "tier"):
             # both variants against one plain run of the same inputs
             if id(a) not in plains:
                 plains[id(a)] = sp["plain"](*fresh(a, kw, True))
@@ -454,7 +486,7 @@ def kernel_phase(dev, specs, errs):
                if not same_bits(g, w)]
         err = max(max_abs(g, w) for g, w in zip(got, want)
                   if g is not None)
-        ekey = "cyclic_general" if kw.get("variant") == "general" else name
+        ekey = f"{name}_general" if kw.get("variant") == "general" else name
         errs[ekey] = max(errs.get(ekey, 0.0), err)
         log(f"kernel {name} ({label}): max|diff| {err} vs plain, "
             f"{'bit-equal' if not bad else f'outputs {bad} DIFFER'}")
@@ -484,43 +516,67 @@ def kernel_phase(dev, specs, errs):
     return lib
 
 
+EVERY_STAGE = (True,) * 12 + ((1, 2, 3, 4, 5, 6, 7), False)
+
+
+def tier_variants(feat):
+    """The kernel phase's mix and fold variants of a feature set: (what,
+    folded streams, mix) for the mix, each stream's fold, all streams'
+    fold, and mix with fold."""
+    from skred_tpu_torch.engine.kernels.tier import _flags
+
+    fl = _flags(feat)
+    have = tuple(k for k, on in (("fm", fl["fm"]), ("cz", fl["czm"]),
+                                 ("am", fl["am"])) if on)
+    variants = [("mix", (), True)] + [(f"fold {k}", (k,), False)
+                                      for k in have]
+    if len(have) > 1:
+        variants.append(("fold " + "+".join(have), have, False))
+    variants.append(("mix + fold " + "+".join(have), have, True))
+    return variants
+
+
+def kernel_tier_keys():
+    """The keyed tier builds the kernel phase launches."""
+    from skred_tpu_torch.engine.kernels import tier as tk
+    from skred_tpu_torch.engine.kernels.tier_inputs import (STRESS64_TIER0,
+                                                            STRESS64_TIER1)
+
+    keys = [tk.tier_key(STRESS64_TIER0), tk.tier_key(STRESS64_TIER1)]
+    for feat in (STRESS64_TIER1, EVERY_STAGE):
+        keys += [tk.tier_key(feat, True, mix, streams)
+                 for _, streams, mix in tier_variants(feat)]
+    return keys
+
+
 def tier_variant_calls(dev, n):
     """The tier kernel's mix and fold variants on random blocks of 8
     voices x 1024 rows over a bank of 4 voices: stress64's tier-1
     feature set (fm), and every stage at once (cz-mod and am streams,
     am self-reads).  The folded calls write into the block buffer whose
     first columns are their bank; "both" also adds onto accumulators."""
-    from skred_tpu_torch.engine.kernels.tier import Fold, _flags
+    from skred_tpu_torch.engine.kernels.tier import Fold
     from skred_tpu_torch.engine.kernels.tier_inputs import (
         STRESS64_TIER1, random_fold_inputs, random_mix_weights,
         random_tier_inputs)
 
-    every = (True,) * 12 + ((1, 2, 3, 4, 5, 6, 7), False)
     b, v, w = KERNEL_M // 8, 8, 4
     m = b * v
     t = lambda x: None if x is None else torch.from_numpy(x).to(dev)
     calls = []
     for label, feat, seed in (("stress64 tier1", STRESS64_TIER1, 21),
-                              ("every stage", every, 22)):
+                              ("every stage", EVERY_STAGE, 22)):
         table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
             feat, n, m, seed=seed)
         bank, prev, fv = random_fold_inputs(n, m, b, w, seed=seed)
         wl, wr = random_mix_weights(m, seed=seed)
-        fl = _flags(feat)
-        have = tuple(k for k, on in (("fm", fl["fm"]), ("cz", fl["czm"]),
-                                     ("am", fl["am"])) if on)
         tv = {k: t(x) for k, x in {**vecs, **fv}.items()}
         ts = {k: t(x) for k, x in states.items()}
         buf = torch.zeros((n, (w + v) * b), device=dev)
         buf[:, :w * b] = t(bank)
         given = {"fm": t(inc), "cz": t(dm), "am": t(amod)}
         mixw = (t(wl), t(wr))
-        variants = [("mix", (), True)] + [(f"fold {k}", (k,), False)
-                                          for k in have]
-        if len(have) > 1:
-            variants.append(("fold " + "+".join(have), have, False))
-        variants.append(("mix + fold " + "+".join(have), have, True))
-        for what, streams, mix in variants:
+        for what, streams, mix in tier_variants(feat):
             g = {k: (None if k in streams else x) for k, x in given.items()}
             kw = dict(feat=feat, n=n, b=b)
             if streams:
@@ -626,10 +682,12 @@ def time_captured(label, captured, specs, dev, card, errs):
         fresh = sp.get("fresh", lambda a, kw, plain: (a, kw))
         ka, kkw = fresh(a, kw, False)
         args, outs = sp["pack"](ka, kkw)
-        cuda_call.launch(name, args, dev)
+        go = sp["launch"](args, kkw, dev) if "launch" in sp \
+            else (lambda: cuda_call.launch(name, args, dev))
+        go()
         torch.cuda.synchronize()
         got = [None if g is None else g.clone() for g in outs]
-        ms = cuda_ms(lambda: cuda_call.launch(name, args, dev), 20)
+        ms = cuda_ms(go, 20)
         plain_ms, want = host_ms(lambda: sp["plain"](*fresh(a, kw, True)))
         bad = [i for i, (g, w) in enumerate(zip(got, want))
                if not same_bits(g, w)]
@@ -662,14 +720,166 @@ def time_captured(label, captured, specs, dev, card, errs):
     return timings
 
 
+# ---- the tier kernel's SASS: instructions per sample step, floors ----
+
+# The keyed tier build's serial chain per sample step, an estimate
+# counted from the source, not read from the SASS: the phase walk's
+# dependent operations (add the increment, subtract lo, two compares,
+# the wrap's subtraction, add lo back, three selects), at the 4 cycles
+# an FP32 ALU result takes to feed the next instruction.  The biquad's
+# (3) and the smoother's (3) are shorter.
+TIER_CHAIN_OPS = 9
+OP_CYCLES = 4
+
+
+def sass_functions(so):
+    """{kernel name: [(address, instruction)]} of a library, by
+    cuobjdump -sass."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s+Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        out[name] = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+    return out
+
+
+def sass_loop(so, kernel, samples):
+    """Instructions of ``kernel``'s sample loop per sample step.  With
+    ``samples`` > 1 (the keyed build's chunks) the first loop of at least
+    4 x ``samples`` instructions: the fast pass's steady chunk loop.
+    With 1 (the general build) its largest loop, counted statically,
+    every run-time branch included."""
+    import re
+
+    funcs = sass_functions(so)
+    name = next(nm for nm in funcs if kernel in nm)
+    ins = funcs[name]
+    loops = []
+    for a, t in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            lo = int(m.group(1), 16)
+            loops.append((lo, a, sum(1 for aa, _ in ins if lo <= aa <= a)))
+    big = [lp for lp in loops if lp[2] >= 4 * samples]
+    lo, hi, count = min(big) if samples > 1 and big \
+        else max(loops, key=lambda lp: lp[2])
+    return dict(kernel=name, instructions=len(ins), loop=count,
+                per_sample=count / samples)
+
+
+def tier_chunk(key):
+    """T, the keyed tier kernel's samples per chunk, from its library."""
+    from skred_tpu_torch.engine.kernels import build
+
+    fn = build.load("tier", key, "tier_keyed_launch").tier_chunk_samples
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def tier_turns(label, captured, spec, dev, card, errs):
+    """The tier kernel's two variants alone on the path's first-block
+    inputs, in turns (general, keyed, keyed, general), each bit-equal to
+    the plain version, with clocks.sm around them; the mix kernel alone
+    after each turn; the SASS instructions of one sample step
+    per build, and from them the issue floor and the chain floor beside
+    the bytes bound.  Returns {lanes: numbers}."""
+    from skred_tpu_torch.engine.kernels import build
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {}
+    for (name, m), (a, kw) in sorted(captured.items()):
+        if name != "tier":
+            continue
+        fresh = spec["fresh"]
+        want = spec["plain"](*fresh(a, kw, True))
+        clk0 = sm_clock()
+        times = {"general": [], "keyed": []}
+        mix = []
+        has_mix = kw.get("mixw") is not None
+        for variant in ("general", "keyed", "keyed", "general"):
+            ka, kkw = fresh(a, kw, False)
+            args, outs = spec["pack"](ka, kkw)
+            go = spec["launch"](args, kkw, dev, variant)
+            go()
+            torch.cuda.synchronize()
+            bad = [i for i, (g, w) in enumerate(zip(outs, want))
+                   if not same_bits(g, w)]
+            ekey = "tier_general" if variant == "general" else "tier"
+            errs[ekey] = max([errs.get(ekey, 0.0)]
+                             + [max_abs(g, w) for g, w in zip(outs, want)
+                                if g is not None])
+            if bad:
+                fail(f"tier {variant} variant disagrees with its plain "
+                     f"version on the {label} path's M={m} call (outputs "
+                     f"{bad})")
+            times[variant].append(cuda_ms(go, 20))
+            if has_mix:
+                mix.append(cuda_ms(spec["launch"](args, kkw, dev, variant,
+                                                  "mix"), 20))
+        clk1 = sm_clock()
+        mhz = max(float(c.split()[0]) for c in (clk0, clk1))
+        n = kw["n"]
+        warps = -(-m // 32)
+        per_sched = -(-warps // (4 * sms))      # warps on one scheduler
+        key = spec["key"](kw)
+        chunk = tier_chunk(key)
+        keyed = sass_loop(build._target("tier", key), "tier_keyed_kernel",
+                          chunk)
+        general = sass_loop(build._target("tier"), "_Z11tier_kernel", 1)
+        issue_ms = keyed["per_sample"] * n * per_sched / (mhz * 1e6) * 1e3
+        chain_ms = TIER_CHAIN_OPS * OP_CYCLES * n / (mhz * 1e6) * 1e3
+        bound_ms, bound_by = spec["bound"](a, kw)
+        mean = {v: sum(ts) / len(ts) for v, ts in times.items()}
+        # the tier kernel without its mix: against the mix's least reading
+        # (noise only adds time), so an upper estimate
+        own = mean["keyed"] - min(mix, default=0.0)
+        res[m] = dict(times=times, mix=mix, mean=mean, own=own,
+                      sass=keyed["per_sample"], sass_general=general["loop"],
+                      issue_ms=issue_ms, chain_ms=chain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+        fmt = lambda ts: " / ".join(f"{t:.4f}" for t in ts)
+        log(f"tier turns M={m} ({label} first block, n={n}): general "
+            f"{fmt(times['general'])} ms/call, keyed {fmt(times['keyed'])} "
+            f"ms/call (in turns general, keyed, keyed, general; CUDA "
+            f"events, 20 calls each; each call the tier kernel and, with "
+            f"the mix, its mix kernel), "
+            f"{min(times['general']) / max(times['keyed']):.2f}x at least; "
+            + (f"the mix kernel alone {fmt(mix)} ms/call (after each "
+               f"turn); " if has_mix else "no mix; ")
+            + f"SASS: keyed {keyed['per_sample']:.2f} instructions per "
+            f"sample step ({keyed['loop']} in its {chunk}-sample loop, "
+            f"{keyed['instructions']} in {keyed['kernel']}), general "
+            f"{general['loop']} in its one-sample loop (static, every "
+            f"run-time branch); floors at {mhz:.0f} MHz, {sms} SMs, "
+            f"{warps} warps ({per_sched} a scheduler): issue "
+            f"{issue_ms:.4f} ms (the keyed tier kernel alone, its mean call "
+            f"less the mix kernel's least reading: {own:.4f} ms, "
+            f"{own / issue_ms:.2f}x its issue floor), chain {chain_ms:.4f} ms (estimate from the "
+            f"source, {TIER_CHAIN_OPS} dependent FP32 operations x "
+            f"{OP_CYCLES} cycles a sample), bytes bound "
+            f"{bound_ms:.4f} ms ({bound_by}); both variants bit-equal to "
+            f"the plain version; clocks.sm {clk0} -> {clk1}, on {card}")
+        if mean["keyed"] > mean["general"]:
+            fail(f"tier keyed variant slower than the general one at M={m}")
+    return res
+
+
 def main_path(label, path, dev, card, specs, on_path, counters, errs,
-              seconds=SECONDS):
+              seconds=SECONDS, also=()):
     """Drive ``path`` at full width through render_fused_stream_device:
     warm-up (capturing each kernel's first-block inputs), the timed pass
     with every launch count (``counters``: name -> wrapper) set to 0
     before and read after, one profiled chunk, then each kernel of
-    ``on_path`` alone on its captured inputs.  Returns (launches,
-    timings by kernel and lane count, the script's lines)."""
+    ``on_path`` alone on its captured inputs.  ``also`` names counters
+    besides ``on_path`` that the path must advance as often (a variant's
+    own count).  Returns (launches, timings by kernel and lane count, the
+    script's lines, the captured first-block calls)."""
     from skred_tpu_torch.engine import fused
 
     lines, st = prepare(path, seconds)
@@ -697,7 +907,7 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs,
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
         f"{card}")
     for name, count in launches.items():
-        want = 2 * whole if name in on_path else 0
+        want = 2 * whole if name in on_path or name in also else 0
         if count != want:
             fail(f"{name}.launches {count} != {want} on {label} "
                  f"({whole} blocks x 2 tiers)")
@@ -712,14 +922,15 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs,
         + ", ".join(f"{name} {t['ms']:.4f} ms/call at M={m}"
                     for (name, m), t in sorted(timings.items()))
         + f" (CUDA events), on {card}")
-    return launches, timings, lines
+    return launches, timings, lines, captured
 
 
 def config_compare(dev, card, specs, errs):
     """stress64 with the tier kernel's mix and fold on and off, in one
     run on one card: a 2-chunk batch rendered on, off, off, on; then per
     configuration a profiled chunk and the tier calls alone on its own
-    first-block inputs.  Nothing is asserted about which is faster."""
+    first-block inputs.  Nothing is asserted about which is faster.
+    Returns the timings by configuration."""
     from skred_tpu_torch.engine import fused
 
     _, st = prepare(STRESS64, NOISE64_SECONDS)
@@ -1047,6 +1258,27 @@ def cyclic_keys():
     return keys
 
 
+def tier_keys():
+    """{label: key} of the keyed tier kernel's builds the run needs:
+    stress64's tiers as the main path renders them (mix and fold on) and
+    as the comparison renders them with mix and fold off, the
+    repeat-passes script's calls (estimate and final passes) both ways,
+    and the kernel phase's calls."""
+    from skred_tpu_torch.engine import fused
+
+    keys = {}
+    for name, lines in (("stress64", STRESS64.read_text().splitlines()),
+                        ("repeat-passes", UNION_CYCLE)):
+        for cfg, kw in (("mix+fold on", dict(mix=True, fold=True)),
+                        ("mix+fold off", dict(mix=False, fold=False))):
+            _, r, _ = fused._prepare(short_batch(lines), True, "cpu", **kw)
+            for i, key in enumerate(fused._tier_keys(r)):
+                keys[f"{name} call {i}, {cfg}"] = key
+    for i, key in enumerate(kernel_tier_keys()):
+        keys[f"kernel phase call {i}"] = key
+    return keys
+
+
 def batch_phase(dev, card, counters):
     """render_batch over every in-repo script: the fused engine's two
     buckets and five cyclic scripts in one call."""
@@ -1070,9 +1302,12 @@ def batch_phase(dev, card, counters):
         fail("batch: non-finite samples")
     if min(peaks) <= 0.01:
         fail(f"batch: a silent row (peaks {peaks})")
-    for nm in ("tier", "phase_walk", "lookup", "filt_smooth", "cyclic"):
+    for nm in ("tier", "tier_keyed", "phase_walk", "lookup", "filt_smooth",
+               "cyclic"):
         if counts[nm] <= 0:
             fail(f"batch: {nm} was not launched")
+    if counts["tier_general"]:
+        fail("batch: the render path launched the general tier variant")
 
 
 def main():
@@ -1102,36 +1337,47 @@ def main():
     phase("build")
     t0 = time.time()
     keys = cyclic_keys()
+    tkeys = tier_keys()
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     secs = build.build_all(sources + [("cyclic", key)
-                                      for key in keys.values()])
+                                      for key in keys.values()]
+                           + [("tier", key) for key in tkeys.values()])
     log(f"build: {len(secs)} build(s) ({len(sources)} sources, "
-        f"{len(set(keys.values()))} keys of the cyclic kernel) in "
+        f"{len(set(keys.values()))} keys of the cyclic kernel, "
+        f"{len(set(tkeys.values()))} of the tier kernel) in "
         f"{time.time() - t0:.1f} s")
-    scripts_of = {}
-    for label, key in keys.items():
-        scripts_of.setdefault(key, []).append(label)
-    for name, key in ([(src, ()) for src in sources]
-                      + [("cyclic", key) for key in scripts_of]):
+    uses = {}
+    for name, labelled in (("cyclic", keys), ("tier", tkeys)):
+        for label, key in labelled.items():
+            uses.setdefault((name, key), []).append(label)
+    for name, key in [(src, ()) for src in sources] + list(uses):
         lab = build.label(name, key)
-        what = f" ({', '.join(scripts_of[key])})" if key else ""
+        what = f" ({', '.join(uses[name, key])})" if key else ""
         sec = f"{secs[lab]:.1f} s" if lab in secs else "built before"
         log(f"  {lab}{what}: {sec}")
         for line in build.report(name, key).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+                if name == "tier" and "spill" in line and not \
+                        line.strip().startswith("0 bytes stack frame, 0 "
+                                                "bytes spill stores, 0 "
+                                                "bytes spill loads"):
+                    fail(f"the tier kernel spills under {lab}: {line}")
     for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
         build.load(name)
     build.load("cyclic", (), "cyclic_general_launch")
     for key in keys.values():
         build.load("cyclic", key, "cyclic_fixed_launch")
+    for key in tkeys.values():
+        build.load("tier", key, "tier_keyed_launch")
 
     specs = {s["name"]: s for s in (tier_spec(tk), phase_walk_spec(pw),
                                     lookup_spec(lk), filt_smooth_spec(fs),
                                     cyclic_spec(ck))}
     noise_kernels = ["phase_walk", "lookup", "filt_smooth"]
     counters = {name: sp["fn"] for name, sp in specs.items()}
-    counters.update(table_lookup=lk.table_lookup_pallas,
+    counters.update(tier_keyed=tk.tier_keyed, tier_general=tk.tier_general,
+                    table_lookup=lk.table_lookup_pallas,
                     table_lookup_grouped=lk.table_lookup_grouped,
                     cyclic_fixed=ck.cyclic_fixed,
                     cyclic_general=ck.cyclic_general)
@@ -1143,8 +1389,10 @@ def main():
 
     # ---- 4./5. stress64: the tier kernel's path ----
     phase("main, config, short")
-    s_launch, s_time, s_lines = main_path(
-        "main", STRESS64, dev, card, specs, ["tier"], counters, errs)
+    s_launch, s_time, s_lines, s_calls = main_path(
+        "main", STRESS64, dev, card, specs, ["tier"], counters, errs,
+        also=("tier_keyed",))
+    s_turns = tier_turns("main", s_calls, specs["tier"], dev, card, errs)
     cfg_time = config_compare(dev, card, specs, errs)
     for cfg, tm in cfg_time.items():
         log(f"config {cfg}: tier kernel " + ", ".join(
@@ -1173,7 +1421,7 @@ def main():
 
     # ---- 6./7. noise64: the noise pass's path ----
     phase("noise main, noise short")
-    n_launch, n_time, n_lines = main_path(
+    n_launch, n_time, n_lines, _ = main_path(
         "noise main", NOISE64, dev, card, specs, noise_kernels, counters,
         errs, seconds=NOISE64_SECONDS)
     short_path("noise short", short_batch(n_lines), dev, fused,
@@ -1211,9 +1459,26 @@ def main():
                     replaces=replaces, launches=launches,
                     max_abs_err=errs.get(name, 0.0), **timings[name, m])
 
+    # the tier kernel's two variants: each timed in turns on the main
+    # path's tier-1 inputs (its widest call); launches from the main path's
+    # timed pass, which runs the keyed variant only (the general one's
+    # count is 0 there: no render path takes it)
+    wide = max(s_turns)
+
+    def tier_record(name, variant, launches):
+        tn = s_turns[wide]
+        return dict(name=name, route="cuda",
+                    source="skred_tpu_torch/engine/kernels/csrc/tier.cu",
+                    replaces="skred_tpu/engine/kernels.py:1999",
+                    launches=launches, max_abs_err=errs.get(name, 0.0),
+                    ms=tn["mean"][variant],
+                    plain_ms=s_time["tier", wide]["plain_ms"],
+                    bound_ms=tn["bound_ms"], bound_by=tn["bound_by"],
+                    library_ms=None)
+
     kernels = [
-        record("tier", s_launch["tier"], s_time,
-               "skred_tpu/engine/kernels.py:1999", "tier"),
+        tier_record("tier", "keyed", s_launch["tier_keyed"]),
+        tier_record("tier_general", "general", s_launch["tier_general"]),
         record("phase_walk", n_launch["phase_walk"], n_time,
                "skred_tpu/engine/kernels.py:311", "phase_walk"),
         record("lookup", n_launch["lookup"], n_time,

@@ -51,7 +51,8 @@ from skred_tpu_torch import config as C
 from skred_tpu_torch.engine.kernels.filt_smooth import filt_smooth
 from skred_tpu_torch.engine.kernels.lookup import lookup
 from skred_tpu_torch.engine.kernels.phase_walk import phase_walk
-from skred_tpu_torch.engine.kernels.tier import Fold, fold_read_plain, tier
+from skred_tpu_torch.engine.kernels.tier import (Fold, fold_read_plain,
+                                                 tier, tier_key)
 from skred_tpu_torch.engine.numerics import cz_phasor, div32, f32, fma32
 from skred_tpu_torch.host.timeline import noise_stream
 
@@ -339,6 +340,40 @@ def _tier_params(p, full_inc, feat, fold=False):
                 contrib=contrib)
 
 
+def _kernel_feat(feat):
+    """The tier kernel's 14-tuple of a ``Feat``."""
+    return (feat.fm, feat.cz, feat.czm, feat.env, feat.flt, feat.sm,
+            feat.hold, feat.quant, feat.am, feat.am_self, feat.finish,
+            feat.direction, tuple(feat.cz_modes), feat.ts_pow2)
+
+
+def _tier_keys(r):
+    """The keyed tier kernel's build key of every tier-kernel call the
+    render makes: each tier without noise voices (with the render's mix,
+    and the fold where it folds), and in the repeat-passes layout its
+    estimate passes (no mix, no fold).  Per-tier features are static
+    over a render, so these are all its calls' keys."""
+    feat = r.feat
+    any_mod = feat.fm or (feat.cz and feat.czm) or feat.am
+    keys = []
+    for ti in range(len(r.tiers)):
+        ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
+        if ft.noise:
+            continue
+        fold = bool(r.fold_tiers and r.fold_tiers[ti])
+        kf = _kernel_feat(ft)
+        keys.append(tier_key(kf, r.exact, r.mix,
+                             ("fm", "cz", "am") if fold else ()))
+        if len(r.tiers) == 1 and any_mod and r.mod_passes > 1:
+            keys.append(tier_key(kf, r.exact))
+    return tuple(dict.fromkeys(keys))
+
+
+def _builds_kernels(device):
+    """Whether a render on ``device`` launches the CUDA kernels."""
+    return torch.device(device).type == "cuda"
+
+
 def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
                       feat, n, b, out=None, mixw=None, acc=None,
                       fold=False):
@@ -380,14 +415,11 @@ def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
     if feat.hold:
         states["hold_count"] = i32v(carry["hold_count"])
         states["hold_val"] = f32v(carry["hold_val"])
-    kfeat = (feat.fm, feat.cz, feat.czm, feat.env, feat.flt, feat.sm,
-             feat.hold, feat.quant, feat.am, feat.am_self, feat.finish,
-             feat.direction, tuple(feat.cz_modes), feat.ts_pow2)
     out, res = tier(table, cbase,
                     reads.get("fm") if feat.fm else tp["inc_row"],
                     reads.get("cz", tp["dm_row"]), reads.get("am"),
-                    vecs, states, feat=kfeat, exact=exact, n=n, b=b,
-                    mixw=mixw, acc=acc, fold=bank, out=out)
+                    vecs, states, feat=_kernel_feat(feat), exact=exact,
+                    n=n, b=b, mixw=mixw, acc=acc, fold=bank, out=out)
     back = lambda a: from_vm_vec(a, b, v_)
     cnt = back(res["cnt"])
     new_carry = dict(
@@ -956,6 +988,12 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
         r.mix_mask = _mix_mask(r.p_const, feat)
     else:
         r.groups = (_pack_by_dtype(params, Vp), _pack_by_dtype(ops, Vp))
+    if _builds_kernels(device):
+        from skred_tpu_torch.engine.kernels import build
+
+        # every tier key at once, in parallel, before the first block (a
+        # failed build raises)
+        build.build_all([("tier", key) for key in _tier_keys(r)])
     return st, r, d["carry"]
 
 

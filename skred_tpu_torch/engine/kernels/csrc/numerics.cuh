@@ -95,11 +95,21 @@ __device__ __forceinline__ CzScales cz_scales(float d, int exact, int mask) {
     return s;
 }
 
+// mode 4's fmodf(x, L), as the JAX kernel writes it; a caller may pass
+// another callable that gives the same bits (wrap_fmod)
+struct FmodWrap {
+    __device__ __forceinline__ float operator()(float x, float L) const {
+        return fmodf(x, L);
+    }
+};
+
 // kernels._cz_warp_k on the lane's own mode (modes are exclusive, so the
 // JAX select chain picks exactly this curve, or the raw phase)
+template <class Wrap = FmodWrap>
 __device__ __forceinline__ float cz_warp_k(int mode, float phase,
                                            const CzScales& s, float tsz,
-                                           int exact, int mask) {
+                                           int exact, int mask,
+                                           Wrap wrap = Wrap()) {
     float out = phase;
     if (mode >= 1 && mode <= 7 && has_mode(mask, mode)) {
         switch (mode) {
@@ -116,7 +126,7 @@ __device__ __forceinline__ float cz_warp_k(int mode, float phase,
                                : xfma(phase - 0.5f, s.sc2, 0.5f, exact);
             break;
         case 4:
-            out = fmodf(phase * 2.0f, 1.0f);
+            out = wrap(phase * 2.0f, 1.0f);
             break;
         case 5:
             out = phase < 0.5f ? phase * s.sc2
@@ -161,14 +171,16 @@ __device__ __forceinline__ CzCoeffs cz_coeffs(int mode, const CzScales& s,
 }
 
 // kernels._cz_warp_fast
+template <class Wrap = FmodWrap>
 __device__ __forceinline__ float cz_warp_fast(const CzCoeffs& k, float phase,
-                                              float tsz, int exact) {
+                                              float tsz, int exact,
+                                              Wrap wrap = Wrap()) {
     float out = phase;
     if (k.is_pl)
         out = phase < k.knee ? phase * k.sa
                              : xfma(phase - k.c, k.sb, k.off, exact);
     else if (k.is_4)
-        out = fmodf(phase * 2.0f, 1.0f);
+        out = wrap(phase * 2.0f, 1.0f);
     else if (k.is_pw)
         out = k_fast_pow(phase, k.pexp, exact);
     return out * tsz;

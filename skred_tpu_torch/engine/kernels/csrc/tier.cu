@@ -10,14 +10,42 @@
 // stream the tier has (4 B each: a raw [N, M] stream, or with the fold
 // the bank column of the lane's source voice) and write the output sample
 // (4 B): at least 8 B per lane-sample for an FM tier, over 3.35 TB/s; the
-// mix adds one read of the output and 8 B per (sample, batch row).  Its
-// real limit is the serial dependency chain of each sample (phase walk ->
-// warp -> lookup -> biquad -> smoother, with fmodf and exact fmas on it),
-// which is why the TPU kernel's phase split over (8,128) planes is not
-// carried over: each thread keeps its lane's whole state in registers
-// and walks the block's N samples once, running phases 0-4 per sample.
-// Neighbouring threads own neighbouring lanes, so every [N, M] read and
-// write coalesces.
+// mix adds one read of the output and 8 B per (sample, batch row).  What
+// limits it is latency: each thread walks the block's N samples, and a
+// sample's modulator read and table load are global loads.  Only a few
+// recurrences are truly serial (the phase walk, the biquad's y1/y2, the
+// smoother, the hold count): the loads, the CZ warp and the gain are not
+// on them.  Neighbouring threads own neighbouring lanes, so every [N, M]
+// read and write coalesces.
+//
+// One source, two variants:
+//   * built with -DTIER_KEYED=1 and the key's defines (the keyed
+//     variant, tier_keyed_launch; kernels/tier.py tier_key): the JAX
+//     kernel's 14-field static feature tuple, the arithmetic mode, the
+//     mix and which of fm / cz / am are folded are compile-time
+//     constants, as the JAX package compiles one kernel per feature
+//     tuple, so a stage the tier lacks costs no instruction and no
+//     register.  The block is walked in chunks of T samples per thread,
+//     the TPU kernel's phase split done in registers and software-
+//     pipelined: a chunk's modulator reads, which depend on no state,
+//     are issued a phase ahead of their use; the phase walk, CZ warp and
+//     index clip run over the chunk's T samples and its T table loads
+//     are issued back to back; the S&H / quantizer / biquad / smoother
+//     chain and the stores of the chunk before run after them, so the
+//     loads of one chunk are in flight during the walk of the next and
+//     the two serial chains share one basic block.  The phase wrap and
+//     the CZ divide run without their slow paths (wrap_fmod's two
+//     in-range cases; kdiv_inv while finite), and a lane whose operands
+//     leave that range renders the block again with the exact helpers,
+//     as the keyed cyclic kernel does.  A block is one warp, so that a
+//     narrow tier still reaches every SM;
+//   * built without them (the general variant, tier_launch): the
+//     features arrive as run-time ints in TierArgs (uniform across the
+//     grid, so the branches never diverge within a warp; cz_modes is a
+//     bit mask), and each thread runs phases 0-4 per sample, one sample
+//     after the other.
+// The wrapper (kernels/tier.py) launches the keyed variant; the general
+// one only when asked by name.  Both share TierArgs and the mix kernel.
 //
 // The fold.  The TPU kernel copies the earlier tiers' whole output into
 // VMEM and picks (8,128) row windows of it through scalar-prefetched row
@@ -26,19 +54,19 @@
 // from global memory: neighbouring threads read neighbouring addresses,
 // so the read coalesces with no staging, and the source is per lane, so
 // rows may differ.  A delayed lane (the reference's serial-order rule)
-// keeps its last read in a register: sample t-1 costs no second load, and
-// t = 0 takes the previous block's last sample.  A source outside the
-// bank's [0, W) voices reads +0.0, never another voice's column.  Every
-// read adds +0.0, as the caller's one-hot read does, so a -0.0 sample
-// reads as +0.0 and the folded kernel equals the unfolded one bit for bit.
-// The bank is the block buffer the earlier tiers' launches wrote their
-// out columns into (out_stride), so nothing is gathered between launches.
+// reads the sample before: t = 0 takes the previous block's last sample.
+// A source outside the bank's [0, W) voices reads +0.0, never another
+// voice's column.  Every read adds +0.0, as the caller's one-hot read
+// does, so a -0.0 sample reads as +0.0 and the folded kernel equals the
+// unfolded one bit for bit.  The bank is the block buffer the earlier
+// tiers' launches wrote their out columns into (out_stride), so nothing
+// is gathered between launches.
 //
 // The mix.  acc[t, b] = sum over the tier's voices of out[t, v*B + b] *
 // w[v*B + b], product and sum each rounded once, in ascending voice
 // order from +0.0; with acc_add the sum is added onto the earlier tiers'
-// acc.  A batch row's voices belong to different thread blocks of
-// tier_kernel, and float atomics would leave the order open, so a second
+// acc.  A batch row's voices belong to different thread blocks of the
+// tier kernel, and float atomics would leave the order open, so a second
 // kernel of the same launch call (tier_mix_kernel, one thread per (t, b),
 // coalesced over b) re-reads out once, most of it still in the L2 cache.
 //
@@ -51,13 +79,11 @@
 // Newton/Markstein divide sequences where it calls _kdiv / _kdiv_inv
 // (correctly rounded), IEEE division elsewhere.  Build with -fmad=false
 // (no other contraction) and without --use_fast_math; denormals are kept.
-//
-// Features: the JAX kernel's 14-field static tuple arrives as runtime
-// ints in TierArgs (uniform across the grid, so the branches never
-// diverge within a warp); cz_modes is a bit mask.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "numerics.cuh"
 
@@ -110,6 +136,47 @@ struct TierArgs {
     float* acc_l; float* acc_r;   // [n, b]
     float* out_last;              // [m] out at the block's last sample
 };
+
+
+// Phase 5, the static-pan stereo mix: one thread per (sample, batch row)
+// sums the tier's voices in ascending order (see the note at the top).
+__global__ void __launch_bounds__(128) tier_mix_kernel(const TierArgs a) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (size_t)a.n * a.b) return;
+    const int t = (int)(i / a.b), b = (int)(i % a.b);
+    const int voices = a.m / a.b;
+    const float* o = a.out + (size_t)t * a.out_stride + b;
+    float sl = 0.0f, sr = 0.0f;
+    for (int v = 0; v < voices; ++v) {
+        const int lane = v * a.b;
+        const float x = o[lane];
+        sl = __fadd_rn(sl, __fmul_rn(x, a.wl[lane + b]));
+        sr = __fadd_rn(sr, __fmul_rn(x, a.wr[lane + b]));
+    }
+    if (a.acc_add) {
+        sl = __fadd_rn(a.acc_l[i], sl);
+        sr = __fadd_rn(a.acc_r[i], sr);
+    }
+    a.acc_l[i] = sl;
+    a.acc_r[i] = sr;
+}
+
+// The mix alone (both variants' launch calls run it after the tier
+// kernel when the call has a mix; chip_smoke.py also times it alone).
+extern "C" int tier_mix_launch(const TierArgs* args, void* stream) {
+    const int threads = 128;
+    const size_t cells = (size_t)args->n * args->b;
+    const int blocks = (int)((cells + threads - 1) / threads);
+    if (blocks > 0)
+        tier_mix_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    return (int)cudaGetLastError();
+}
+
+#ifndef TIER_KEYED
+
+// ======================================================================
+// The general variant: the features at run time.
+// ======================================================================
 
 // One folded modulator stream of one lane: the source voice's column of
 // the bank, read once per sample.
@@ -391,29 +458,6 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
     if (a.has_hold) { a.hold_count_e[m] = hc; a.hold_val_e[m] = hv; }
 }
 
-// Phase 5, the static-pan stereo mix: one thread per (sample, batch row)
-// sums the tier's voices in ascending order (see the note at the top).
-__global__ void __launch_bounds__(128) tier_mix_kernel(const TierArgs a) {
-    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (size_t)a.n * a.b) return;
-    const int t = (int)(i / a.b), b = (int)(i % a.b);
-    const int voices = a.m / a.b;
-    const float* o = a.out + (size_t)t * a.out_stride + b;
-    float sl = 0.0f, sr = 0.0f;
-    for (int v = 0; v < voices; ++v) {
-        const int lane = v * a.b;
-        const float x = o[lane];
-        sl = __fadd_rn(sl, __fmul_rn(x, a.wl[lane + b]));
-        sr = __fadd_rn(sr, __fmul_rn(x, a.wr[lane + b]));
-    }
-    if (a.acc_add) {
-        sl = __fadd_rn(a.acc_l[i], sl);
-        sr = __fadd_rn(a.acc_r[i], sr);
-    }
-    a.acc_l[i] = sl;
-    a.acc_r[i] = sr;
-}
-
 extern "C" int tier_launch(const TierArgs* args, void* stream) {
     const int threads = 128;
     const int blocks = (args->m + threads - 1) / threads;
@@ -421,9 +465,489 @@ extern "C" int tier_launch(const TierArgs* args, void* stream) {
         tier_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
     int rc = (int)cudaGetLastError();
     if (rc != 0 || !args->has_mix) return rc;
-    const size_t cells = (size_t)args->n * args->b;
-    const int mblocks = (int)((cells + threads - 1) / threads);
-    if (mblocks > 0)
-        tier_mix_kernel<<<mblocks, threads, 0, (cudaStream_t)stream>>>(*args);
-    return (int)cudaGetLastError();
+    return tier_mix_launch(args, stream);
 }
+
+#else  // TIER_KEYED
+
+// ======================================================================
+// The keyed variant: built with -DTIER_KEYED=1,
+//   -DTIER_HAS_<FLAG>=<0|1> for the 12 flags of the feature tuple (FM,
+//   CZ, CZM, ENV, FLT, SM, HOLD, QUANT, AM, AM_SELF, FINISH, DIRECTION),
+//   -DTIER_CZ_MASK=<bit k: CZ mode k>, -DTIER_TS_POW2, -DTIER_EXACT,
+//   -DTIER_MIX and -DTIER_FOLD_<FM|CZ|AM> (each 0 or 1).
+// ======================================================================
+
+constexpr bool FM = TIER_HAS_FM, CZ = TIER_HAS_CZ, CZM = CZ && TIER_HAS_CZM,
+    ENV = TIER_HAS_ENV, FLT = TIER_HAS_FLT, SM = TIER_HAS_SM,
+    HOLD = TIER_HAS_HOLD, QUANT = TIER_HAS_QUANT, AM = TIER_HAS_AM,
+    AM_SELF = TIER_HAS_AM_SELF, FINISH = TIER_HAS_FINISH,
+    DIRN = FM && TIER_HAS_DIRECTION;
+constexpr int EXACT = TIER_EXACT;
+constexpr int CZ_MASK = TIER_CZ_MASK;
+constexpr bool TS_POW2 = TIER_TS_POW2, MIX = TIER_MIX;
+constexpr bool FOLD_FM = FM && TIER_FOLD_FM, FOLD_CZ = CZM && TIER_FOLD_CZ,
+    FOLD_AM = AM && TIER_FOLD_AM;
+constexpr bool HOIST_AM = AM && !AM_SELF;
+constexpr bool HOIST_GAIN = ENV || HOIST_AM;
+// Samples a thread walks per chunk.  Live across a chunk: T table
+// samples of the chunk behind, T indices of this one and T reads of
+// each modulator stream.  At 8, stress64's tier-1 key fits 128
+// registers (chip_smoke.py's build phase prints them): 16 warps share
+// an SM, and its 57,344 lanes run in one wave.  16 and 32 take more
+// registers (32 spills) and are slower there; tier 0 times the same.
+constexpr int T = 8;
+
+// T, for code that counts the chunk loop's instructions per sample step
+extern "C" int tier_chunk_samples() { return T; }
+
+// One modulator stream of one lane, chunk by chunk: the raw [N, M]
+// stream or (FOLD) the source voice's column of the bank.  A null `p`
+// reads +0.0 (a lane whose select drops the read loads nothing).  A
+// delayed fold lane (the serial-order rule) reads its column one sample
+// late: its loads are shifted by one sample, and the block's first
+// sample takes the previous block's last.  The loads of a chunk depend
+// on no state: they are issued as soon as the chunk before has been
+// read, a whole phase before their use.
+template <bool FOLD>
+struct Stream {
+    const float* p;
+    int stride;          // floats between two samples
+    float prev;          // FOLD: the column's sample at t = -1
+    int shift;           // FOLD: 1 on a delayed lane
+    float buf[T];
+
+    __device__ __forceinline__ void clear() {
+        p = nullptr; prev = 0.0f; shift = 0;
+#pragma unroll
+        for (int j = 0; j < T; ++j) buf[j] = 0.0f;
+    }
+
+    __device__ __forceinline__ void raw(const float* base, int m, int M,
+                                        bool on) {
+        clear();
+        stride = M;
+        if (on) p = base + m;
+    }
+
+    __device__ __forceinline__ void fold(const TierArgs& a, bool on,
+                                         const int* src, const int* dly,
+                                         int m) {
+        clear();
+        stride = a.bank_stride;
+        if (!on) return;
+        const int s = src[m];
+        if (s < 0 || s >= a.bank_w) return;
+        const int c = s * a.b + m % a.b;
+        p = a.bank + c;
+        prev = a.prev[c];
+        shift = dly[m] != 0 ? 1 : 0;
+    }
+
+    // issue the loads of the chunk that starts at t0 (none past n)
+    __device__ __forceinline__ void fetch(int t0, int n) {
+        if (p == nullptr || t0 >= n) return;
+        const int t1 = t0 - shift;            // the sample buf[0] holds
+        const float* q = p + (ptrdiff_t)t1 * (ptrdiff_t)stride;
+        if (t0 + T <= n) {
+#pragma unroll
+            for (int j = 0; j < T; ++j)
+                buf[j] = (j == 0 && t1 < 0) ? prev : __ldg(q + j * stride);
+        } else {
+#pragma unroll
+            for (int j = 0; j < T; ++j)
+                if (t0 + j < n)
+                    buf[j] = (j == 0 && t1 < 0) ? prev
+                                                : __ldg(q + j * stride);
+        }
+    }
+
+    // the read at offset j of the chunk (a fold adds +0.0, as the
+    // caller's one-hot read does)
+    __device__ __forceinline__ float at(int j) const {
+        return FOLD ? buf[j] + 0.0f : buf[j];
+    }
+
+    // the chunk is read: issue the next one's loads
+    __device__ __forceinline__ void next(int t0, int n) { fetch(t0 + T, n); }
+};
+
+// The block runs first with a phase wrap and a CZ divide that have no
+// slow path (FAST): exact wherever their operands are in range, and a
+// lane whose operand is not sets `slow` and renders the block again with
+// the exact helpers (wrap_fmod with its fmodf call, kdiv_inv), from the
+// same inputs, writing every output again.  A branch on the walk would
+// end the basic block in which the compiler interleaves the walk of one
+// chunk with the S&H / filter / smoother chain of the chunk before.
+template <bool FAST>
+__device__ __forceinline__ float wrap(float x, float L, bool& slow) {
+    if (!FAST) return wrap_fmod(x, L);
+    const bool once = x >= L && x < 2.0f * L;   // wrap_fmod's two ranges
+    slow = slow || !(once || fabsf(x) < L);
+    return once ? x - L : x;
+}
+
+template <bool FAST>
+__device__ __forceinline__ float div_inv(float a, float y1, float b,
+                                         bool& slow) {
+    if (!FAST) return kdiv_inv(a, y1, b);
+    const float q0 = __fmul_rn(a, y1);          // kdiv_inv while finite
+    const float q = kfma(kfma(-b, q0, a), y1, q0);
+    slow = slow || !isfinite(q);
+    return q;
+}
+
+// One pass over the block for lane m; returns whether a FAST helper met
+// an operand outside its range.
+template <bool FAST>
+__device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
+    const int M = a.m;
+    const int n = a.n;
+    bool slow = false;
+    const auto wrap1 = [&](float x, float L) {
+        return wrap<FAST>(x, L, slow);
+    };
+
+    // ---- per-lane parameters, held in registers for the whole block ----
+    const float lo = a.lo[m], hi = a.hi[m], L = a.L[m];
+    const bool adv = a.adv[m] != 0, act = a.act[m] != 0;
+    const bool osn = FINISH && a.osn[m] != 0;
+    const bool one_shot = FINISH && a.one_shot[m] != 0;
+    const int clip = a.clip_i[m];
+    const float amp = a.amp[m];
+    const float hi_os = hi - 1e-6f;
+
+    bool use_fm = false, dirneg = false;
+    float mis = 0.0f, pinc = 0.0f, fmdep = 0.0f, inc_const = 0.0f;
+    if (FM) {
+        use_fm = a.use_fm[m] != 0;
+        mis = a.mis[m]; pinc = a.pinc[m]; fmdep = a.fm_depth[m];
+        dirneg = DIRN && a.dirneg[m] != 0;
+    } else {
+        inc_const = a.inc[m];
+    }
+
+    int mode = 0;
+    float dist = 0.0f, tsz = 0.0f, inv_ts = 0.0f, czdep = 0.0f;
+    bool cm_ge = false;
+    CzCoeffs coeffs;
+    coeffs.is_pl = coeffs.is_4 = coeffs.is_pw = 0;
+    if (CZ) {
+        mode = a.cz_mode[m]; dist = a.cz_dist[m]; tsz = a.tsize[m];
+        if (EXACT) inv_ts = kdiv(1.0f, tsz);
+        if (CZM) {
+            cm_ge = a.cm_ge0[m] != 0;
+            czdep = a.cz_depth[m];
+        } else {
+            // d is constant across the block: hoist scales and curve
+            CzScales s = cz_scales(dist + a.dm[m], EXACT, CZ_MASK);
+            coeffs = cz_coeffs(mode, s, CZ_MASK);
+        }
+    }
+
+    bool use_env = false, env_act = false;
+    int env_start = 0, env_relat = 0;
+    float att = 0.0f, dec = 0.0f, sus = 0.0f, rel = 0.0f, vel = 0.0f,
+          att_dec = 0.0f;
+    if (ENV) {
+        use_env = a.use_env[m] != 0; env_act = a.env_active[m] != 0;
+        env_start = a.env_start[m]; env_relat = a.env_rel_at[m];
+        att = a.att[m]; dec = a.dec[m]; sus = a.sus[m]; rel = a.rel[m];
+        vel = a.vel[m];
+        att_dec = att + dec;
+    }
+    bool am_ge = false;
+    float amdep_a = 0.0f;
+    if (AM) { am_ge = a.am_ge0[m] != 0; amdep_a = a.am_depth_a[m]; }
+
+    Stream<FOLD_FM> s_fm;
+    Stream<FOLD_CZ> s_cz;
+    Stream<FOLD_AM> s_am;
+    if (FOLD_FM) s_fm.fold(a, use_fm, a.fm_src, a.fm_del, m);
+    else s_fm.raw(a.inc, m, M, FM);
+    if (FOLD_CZ) s_cz.fold(a, cm_ge, a.cz_src, a.cz_del, m);
+    else s_cz.raw(a.dm, m, M, CZM && cm_ge);
+    if (FOLD_AM) s_am.fold(a, am_ge, a.am_src, a.am_del, m);
+    else s_am.raw(a.amod, m, M, AM && am_ge);
+
+    float b0 = 0, b1 = 0, b2 = 0, na1 = 0, na2 = 0;
+    bool use_flt = false;
+    float x1 = 0, x2 = 0, y1 = 0, y2 = 0;
+    if (FLT) {
+        b0 = a.b0[m]; b1 = a.b1[m]; b2 = a.b2[m];
+        na1 = a.na1[m]; na2 = a.na2[m]; use_flt = a.use_flt[m] != 0;
+        x1 = a.x1_0[m]; x2 = a.x2_0[m]; y1 = a.y1_0[m]; y2 = a.y2_0[m];
+    }
+    bool use_sm = false;
+    float smoothing = 0, sg = 0;
+    if (SM) {
+        use_sm = a.use_sm[m] != 0; smoothing = a.smoothing[m];
+        sg = a.smoother_0[m];
+    }
+    bool am_self = false;
+    float am_depth = 0;
+    if (AM_SELF) { am_self = a.am_self[m] != 0; am_depth = a.am_depth[m]; }
+    bool hold_on = false;
+    int hmax = 1, hc = 0;
+    float hv = 0;
+    if (HOLD) {
+        hold_on = a.hold_on[m] != 0; hmax = a.hold_max[m];
+        hc = a.hold_count_0[m]; hv = a.hold_val_0[m];
+    }
+    bool quant_on = false;
+    float levels = 0, inv_lev = 0;
+    if (QUANT) {
+        quant_on = a.quant_on[m] != 0; levels = a.levels[m];
+        inv_lev = a.inv_levels[m];
+    }
+
+    float ph_c = a.phase_0[m];
+    int fin_c = FINISH ? a.finished_0[m] : 0;
+    int cnt = 0;
+    float o_last = 0.0f;
+    float* const out = a.out + m;
+    const size_t ostride = (size_t)a.out_stride;
+    const int base = a.base_off[m];
+
+    // A chunk's phases 0-3 (FULL: all T samples lie inside the block):
+    // the FM increment, the serial phase walk, the CZ warp and index clip
+    // per sample, then the chunk's T table loads back to back into fv;
+    // alive[j] whether sample j is live.
+    float fv[T];
+    bool alive[T];
+    const auto walk = [&](int t0, auto full) {
+        constexpr bool FULL = decltype(full)::value;
+        const int rem = n - t0;
+        int idxv[T];
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+            if (!FULL && j >= rem) break;
+            float inc_t;
+            if (FM) {
+                const float g3 = s_fm.at(j) * fmdep;
+                inc_t = use_fm ? xfma(mis, g3, pinc, EXACT) : pinc;
+                if (dirneg) inc_t = -inc_t;
+            } else {
+                inc_t = inc_const;
+            }
+            const float ph = ph_c + inc_t;
+            const bool bad = !isfinite(ph);
+            const bool over = ph >= hi;
+            const bool under = ph < lo;
+            const float r = wrap1(ph - lo, L);
+            const float wrap_over = lo + r;
+            const float wrap_under = hi + r;
+            float ph2;
+            if (FINISH)
+                ph2 = over ? (osn ? hi_os : wrap_over)
+                           : (under ? (osn ? lo : wrap_under) : ph);
+            else
+                ph2 = over ? wrap_over : (under ? wrap_under : ph);
+            if (bad) ph2 = 0.0f;
+            bool alive_t;
+            if (FINISH) {
+                const bool fin_new = (bad && one_shot)
+                                     || ((over || under) && osn);
+                const bool fin_b = fin_c != 0;
+                const bool step_on = adv && !fin_b;
+                alive_t = act && !fin_b;
+                if (step_on) ph_c = ph2;
+                if (step_on && fin_new) fin_c = 1;
+                cnt += alive_t ? 1 : 0;
+            } else {
+                alive_t = act;
+                if (adv) ph_c = ph2;
+            }
+            // ---- phase 2: CZ warp + index clip + dead masking ----
+            float idx_f = ph2;
+            if (CZ) {
+                float phase;
+                if (EXACT && TS_POW2) phase = ph2 * inv_ts;
+                else if (EXACT) phase = div_inv<FAST>(ph2, inv_ts, tsz, slow);
+                else phase = __fdiv_rn(ph2, tsz);
+                float warped;
+                if (CZM) {
+                    const float dm3 = cm_ge ? s_cz.at(j) * czdep : 1.0f;
+                    CzScales s = cz_scales(dist + dm3, EXACT, CZ_MASK);
+                    warped = cz_warp_k(mode, phase, s, tsz, EXACT, CZ_MASK,
+                                       wrap1);
+                } else {
+                    warped = cz_warp_fast(coeffs, phase, tsz, EXACT, wrap1);
+                }
+                if (mode != 0) idx_f = warped;
+            }
+            int idx = (int)idx_f;
+            idx = idx < 0 ? 0 : idx;
+            idx = idx > clip ? clip : idx;
+            if (!alive_t) idx = 0;
+            idxv[j] = base + idx;
+            alive[j] = alive_t;
+        }
+        if (FM) s_fm.next(t0, n);
+        if (CZM) s_cz.next(t0, n);
+        // ---- phase 3: the table loads ----
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+            if (!FULL && j >= rem) break;
+            fv[j] = __ldg(a.table + idxv[j]);
+        }
+    };
+
+    // A chunk's phases 3.5 and 4 on its table samples f and live bits:
+    // gain, S&H, quantizer, biquad, smoother, the stores.
+    const auto finish = [&](int t0, const float (&f)[T],
+                            const bool (&live)[T], auto full) {
+        constexpr bool FULL = decltype(full)::value;
+        const int rem = n - t0;
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+            if (!FULL && j >= rem) break;
+            const bool alive_t = live[j];
+            float amod_t = 1.0f;
+            if (AM) amod_t = am_ge ? s_am.at(j) * amdep_a : 1.0f;
+            float base_gain = amp;
+            if (HOIST_GAIN) {
+                float g = amp;
+                if (ENV) {
+                    const int tpos = a.cbase + t0 + j;
+                    const float tf = (float)(tpos - env_start);
+                    const float trf = (float)(tpos - env_relat);
+                    float v;
+                    if (tf < att) v = __fdiv_rn(tf, att);
+                    else if (tf < att_dec)
+                        v = kfma(-__fdiv_rn(tf - att, dec), 1.0f - sus, 1.0f);
+                    else if (env_relat == 0) v = sus;
+                    else if (trf < rel) v = sus * (1.0f - __fdiv_rn(trf, rel));
+                    else v = 0.0f;
+                    if (!env_act) v = 0.0f;
+                    const float env_t = use_env ? v * vel : 1.0f;
+                    g = amp * env_t;
+                }
+                if (HOIST_AM) g = g * amod_t;
+                base_gain = g;
+            }
+            const float f_t = alive_t ? f[j] : 0.0f;
+            float s1 = f_t;
+            if (HOLD) {
+                const float hv2 = (hold_on && hc == 0) ? f_t : hv;
+                s1 = hold_on ? hv2 : f_t;
+                int hcn = hc + 1;
+                if (hcn >= hmax) hcn = 0;
+                if (alive_t) hv = hv2;
+                if (alive_t && hold_on) hc = hcn;
+            }
+            float x_t = s1;
+            if (QUANT) {
+                const float iv = (float)(int)kfma(s1, levels, 0.5f);
+                if (quant_on) x_t = iv * inv_lev;
+            }
+            float s3 = x_t;
+            if (FLT) {
+                float fo = b1 * x1;
+                fo = xfma(b0, x_t, fo, EXACT);
+                fo = xfma(b2, x2, fo, EXACT);
+                fo = xfma(na1, y1, fo, EXACT);
+                fo = xfma(na2, y2, fo, EXACT);
+                if (use_flt) s3 = fo;
+                if (alive_t && use_flt) {
+                    x2 = x1; x1 = x_t; y2 = y1; y1 = fo;
+                }
+            }
+            float final_t = base_gain;
+            if (AM_SELF) {
+                if (am_self) amod_t = s3 * am_depth;
+                final_t = base_gain * amod_t;
+            }
+            float final2 = final_t;
+            if (SM) {
+                const float sg2 = xfma(smoothing, final_t - sg, sg, EXACT);
+                if (use_sm) final2 = sg2;
+                if (alive_t && use_sm) sg = sg2;
+            }
+            const float o = alive_t ? s3 * final2 : 0.0f;
+            out[(size_t)(t0 + j) * ostride] = o;
+            if (MIX) o_last = o;
+        }
+        if (AM) s_am.next(t0, n);
+    };
+
+    using Full = std::true_type;
+    using Part = std::false_type;
+    if (FM) s_fm.fetch(0, n);
+    if (CZM) s_cz.fetch(0, n);
+    if (AM) s_am.fetch(0, n);
+    if (T <= n) walk(0, Full());
+    else walk(0, Part());
+    // Software-pipelined: the walk of the next chunk, then phases 3.5-4
+    // of this one, whose table loads were issued one walk earlier.  The
+    // two are independent chains in one basic block.
+    int t0 = 0;
+    float fc[T];
+    bool live[T];
+    for (; t0 + 2 * T <= n; t0 += T) {
+#pragma unroll
+        for (int j = 0; j < T; ++j) { fc[j] = fv[j]; live[j] = alive[j]; }
+        walk(t0 + T, Full());
+        finish(t0, fc, live, Full());
+    }
+    if (t0 < n) {
+#pragma unroll
+        for (int j = 0; j < T; ++j) { fc[j] = fv[j]; live[j] = alive[j]; }
+        if (t0 + T < n) walk(t0 + T, Part());
+        if (t0 + T <= n) finish(t0, fc, live, Full());
+        else finish(t0, fc, live, Part());
+        t0 += T;
+        if (t0 < n) finish(t0, fv, alive, Part());
+    }
+    if (MIX) a.out_last[m] = o_last;
+
+    a.phase_e[m] = ph_c;
+    a.cnt_e[m] = FINISH ? cnt : (act ? n : 0);
+    if (FINISH) a.finished_e[m] = fin_c;
+    if (FLT) {
+        a.x1_e[m] = x1; a.x2_e[m] = x2; a.y1_e[m] = y1; a.y2_e[m] = y2;
+    }
+    if (SM) a.smoother_e[m] = sg;
+    if (HOLD) { a.hold_count_e[m] = hc; a.hold_val_e[m] = hv; }
+    return slow;
+}
+
+__global__ void __launch_bounds__(128) tier_keyed_kernel(const TierArgs a) {
+    const int m = blockIdx.x * blockDim.x + threadIdx.x;
+    if (m >= a.m) return;
+    if (run_lane<true>(a, m)) run_lane<false>(a, m);
+}
+
+// One warp a block: a narrow tier (8,192 lanes: 256 blocks) spreads
+// over every SM, and a wide one balances to a warp.  On an H100, 32-,
+// 64- and 128-thread blocks time the same at both of stress64's tiers:
+// a tier-0 warp runs alone on its scheduler either way, and tier 1's
+// 1,792 warps fit the card in one wave at 128 registers.
+constexpr int TIER_THREADS = 32;
+
+// -1: the arguments are not this build's key (features, mode, mix, fold)
+extern "C" int tier_keyed_launch(const TierArgs* a, void* stream) {
+    const int want[] = {TIER_HAS_FM, TIER_HAS_CZ, TIER_HAS_CZM, TIER_HAS_ENV,
+                        TIER_HAS_FLT, TIER_HAS_SM, TIER_HAS_HOLD,
+                        TIER_HAS_QUANT, TIER_HAS_AM, TIER_HAS_AM_SELF,
+                        TIER_HAS_FINISH, TIER_HAS_DIRECTION, TIER_TS_POW2,
+                        TIER_EXACT, TIER_MIX, FOLD_FM, FOLD_CZ, FOLD_AM};
+    const int got[] = {a->has_fm, a->has_cz, a->has_czm, a->has_env,
+                       a->has_flt, a->has_sm, a->has_hold, a->has_quant,
+                       a->has_am, a->has_am_self, a->has_finish,
+                       a->has_direction, a->ts_pow2, a->exact, a->has_mix,
+                       a->fold_fm, a->fold_cz, a->fold_am};
+    bool same = !CZ || a->cz_mask == CZ_MASK;
+    for (int i = 0; i < (int)(sizeof(want) / sizeof(want[0])); ++i)
+        same = same && (got[i] != 0) == (want[i] != 0);
+    if (!same) return -1;
+    const int blocks = (a->m + TIER_THREADS - 1) / TIER_THREADS;
+    if (blocks > 0)
+        tier_keyed_kernel<<<blocks, TIER_THREADS, 0,
+                            (cudaStream_t)stream>>>(*a);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0 || !MIX) return rc;
+    return tier_mix_launch(a, stream);
+}
+
+#endif  // TIER_KEYED

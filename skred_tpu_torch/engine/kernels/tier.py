@@ -27,6 +27,13 @@ Layout: time-major ``[N, M]`` streams over voice-major lanes (lane
 takes them.  A CPU tensor runs ``tier_plain``, the same arithmetic in
 torch ops; a CUDA tensor launches ``csrc/tier.cu`` or raises.
 
+``csrc/tier.cu`` has two variants.  The keyed one, which ``tier``
+launches, is built once per ``tier_key`` (the feature tuple, the
+arithmetic mode, the mix and the folded streams, all compiled in); a
+render builds its tiers' keys together before its first block
+(``engine/fused.py``).  The general one, with the features as
+run-time flags, runs only when asked for (``variant="general"``).
+
 ``feat`` is the JAX kernel's 14-tuple (fm, cz, czm, env, flt, sm, hold,
 quant, am, am_self, finish, direction, cz_modes, ts_pow2).
 """
@@ -34,6 +41,7 @@ quant, am, am_self, finish, direction, cz_modes, ts_pow2).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -534,8 +542,41 @@ def _strided(name, x, dev, n):
         raise ValueError(f"tier: {name} needs unit stride along lanes")
 
 
+@functools.lru_cache(maxsize=None)
+def tier_key(feat, exact=True, mix=False, folded=()):
+    """The build key (``-D`` defines) of the keyed variant: one library
+    per (feature tuple, arithmetic mode, mix, folded streams), as the JAX
+    package compiles one kernel per feature tuple.  Deterministic; the CZ
+    mode mask counts only where CZ is on, and a folded stream only where
+    the feature set has it."""
+    fl = _flags(feat)
+    folded = _folded(fl, Fold(None, None, 0, tuple(folded)))
+    mask = sum(1 << k for k in fl["cz_modes"] if 1 <= k <= 7) \
+        if fl["cz"] else 0
+    return (("TIER_KEYED=1", f"TIER_EXACT={int(bool(exact))}",
+             f"TIER_CZ_MASK={mask}", f"TIER_TS_POW2={int(fl['ts_pow2'])}",
+             f"TIER_MIX={int(bool(mix))}")
+            + tuple(f"TIER_FOLD_{k.upper()}={int(k in folded)}"
+                    for k in ("fm", "cz", "am"))
+            + tuple(f"TIER_HAS_{k.upper()}={int(fl[k])}"
+                    for k in _FEAT_NAMES))
+
+
+def tier_keyed(args, key, dev):
+    """Launch the keyed variant built under ``key`` (built at first use if
+    it was not built before; a failed build raises)."""
+    cuda_call.launch("tier", args, dev, key, "tier_keyed_launch")
+    tier_keyed.launches += 1
+
+
+def tier_general(args, dev):
+    """Launch the general variant."""
+    cuda_call.launch("tier", args, dev)
+    tier_general.launches += 1
+
+
 def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
-         n, b=None, mixw=None, acc=None, fold=None, out=None):
+         n, b=None, mixw=None, acc=None, fold=None, out=None, variant=None):
     """One tier pass over one block (see the module docstring).
 
     table: [R] f32 packed table buffer; cbase: int, the 1-based global
@@ -556,6 +597,9 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
     ``*_src`` / ``*_del`` vectors.  out: an [N, M] view to write the
     samples into, e.g. the tier's columns of a block buffer that is the
     bank of later tiers; it must not overlap the bank's read columns.
+    variant: None or "keyed" launches the keyed variant, "general" the
+    general one (the tests and chip_smoke.py hold both to the plain
+    version).
 
     Returns (out [N, M], end-state dict incl. cnt)."""
     kw = dict(feat=feat, exact=exact, n=n, b=b, mixw=mixw, acc=acc,
@@ -564,11 +608,20 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
         return tier_plain(table, cbase, inc, dm, amod, vecs, states, **kw)
     if table.device.type != "cuda":
         raise ValueError(f"tier: no kernel for device {table.device}")
+    if variant not in (None, "keyed", "general"):
+        raise ValueError(f"tier: no variant {variant!r}")
     args, out, outs = _pack_args(table, cbase, inc, dm, amod, vecs, states,
                                  **kw)
-    cuda_call.launch("tier", args, table.device)
+    if variant == "general":
+        tier_general(args, table.device)
+    else:
+        folded = _folded(_flags(feat), fold)
+        tier_keyed(args, tier_key(feat, exact, mixw is not None, folded),
+                   table.device)
     tier.launches += 1
     return out, outs
 
 
 tier.launches = 0
+tier_keyed.launches = 0
+tier_general.launches = 0

@@ -147,3 +147,42 @@ def random_fold_inputs(n, m, b, w, seed=0, streams=("fm", "cz", "am"),
         vecs[src_k] = src.astype(np.int32)
         vecs[del_k] = (rng.uniform(0, 1, m) < 0.4).astype(np.int32)
     return bank, prev, vecs
+
+
+def out_of_range(feat, inputs, seed=0):
+    """``random_tier_inputs``' tuple with phase-walk operands outside the
+    fast range of the keyed kernel's wrap (``wrap_fmod``), which must take
+    its exact slow path: increments of 7.3 loop lengths (10% of the
+    lanes), with raw FM stream samples of ±1e30 (2% of the samples) and
+    infinite or NaN ones (1% each), and start phases that are NaN, +inf
+    or -inf (5% of the lanes each).  Indices stay clipped, so no read
+    leaves a lane's table."""
+    table, cbase, inc, dm, amod, vecs, states = inputs
+    fl = _flags(feat)
+    rng = np.random.default_rng(seed + 303)
+    m = vecs["amp"].shape[0]
+    pick = lambda p, shape=(m,): rng.uniform(0, 1, shape) < p
+    vecs, states = dict(vecs), dict(states)
+    big = (vecs["L"] * np.float32(7.3)).astype(np.float32)
+    if fl["fm"]:
+        vecs["pinc"] = np.where(pick(0.1), big, vecs["pinc"]) \
+            .astype(np.float32)
+    if fl["fm"] and inc is not None:        # None: the stream is folded
+        inc = inc.copy()
+        u = rng.uniform(0, 1, inc.shape)
+        inc[u < 0.01] = np.inf
+        inc[(u >= 0.01) & (u < 0.02)] = np.nan
+        inc[(u >= 0.02) & (u < 0.03)] = np.float32(1e30)
+        inc[(u >= 0.03) & (u < 0.04)] = np.float32(-1e30)
+    elif not fl["fm"]:
+        u = rng.uniform(0, 1, m)
+        inc = np.where(u < 0.1, big, inc).astype(np.float32)
+        inc[(u >= 0.1) & (u < 0.13)] = np.inf
+        inc[(u >= 0.13) & (u < 0.16)] = np.nan
+    phase = states["phase"].copy()
+    u = rng.uniform(0, 1, m)
+    phase[u < 0.05] = np.nan
+    phase[(u >= 0.05) & (u < 0.1)] = np.inf
+    phase[(u >= 0.1) & (u < 0.15)] = -np.inf
+    states["phase"] = phase
+    return table, cbase, inc, dm, amod, vecs, states

@@ -142,3 +142,176 @@ def test_tier_cpu_tensor_takes_plain_version():
     _same(out.numpy(), want.numpy(), "out")
     for k in want_res:
         _same(res[k].numpy(), want_res[k].numpy(), k)
+
+
+def test_tier_cpu_tensor_runs_plain_in_either_variant():
+    """A CPU tensor runs the plain version whatever variant is named."""
+    feat = STRESS64_TIER1
+    args = random_tier_inputs(feat, 16, 256, seed=2)
+    table, cbase, inc, dm, amod, vecs, states = args
+    counts = (tt.tier.launches, tt.tier_keyed.launches,
+              tt.tier_general.launches)
+    want, want_res = _plain(args, feat, 16)
+    for variant in ("keyed", "general"):
+        out, res = tt.tier(_torch(table), cbase, _torch(inc), _torch(dm),
+                           _torch(amod),
+                           {k: _torch(v) for k, v in vecs.items()},
+                           {k: _torch(v) for k, v in states.items()},
+                           feat=feat, n=16, variant=variant)
+        _same(out.numpy(), want.numpy(), "out")
+        for k in want_res:
+            _same(res[k].numpy(), want_res[k].numpy(), k)
+    assert (tt.tier.launches, tt.tier_keyed.launches,
+            tt.tier_general.launches) == counts
+
+
+# ---- the keyed variant's build keys ----
+
+ALL_FLAGS = (True,) * 12 + ((1, 2, 3, 4, 5, 6, 7), True)
+
+
+def test_tier_key_is_deterministic_and_per_feature_set():
+    """One key per (features, mode, mix, folded streams): the same from
+    equal arguments, changed by each flag, the CZ mode mask, ts_pow2, the
+    mode, the mix and each folded stream; stress64's two tiers give two
+    keys, and each key its own library."""
+    from skred_tpu_torch.engine.kernels import build
+
+    base = tt.tier_key(ALL_FLAGS, True, False, ())
+    assert tt.tier_key(tuple(ALL_FLAGS), True, False, ()) == base
+    assert "TIER_KEYED=1" in base
+    seen = {base}
+    for i in range(12):
+        feat = list(ALL_FLAGS)
+        feat[i] = False
+        key = tt.tier_key(tuple(feat), True, False, ())
+        assert key != base, tt._FEAT_NAMES[i]
+        seen.add(key)
+    for feat in (ALL_FLAGS[:12] + ((1, 2, 3), True),
+                 ALL_FLAGS[:13] + (False,)):
+        seen.add(tt.tier_key(feat, True, False, ()))
+    seen.add(tt.tier_key(ALL_FLAGS, False, False, ()))
+    seen.add(tt.tier_key(ALL_FLAGS, True, True, ()))
+    for k in ("fm", "cz", "am"):
+        seen.add(tt.tier_key(ALL_FLAGS, True, False, (k,)))
+    assert len(seen) == 12 + 1 + 2 + 2 + 3
+    # the CZ mask counts only where CZ is on, a fold only where the
+    # stream exists
+    no_cz = (False,) * 12 + ((1, 2), True)
+    assert tt.tier_key(no_cz, True, False, ()) \
+        == tt.tier_key(no_cz[:12] + ((4,), True), True, False, ())
+    assert tt.tier_key(STRESS64_TIER1, True, True, ("fm", "cz", "am")) \
+        == tt.tier_key(STRESS64_TIER1, True, True, ("fm",))
+    k0 = tt.tier_key(STRESS64_TIER0, True, True, ())
+    k1 = tt.tier_key(STRESS64_TIER1, True, True, ("fm",))
+    assert k0 != k1
+    paths = {build._target("tier", k) for k in seen | {k0, k1}}
+    assert len(paths) == len(seen | {k0, k1})
+    assert build._target("tier") not in paths
+    with pytest.raises(ValueError, match="unknown folded stream"):
+        tt.tier_key(ALL_FLAGS, True, False, ("pm",))
+
+
+ROOT = __import__("pathlib").Path(__file__).resolve().parent.parent
+# a delayed fm edge, an am edge and a cz-mod edge on one tier-0 LFO: two
+# tiers, the second folded
+THREE_STREAMS = ["v0 w0 f330 a3 F1,0.5", "v1 w2 f2 a2",
+                 "v2 w0 f220 a3 A1,0.4 p-0.4",
+                 "v3 w4 f110 a3 c1,0.5 C1,0.3 P1 Q0.7"]
+# each segment's graph is acyclic, their union is not: no tiers, an
+# estimate pass before the final one
+UNION_CYCLE = ["v0 w0 f330 a3 F1,0.5", "v1 w2 f2 a2", "v2 w0 f220 a2 p0.3 "
+               "~.02 v0 F1,0 v1 F0,0.4"]
+# noise in tier 0 (no tier kernel), the tier kernel (folded) in tier 1
+NOISE_MIXED = ["v1 w6 f3 a1 h40", "v0 w0 f220 a3 F1,0.5"]
+RENDERS = {"three_streams": (THREE_STREAMS, 2),
+           "union_cycle": (UNION_CYCLE, 2), "noise_mixed": (NOISE_MIXED, 1)}
+
+
+def _port_batch(lines, rows=2, seconds=0.03):
+    from skred_tpu_torch.assets import WaveBank
+    from skred_tpu_torch.host.timeline import compile_script
+    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+
+    tl = compile_script(lines, seconds, bank=WaveBank(),
+                        script_dir=ROOT / "corpus")
+    return pack_stacked(stack_timelines([tl] * rows))
+
+
+def _stand_in_nvcc(tmp_path):
+    """An nvcc that writes a library and a clean ptxas report, and logs
+    each invocation's -D defines, one line per process."""
+    log = tmp_path / "nvcc_calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "for a; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+        f"echo \"$*\" >> {log}\n"
+        "echo 'ptxas info    : Used 40 registers'\n"
+        "echo lib > \"$out\"\n")
+    nvcc.chmod(0o755)
+    return nvcc, log
+
+
+@pytest.mark.parametrize("script", sorted(RENDERS))
+def test_render_builds_its_tier_keys_together_before_the_first_block(
+        script, tmp_path, monkeypatch):
+    """A render on the card builds the keys of all its tier-kernel calls
+    in one parallel build before its first block, and launches no other
+    key.  The render runs on the CPU (the plain version) with the build
+    switched on and a stand-in for nvcc."""
+    from skred_tpu_torch.engine import fused as tf
+    from skred_tpu_torch.engine.kernels import build
+
+    lines, n_keys = RENDERS[script]
+    nvcc, log = _stand_in_nvcc(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "LOG", {})
+    monkeypatch.setattr(tf, "_builds_kernels", lambda device: True)
+    events = []
+    real_build_all, real_tier = build.build_all, tf.tier
+
+    def build_all(items=None):
+        events.append(("build", tuple(items)))
+        return real_build_all(items)
+
+    def tier(*a, **kw):
+        folded = tt._folded(tt._flags(kw["feat"]), kw["fold"])
+        events.append(("tier", tt.tier_key(kw["feat"], kw["exact"],
+                                           kw["mixw"] is not None, folded)))
+        return real_tier(*a, **kw)
+
+    monkeypatch.setattr(build, "build_all", build_all)
+    monkeypatch.setattr(tf, "tier", tier)
+    st = _port_batch(lines)
+    assert (st.tiers is None) == (script == "union_cycle")
+    out = tf.render_fused(st, device="cpu")
+    assert np.isfinite(out).all() and np.abs(out).max() > 0.01
+    builds = [e for e in events if e[0] == "build"]
+    assert len(builds) == 1 and events[0][0] == "build"
+    assert all(name == "tier" for name, _ in builds[0][1])
+    built = {key for _, key in builds[0][1]}
+    launched = {key for kind, key in events if kind == "tier"}
+    assert launched == built and len(built) == n_keys
+    assert len(log.read_text().splitlines()) == n_keys
+    for key in built:
+        assert build._target("tier", key).exists()
+
+
+def test_cpu_render_builds_and_launches_nothing(monkeypatch):
+    """On the CPU a render neither builds nor launches a kernel."""
+    from skred_tpu_torch.engine import fused as tf
+    from skred_tpu_torch.engine.kernels import build
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU render built a kernel")
+
+    monkeypatch.setattr(build, "build_all", refuse)
+    monkeypatch.setattr(build, "load", refuse)
+    counts = (tt.tier.launches, tt.tier_keyed.launches,
+              tt.tier_general.launches)
+    out = tf.render_fused(_port_batch(THREE_STREAMS), device="cpu")
+    assert np.isfinite(out).all()
+    assert (tt.tier.launches, tt.tier_keyed.launches,
+            tt.tier_general.launches) == counts

@@ -1,7 +1,11 @@
 """The CUDA tier kernel against its plain version, on the card.
 
-Needs an NVIDIA card and nvcc; skips elsewhere.  Imports nothing of JAX,
-so it runs on a machine that has only the port's dependencies:
+Both variants of csrc/tier.cu: the keyed one (``tier``'s default, one
+library per ``tier_key``) and the general one (``variant="general"``).
+Every key this file launches is built once, in one parallel build, by a
+session fixture.  Needs an NVIDIA card and nvcc; skips elsewhere.
+Imports nothing of JAX, so it runs on a machine that has only the port's
+dependencies:
 
     python -m pytest -m cuda tests/test_torch_tier_cuda.py
 """
@@ -13,6 +17,7 @@ import torch
 from skred_tpu_torch.engine.kernels import tier as tt
 from skred_tpu_torch.engine.kernels.tier_inputs import (STRESS64_TIER0,
                                                         STRESS64_TIER1,
+                                                        out_of_range,
                                                         random_fold_inputs,
                                                         random_mix_weights,
                                                         random_tier_inputs)
@@ -24,11 +29,43 @@ CASES = {"stress64_tier0": STRESS64_TIER0, "stress64_tier1": STRESS64_TIER1,
          "env_am": ENV_AM, "all": ALL}
 
 
-@pytest.fixture
-def cuda_device():
+VARIANTS = {"mix": ((), True), "fold_fm": (("fm",), False),
+            "fold_cz": (("cz",), False), "fold_am": (("am",), False),
+            "fold_all": (("fm", "cz", "am"), False),
+            "mix_fold_all": (("fm", "cz", "am"), True)}
+MIX_FOLD_CASES = ["stress64_tier1", "env_am", "all"]
+ROWS = [1, 8, 1000, 1024]
+SHORT_BLOCKS = [1, 37, 77]
+ALL_STREAMS = ("fm", "cz", "am")
+
+
+def _file_keys():
+    """Every keyed build this file launches."""
+    keys = []
+    for exact in (True, False):
+        for feat in CASES.values():
+            keys.append(tt.tier_key(feat, exact))
+            keys.append(tt.tier_key(feat, exact, True, ALL_STREAMS))
+        for case in MIX_FOLD_CASES:
+            for streams, mix in VARIANTS.values():
+                keys.append(tt.tier_key(CASES[case], exact, mix, streams))
+    return list(dict.fromkeys(keys))
+
+
+@pytest.fixture(scope="session")
+def built():
+    """The card, with every key of the file built in one parallel build."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from skred_tpu_torch.engine.kernels import build
+
+    build.build_all(["tier"] + [("tier", key) for key in _file_keys()])
     return torch.device("cuda")
+
+
+@pytest.fixture
+def cuda_device(built):
+    return built
 
 
 def _same(a, b, what):
@@ -38,10 +75,22 @@ def _same(a, b, what):
     assert np.array_equal(a, b), f"{what}: {(a != b).sum()} differ"
 
 
+def _counts():
+    return (tt.tier.launches, tt.tier_keyed.launches,
+            tt.tier_general.launches)
+
+
+def _launched(before, variant):
+    """The counts after one launch of ``variant`` from ``before``."""
+    t, k, g = before
+    return (t + 1, k + (variant == "keyed"), g + (variant == "general"))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["keyed", "general"])
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_tier_cuda_matches_plain_on_card(case, exact, cuda_device):
+def test_tier_cuda_matches_plain_on_card(case, exact, variant, cuda_device):
     feat = CASES[case]
     n, m = 512, 8192
     table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
@@ -50,10 +99,10 @@ def test_tier_cuda_matches_plain_on_card(case, exact, cuda_device):
     args = (t(table), cbase, t(inc), t(dm), t(amod),
             {k: t(v) for k, v in vecs.items()},
             {k: t(v) for k, v in states.items()})
-    before = tt.tier.launches
-    out, res = tt.tier(*args, feat=feat, exact=exact, n=n)
+    before = _counts()
+    out, res = tt.tier(*args, feat=feat, exact=exact, n=n, variant=variant)
     torch.cuda.synchronize()
-    assert tt.tier.launches == before + 1
+    assert _counts() == _launched(before, variant)
     want, want_res = tt.tier_plain(*args, feat=feat, exact=exact, n=n)
     _same(out, want, "out")
     assert sorted(res) == sorted(want_res)
@@ -61,31 +110,17 @@ def test_tier_cuda_matches_plain_on_card(case, exact, cuda_device):
         _same(res[k], want_res[k], k)
 
 
-VARIANTS = {"mix": ((), True), "fold_fm": (("fm",), False),
-            "fold_cz": (("cz",), False), "fold_am": (("am",), False),
-            "fold_all": (("fm", "cz", "am"), False),
-            "mix_fold_all": (("fm", "cz", "am"), True)}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("case", ["stress64_tier1", "env_am", "all"])
-def test_tier_cuda_mix_fold_matches_plain_on_card(case, variant, exact,
-                                                  cuda_device):
-    """The in-kernel mix and the modulator-bank fold, each stream alone
-    and all together, with per-lane sources (some outside the bank), the
-    bank a column slice of the block buffer the call writes its own
-    columns of, and (mix with fold) earlier accumulators to add onto:
-    out, out_last, acc_l, acc_r and every end state bit for bit."""
-    feat = CASES[case]
-    streams, mix = VARIANTS[variant]
-    n, b, v, w = 512, 1024, 8, 4
+def _check_mix_fold(feat, streams, mix, exact, kernel_variant, dev, n, b, v,
+                    w, seed, inputs=None):
+    """One tier call with the given mix and fold, the kernel against the
+    plain version: out, the block buffer, every result bit for bit."""
     m = b * v
-    table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
-        feat, n, m, seed=7)
-    bank, prev, fv = random_fold_inputs(n, m, b, w, seed=7)
-    wl, wr = random_mix_weights(m, seed=7)
+    if inputs is None:
+        inputs = random_tier_inputs(feat, n, m, seed=seed)
+    table, cbase, inc, dm, amod, vecs, states = inputs
+    bank, prev, fv = random_fold_inputs(n, m, b, w, seed=seed)
+    wl, wr = random_mix_weights(m, seed=seed)
+    cuda_device = dev
     t = lambda a: None if a is None else torch.from_numpy(a).to(cuda_device)
     given = {"fm": t(inc), "cz": t(dm), "am": t(amod)}
     # a stream the feature set lacks is not folded: its argument stays
@@ -112,16 +147,138 @@ def test_tier_cuda_mix_fold_matches_plain_on_card(case, variant, exact,
         return d
 
     a = (t(table), cbase, given["fm"], given["cz"], given["am"], tv, ts)
-    before = tt.tier.launches
-    out, res = tt.tier(*a, **kw(bufs[0]))
+    before = _counts()
+    out, res = tt.tier(*a, **kw(bufs[0]), variant=kernel_variant)
     torch.cuda.synchronize()
-    assert tt.tier.launches == before + 1
+    assert _counts() == _launched(before, kernel_variant)
     want, want_res = tt.tier_plain(*a, **kw(bufs[1]))
     _same(out, want, "out")
     _same(bufs[0], bufs[1], "the block buffer")
     assert sorted(res) == sorted(want_res)
     for k in want_res:
         _same(res[k], want_res[k], k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_variant", ["keyed", "general"])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("case", MIX_FOLD_CASES)
+def test_tier_cuda_mix_fold_matches_plain_on_card(case, variant, exact,
+                                                  kernel_variant,
+                                                  cuda_device):
+    """The in-kernel mix and the modulator-bank fold, each stream alone
+    and all together, with per-lane sources (some outside the bank), the
+    bank a column slice of the block buffer the call writes its own
+    columns of, and (mix with fold) earlier accumulators to add onto:
+    out, out_last, acc_l, acc_r and every end state bit for bit."""
+    streams, mix = VARIANTS[variant]
+    _check_mix_fold(CASES[case], streams, mix, exact, kernel_variant,
+                    cuda_device, 512, 1024, 8, 4, seed=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("case", ["stress64_tier1", "all"])
+def test_tier_keyed_rows_match_plain_on_card(case, rows, exact, cuda_device):
+    """The keyed variant with mix and every fold at 1, 8, 1000 and 1024
+    batch rows over 7 voices: lane counts that are not a multiple of the
+    block size (7, 56, 7000), and at 1000 rows warps that straddle two
+    voices, so one warp holds different sources, CZ modes and gates."""
+    _check_mix_fold(CASES[case], ALL_STREAMS, True, exact, "keyed",
+                    cuda_device, 512, rows, 7, 3, seed=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SHORT_BLOCKS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tier_keyed_short_blocks_match_plain_on_card(case, n, cuda_device):
+    """Blocks that end inside a chunk of the keyed variant's walk."""
+    _check_mix_fold(CASES[case], ALL_STREAMS, True, True, "keyed",
+                    cuda_device, n, 1000, 7, 3, seed=n)
+
+
+@pytest.mark.cuda
+def test_tier_keyed_per_lane_cz_modes_match_plain_on_card(cuda_device):
+    """Every CZ mode drawn per lane, so each warp mixes modes (and
+    diverges): the bits stay the plain version's."""
+    feat = CASES["all"]
+    n, b, v = 512, 1000, 7
+    inputs = random_tier_inputs(feat, n, b * v, seed=31)
+    modes = inputs[5]["cz_mode"]
+    per_warp = [len(set(modes[i:i + 32])) for i in range(0, modes.size, 32)]
+    assert min(per_warp) >= 4, per_warp
+    for exact in (True, False):
+        _check_mix_fold(feat, ALL_STREAMS, True, exact, "keyed",
+                        cuda_device, n, b, v, 3, seed=31, inputs=inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tier_keyed_out_of_range_matches_plain_on_card(case, exact,
+                                                       cuda_device):
+    """Phase-walk operands outside the fast wrap's range (increments of
+    7.3 loop lengths, raw FM samples of +-1e30, +-inf and NaN, NaN and
+    infinite start phases): the lanes that meet one render the block
+    again through wrap_fmod's slow path, bit-equal to the plain version,
+    without and with the fold (the folded FM stream then takes the large
+    increments only)."""
+    feat = CASES[case]
+    n, b, v = 512, 1000, 7
+    inputs = out_of_range(feat, random_tier_inputs(feat, n, b * v,
+                                                   seed=41), seed=41)
+    ph = inputs[6]["phase"]
+    assert np.isnan(ph).any() and np.isinf(ph).any()
+    for streams, mix in (((), False), (ALL_STREAMS, True)):
+        _check_mix_fold(feat, streams, mix, exact, "keyed", cuda_device, n,
+                        b, v, 3, seed=41, inputs=inputs)
+
+
+@pytest.mark.cuda
+def test_tier_keyed_builds_spill_free(cuda_device):
+    """ptxas reports no spill for any key this file builds, read from
+    the report kept beside each library (so a cached build counts)."""
+    from skred_tpu_torch.engine.kernels import build
+
+    for key in _file_keys():
+        rep = build.report("tier", key)
+        lines = [ln.strip() for ln in rep.splitlines() if "spill" in ln]
+        assert lines, rep
+        assert all(ln.startswith("0 bytes stack frame, 0 bytes spill "
+                                 "stores, 0 bytes spill loads")
+                   for ln in lines), (build.label("tier", key), lines)
+
+
+@pytest.mark.cuda
+def test_tier_takes_the_keyed_library_and_refuses_another_key(cuda_device):
+    """``tier`` launches the keyed library of its arguments' key;
+    ``variant="general"`` the general one; a library refuses the
+    arguments of another key (-1 -> RuntimeError)."""
+    from skred_tpu_torch.engine.kernels import cuda_call
+
+    feat = STRESS64_TIER0
+    table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
+        feat, 16, 256, seed=1)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(cuda_device)
+    a = (t(table), cbase, t(inc), t(dm), t(amod),
+         {k: t(v) for k, v in vecs.items()},
+         {k: t(v) for k, v in states.items()})
+    for variant in (None, "keyed", "general"):
+        before = _counts()
+        tt.tier(*a, feat=feat, n=16, variant=variant)
+        assert _counts() == _launched(before, variant or "keyed")
+    with pytest.raises(ValueError, match="no variant"):
+        tt.tier(*a, feat=feat, n=16, variant="fixed")
+    args, _, _ = tt._pack_args(*a, feat=feat, exact=True, n=16, b=None,
+                               mixw=None, acc=None, fold=None, out=None)
+    for other in (tt.tier_key(feat, False), tt.tier_key(STRESS64_TIER1),
+                  tt.tier_key(feat, True, True)):
+        with pytest.raises(RuntimeError, match="not the build's key"):
+            cuda_call.launch("tier", args, cuda_device, other,
+                             "tier_keyed_launch")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
