@@ -8,19 +8,22 @@ the port's main paths, and checks the audio: corpus/stress64.sk (64
 voices, the reference's design point), whose two tiers take the tier
 kernel with its in-kernel stereo mix and, in tier 1, its modulator-bank
 fold; skred_tpu_torch/scripts/noise64.sk (stress64 with noise voices
-in both tiers), whose tiers take the noise pass (phase walk, table
-lookup, filter/smoother); and corpus/fb1-fb5.sk, whose cyclic modulation
+in both tiers), whose tiers take the noise pass (the keyed phase walk
+with its reads, FM increment, CZ warp and clip; the table lookup; the
+keyed filter/smoother with its noise select, dead mask, envelope and am
+stream); and corpus/fb1-fb5.sk, whose cyclic modulation
 graphs take the cyclic kernel.  Phases, in order (any failure exits
 non-zero):
 
   1. device       the card's name and power limit (nvidia-smi)
   2. build        nvcc for every csrc/*.cu, for the cyclic kernel's keys
                   (fb1-fb5 as the main path and the kernel phase render
-                  them, and the all-features script) and for the tier
+                  them, and the all-features script), for the tier
                   kernel's keys (stress64's tiers with mix and fold on and
-                  off, and the kernel phase's calls), all started
+                  off, and the kernel phase's calls) and for the keyed
+                  noise kernels' (noise64's tiers), all started
                   together; seconds, registers and spills of each (a tier
-                  key that spills fails the run)
+                  or noise key that spills fails the run)
   3. kernel       every kernel vs its plain version on the card, bit for
                   bit, on random blocks (N=512, M=8192): tier, keyed and
                   general variants, on stress64's two tier feature sets,
@@ -28,7 +31,10 @@ non-zero):
                   and of all three (per-lane sources, some outside the
                   bank), and with both, writing into a block buffer's
                   columns and adding onto earlier accumulators;
-                  phase_walk and filt_smooth on noise64's; the lookups
+                  phase_walk and filt_smooth on noise64's, each in its
+                  general variant and (with the glue, over a bank of 4
+                  voices, the walk also with operands outside its fast
+                  wrap's range) its keyed one; the lookups
                   (grouped and single-lane forms at 4096- and
                   32768-sample slots, and the noise pass's base/limit
                   form); cyclic, keyed and general variants, on fb1's,
@@ -61,9 +67,19 @@ non-zero):
                   repeat-passes script (two segments whose union graph
                   is cyclic: no tiers, estimate passes)
   6. noise main   noise64 as in 4, cut to 2 chunks (344 blocks, 3.99 s
-                  of audio per row) to keep the run short: each noise
-                  kernel launched twice per block, the tier kernel never;
-                  torch.take timed beside the lookup
+                  of audio per row) to keep the run short: the keyed
+                  phase walk, the lookup and the keyed filter/smoother
+                  launched twice per block, the general variants and the
+                  tier kernel never; torch.take timed beside the lookup.
+                  Then on the first block's inputs of each tier: the
+                  "noise stages" lines (the device time of each stage of
+                  the pass as it ran before its glue moved into the
+                  keyed kernels, and of the rest of the block); the
+                  "noise turns" lines (each keyed kernel in turns with
+                  the general kernel plus the glue it absorbed, each
+                  bit-equal to the plain version, with its SASS
+                  instructions a sample step, issue floor and bytes
+                  bound); the "noise alone" lines (each kernel alone)
   7. noise short  noise64 as in 5
   8. cyclic main  each of fb1-fb5: stack_timelines (1024 rows) ->
                   pack_stacked(cyclic=True) ->
@@ -164,20 +180,29 @@ def host_ms(fn):
 
 
 def same_bits(a, b):
+    """Bit for bit, except that two NaNs agree whatever their payload (the
+    card's fma gives another NaN than its other operations); a NaN
+    against a number differs."""
     if a is None or b is None:
         return a is None and b is None
     a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.dtype == np.float32:
-        return bool((a.view(np.int32) == b.view(np.int32)).all())
+        both_nan = np.isnan(a) & np.isnan(b)
+        return bool(((a.view(np.int32) == b.view(np.int32)) | both_nan)
+                    .all())
     return bool((a == b).all())
 
 
 def max_abs(a, b):
-    if a is None or not a.is_floating_point():
+    """max |a - b| over the elements where the two differ: equal values
+    (infinities too) and NaN against NaN count 0; a NaN or an infinity
+    against anything else gives NaN or inf."""
+    if a is None or not a.is_floating_point() or not a.numel():
         return 0.0
-    return float((a - b).abs().max()) if a.numel() else 0.0
+    agree = (a == b) | (a.isnan() & b.isnan())
+    return float(torch.where(agree, 0.0, (a - b).abs()).max())
 
 
 def nbytes(*xs):
@@ -281,7 +306,7 @@ def tier_spec(tk):
 
     plain_kw = lambda kw: {k: v for k, v in kw.items() if k != "variant"}
     return dict(name="tier", fn=tk.tier, pack=pack, fresh=fresh, key=key,
-                launch=launch,
+                launch=launch, symbol="tier_keyed",
                 folded=lambda kw: _folded(_flags(kw["feat"]), kw.get("fold")),
                 run=lambda a, kw: flat(tk.tier(*a, **kw)),
                 plain=lambda a, kw: flat(tk.tier_plain(*a, **plain_kw(kw))),
@@ -362,6 +387,123 @@ def filt_smooth_spec(fs):
                 bound=bnd, lanes=lambda a, kw: a[0].shape[1])
 
 
+def bank_bytes(fold, vecs, pairs, b, n, m):
+    """Bytes of the bank columns a call's lanes read, each column once
+    whatever its readers, with its sample before the block: ``pairs``
+    are (source vector, gate vector) names of the streams read."""
+    if fold is None or not fold.w or not pairs:
+        return 0
+    dev = vecs[pairs[0][0]].device
+    lane_b = torch.arange(m, device=dev) % b
+    cols = []
+    for src_k, gate_k in pairs:
+        src = vecs[src_k].long()
+        on = (src >= 0) & (src < fold.w) & (vecs[gate_k] != 0)
+        cols.append((src * b + lane_b)[on])
+    return (n + 1) * 4 * int(torch.unique(torch.cat(cols)).numel())
+
+
+# the JSON's and the max|diff| record's name of each wrapper: the keyed
+# variants, which the render path runs, carry the TPU kernels' names
+RECORD_NAME = {"phase_walk_warp": "phase_walk",
+               "phase_walk": "phase_walk_general",
+               "filt_smooth_noise": "filt_smooth",
+               "filt_smooth": "filt_smooth_general"}
+
+
+def phase_walk_warp_spec(pw):
+    def pack(a, kw):
+        args, outs = pw._pw_pack(*a, kw["feat"], kw.get("exact", True),
+                                 kw["n"], kw["b"])
+        return args, list(outs)
+
+    def launch(args, kw, dev):
+        from skred_tpu_torch.engine.kernels import cuda_call
+
+        key = pw.phase_walk_key(kw["feat"], kw.get("exact", True))
+        return lambda: cuda_call.launch("phase_walk", args, dev, key,
+                                        "phase_walk_keyed_launch")
+
+    def bnd(a, kw):
+        """Bytes: the per-lane vectors and start states, the bank columns
+        the lanes' fm and cz reads take; the index, the alive count and
+        the end states.  Operations: the walk (6), the FM increment (3),
+        the CZ warp (the divide and the curve, 8)."""
+        bank, vecs, phase0, fin0 = a
+        fl = pw._pw_flags(kw["feat"], kw.get("exact", True))
+        n, m = kw["n"], phase0.shape[0]
+        read = nbytes(phase0, fin0 if fl["finish"] else None,
+                      *(vecs[k] for k, _ in pw._pw_vec_keys(fl)))
+        pairs = ([("fm_src", "use_fm")] if fl["fm"] else []) \
+            + ([("cz_src", "cm_ge0")] if fl["czm"] else [])
+        read += bank_bytes(bank, vecs, pairs, kw["b"], n, m)
+        write = n * m * 4 + m * 4 * (3 if fl["finish"] else 2)
+        ops = 6 + (3 if fl["fm"] else 0) + (8 if fl["cz"] else 0)
+        return bound(read, write, ops * n * m)
+
+    return dict(name="phase_walk_warp", fn=pw.phase_walk_warp, pack=pack,
+                launch=launch, symbol="phase_walk_keyed",
+                run=lambda a, kw: list(pw.phase_walk_warp(*a, **kw)),
+                plain=lambda a, kw: list(pw.phase_walk_warp_plain(*a, **kw)),
+                bound=bnd, lanes=lambda a, kw: a[2].shape[0])
+
+
+def filt_smooth_noise_spec(fs):
+    def pack(a, kw):
+        args, out, ends = fs._fn_pack(*a, kw["feat"], kw.get("exact", True),
+                                      kw["b"], kw.get("out"))
+        return args, [out] + [ends[k] for k in sorted(ends)]
+
+    def launch(args, kw, dev):
+        from skred_tpu_torch.engine.kernels import cuda_call
+
+        key = fs.filt_smooth_key(kw["feat"], kw.get("exact", True))
+        return lambda: cuda_call.launch("filt_smooth", args, dev, key,
+                                        "filt_smooth_keyed_launch")
+
+    def flat(result):
+        out, ends = result
+        return [out] + [ends[k] for k in sorted(ends)]
+
+    def fresh(a, kw, plain):
+        """The plain version writes an output of its own, so that it does
+        not write over the kernel's."""
+        return a, dict(kw, out=None) if plain else kw
+
+    def bnd(a, kw):
+        """Bytes: the lookup's samples the lanes need (live samples of
+        lanes that are not noise voices), the noise stream, the alive
+        counts, the per-lane vectors the key reads (``fn_vec_keys``) and
+        the start states of its stages, the bank columns
+        the am reads take; the output and the end states.  Operations:
+        the serial stages, the envelope (12) and the gain."""
+        f, noise_blk, cnt, cbase, bank, vecs, states = a
+        fl = fs._fs_flags(kw["feat"], kw.get("exact", True))
+        n, m = f.shape
+        tpos = torch.arange(n, device=f.device)[:, None]
+        need = (tpos < cnt[None]) & (vecs["is_noise"][None] == 0)
+        used = [states[k] for stage, keys in fs._NOISE_STATES.items()
+                if fl[stage] for k, _ in keys]
+        read = 4 * int(need.sum()) + nbytes(
+            noise_blk, cnt, *(vecs[k] for k, _ in fs.fn_vec_keys(fl)), *used)
+        if fl["am"]:
+            read += bank_bytes(bank, vecs, [("am_src", "am_ge0")], kw["b"],
+                               n, m)
+        write = n * m * 4 + nbytes(*used)
+        ops = (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
+            + (3 if fl["sm"] else 0) + (12 if fl["env"] else 0) \
+            + (2 if fl["am"] else 0) + 3
+        return bound(read, write, ops * n * m)
+
+    return dict(name="filt_smooth_noise", fn=fs.filt_smooth_noise,
+                pack=pack, launch=launch, fresh=fresh,
+                symbol="filt_smooth_keyed",
+                run=lambda a, kw: flat(fs.filt_smooth_noise(*a, **kw)),
+                plain=lambda a, kw: flat(fs.filt_smooth_noise_plain(*a,
+                                                                    **kw)),
+                bound=bnd, lanes=lambda a, kw: a[0].shape[1])
+
+
 def cyclic_spec(ck):
     def outs_of(out_l, out_r, new_states):
         return [out_l, out_r] + [new_states[k] for k in sorted(new_states)]
@@ -410,8 +552,10 @@ def kernel_phase(dev, specs, errs):
     """Every kernel against its plain version on random blocks."""
     from skred_tpu_torch.engine.kernels import lookup as lk
     from skred_tpu_torch.engine.kernels.noise_inputs import (
-        NOISE64_FS0, NOISE64_FS1, NOISE64_PW0, NOISE64_PW1,
-        random_fs_inputs, random_lookup_inputs, random_phase_inputs)
+        NOISE64_FS0, NOISE64_FS1, NOISE64_FSN0, NOISE64_FSN1, NOISE64_PW0,
+        NOISE64_PW1, NOISE64_WARP0, NOISE64_WARP1, random_fs_inputs,
+        random_lookup_inputs, random_noise_fs_inputs, random_phase_inputs,
+        random_warp_inputs)
     from skred_tpu_torch.engine.kernels.tier_inputs import (
         STRESS64_TIER0, STRESS64_TIER1, random_tier_inputs)
 
@@ -461,6 +605,30 @@ def kernel_phase(dev, specs, errs):
                         ("noise64 tier1", NOISE64_FS1)):
         a = to_card(random_fs_inputs(feat, n, m, seed=13), dev)
         calls.append(("filt_smooth", label, a, dict(feat=feat)))
+    from skred_tpu_torch.engine.kernels.tier import Fold
+
+    b, w = m // 8, 4
+    for label, feat in (("noise64 tier0", NOISE64_WARP0),
+                        ("noise64 tier1", NOISE64_WARP1)):
+        for oor in (False, True):
+            bank, prev, vecs, ph0, fin0 = random_warp_inputs(
+                feat, n, m, b, w, seed=23, out_of_range=oor)
+            bk, pv, p0, f0 = to_card([bank, prev, ph0, fin0], dev)
+            calls.append(("phase_walk_warp", label + (
+                ", operands outside the fast wrap's range" if oor else ""),
+                (Fold(bk, pv, w), dict(zip(vecs, to_card(vecs.values(),
+                                                         dev))), p0, f0),
+                dict(feat=feat, n=n, b=b)))
+    for label, feat in (("noise64 tier0", NOISE64_FSN0),
+                        ("noise64 tier1", NOISE64_FSN1)):
+        f, nz, cnt, cbase, bank, prev, vecs, states = \
+            random_noise_fs_inputs(feat, n, m, b, w, seed=24)
+        f, nz, cnt, bk, pv = to_card([f, nz, cnt, bank, prev], dev)
+        calls.append(("filt_smooth_noise", label,
+                      (f, nz, cnt, cbase, Fold(bk, pv, w),
+                       dict(zip(vecs, to_card(vecs.values(), dev))),
+                       dict(zip(states, to_card(states.values(), dev)))),
+                      dict(feat=feat, b=b)))
     for ss in (4096, 32768):
         table, slot, idx = to_card(random_lookup_inputs(
             n, m, ss, seed=14, out_of_range=True), dev)
@@ -486,7 +654,8 @@ def kernel_phase(dev, specs, errs):
                if not same_bits(g, w)]
         err = max(max_abs(g, w) for g, w in zip(got, want)
                   if g is not None)
-        ekey = f"{name}_general" if kw.get("variant") == "general" else name
+        ekey = f"{name}_general" if kw.get("variant") == "general" \
+            else RECORD_NAME.get(name, name)
         errs[ekey] = max(errs.get(ekey, 0.0), err)
         log(f"kernel {name} ({label}): max|diff| {err} vs plain, "
             f"{'bit-equal' if not bad else f'outputs {bad} DIFFER'}")
@@ -691,7 +860,8 @@ def time_captured(label, captured, specs, dev, card, errs):
         plain_ms, want = host_ms(lambda: sp["plain"](*fresh(a, kw, True)))
         bad = [i for i, (g, w) in enumerate(zip(got, want))
                if not same_bits(g, w)]
-        errs[name] = max([errs.get(name, 0.0)]
+        ekey = RECORD_NAME.get(name, name)
+        errs[ekey] = max([errs.get(ekey, 0.0)]
                          + [max_abs(g, w) for g, w in zip(got, want)
                             if g is not None])
         if bad:
@@ -718,6 +888,357 @@ def time_captured(label, captured, specs, dev, card, errs):
             f"{plain_ms:.1f} ms{lib_part}, bound {bound_ms:.4f} ms "
             f"({bound_by}), path inputs bit-equal to plain, on {card}")
     return timings
+
+
+# ---- the noise pass: its stages on the card ----
+
+def frozen(x):
+    """``x`` with every tensor in it cloned (through tuples, named
+    tuples, lists and dicts)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: frozen(v) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return type(x)(*(frozen(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(frozen(v) for v in x)
+    return x
+
+
+def capture_noise(st, dev):
+    """The first call of ``fused._noise_pass`` at each lane count, and of
+    ``_mix_parts`` and ``_block_step``, in a one-chunk render of ``st``,
+    every tensor cloned when it is taken (later blocks write the block
+    buffer again).  Returns {(name, lanes or 0): (args, kwargs)}."""
+    from skred_tpu_torch.engine import fused
+
+    got = {}
+    names = ("_noise_pass", "_mix_parts", "_block_step")
+    real = {nm: getattr(fused, nm) for nm in names}
+
+    def wrap(nm):
+        def call(*a, **kw):
+            key = (nm, a[3]["amp"].numel() if nm == "_noise_pass" else 0)
+            if key not in got:
+                got[key] = frozen((a, kw))
+            return real[nm](*a, **kw)
+        return call
+
+    for nm in names:
+        setattr(fused, nm, wrap(nm))
+    try:
+        fused.render_fused_stream_device(st, CHUNK, warmup_only=True,
+                                         device=dev)
+    finally:
+        for nm in names:
+            setattr(fused, nm, real[nm])
+    torch.cuda.synchronize()
+    return got
+
+
+# the stages of noise_glue that each keyed kernel absorbed, the general
+# kernel among them
+WALK_GLUE = ("fm + cz reads", "fm increment", "phase walk (general kernel)",
+             "cz warp + clip", "clip", "alive count")
+FILTER_GLUE = ("noise select + dead mask", "envelope", "am read",
+               "am stream", "filt_smooth (general kernel)")
+
+
+def noise_glue(a, kw):
+    """The noise pass of a captured ``_noise_pass`` call, stage by stage
+    as it ran before its glue moved into the keyed kernels (the glue's
+    torch ops around the general kernels).  Returns ({stage: a call that
+    runs it alone on what the stages before it gave, keeps its result and
+    returns it}, in order; the results by name)."""
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine.kernels import filt_smooth as fs
+    from skred_tpu_torch.engine.kernels import lookup as lk
+    from skred_tpu_torch.engine.kernels import phase_walk as pw
+    from skred_tpu_torch.engine.kernels.tier import bank_read
+
+    est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat, n, b = a[:11]
+    noise_blk = kw["noise_blk"]
+    fm, finish, direction, cz, czm, modes, _ = fused._pw_feat(feat)
+    stage = {}
+    x = {}
+
+    def add(name, fn, key):
+        def run():
+            x[key] = fn()
+            return x[key]
+        stage[name] = run
+        run()
+
+    add("carry in", lambda: fused._noise_inputs(est_vm, prev_vm, carry, tp,
+                                                feat, b), "in")
+    bank, v, ph0, fin0, states = x["in"]
+    read = lambda s: bank_read(bank, v[s + "_src"], v[s + "_del"], n, b)
+    streams = [s for s, on in (("fm", fm), ("cz", cz and czm)) if on]
+    if streams:
+        add("fm + cz reads", lambda: {s: read(s) for s in streams}, "rd")
+    if fm:
+        add("fm increment", lambda: pw.fm_increment(
+            x["rd"]["fm"], v, exact, direction), "inc")
+    else:
+        x["inc"] = v["inc"]
+    add("phase walk (general kernel)", lambda: pw.phase_walk(
+        x["inc"], ph0, fin0, v["lo"], v["hi"], v["L"], v.get("osn"),
+        v.get("one_shot"), v["adv"], v["act"], fm=fm, finish=finish, n=n),
+        "walk")
+    if cz:
+        add("cz warp + clip", lambda: pw.cz_clip(
+            x["walk"][0], pw.cz_offset(x["rd"]["cz"], v) if czm
+            else v["dm"], v, cz, modes), "idx")
+    else:
+        add("clip", lambda: pw.cz_clip(x["walk"][0], None, v, False),
+            "idx")
+    add("alive count", lambda: pw.alive_count(x["walk"][1], v["act"], n),
+        "cnt")
+    add("lookup", lambda: lk.lookup(table, v["base_off"], v["limit"],
+                                    x["idx"]), "f")
+    add("noise select + dead mask", lambda: fs.noise_select(
+        x["f"], noise_blk, v["is_noise"], x["cnt"], n, finish), "sel")
+    if feat.env:
+        add("envelope", lambda: fs.env_stream(cbase, v, n), "env")
+    if feat.am:
+        add("am read", lambda: read("am"), "am_rd")
+        add("am stream", lambda: fs.am_stream(x["am_rd"], v), "amod")
+    ff = fused._fs_feat(feat)
+    add("filt_smooth (general kernel)", lambda: fs.filt_smooth(
+        x["sel"][0], x.get("env"), x.get("amod"), x["sel"][1],
+        *(v.get(k) for k in fs._FS_ARG_VECS),
+        *(states.get(k) for k in fs._END_NAMES), exact=exact, feat=ff),
+        "fs")
+    back = lambda t: fused.from_vm_vec(t, b, p["amp"].shape[1])
+    add("carry out", lambda: [back(t) for t in (*x["fs"][1:], x["walk"][2])
+                              if t is not None]
+        + [torch.clamp(back(x["cnt"]) - 1, 0, n - 1)], "out")
+    return stage, x
+
+
+def glue_turn(stage, x, names, result):
+    """One call that runs the named stages of ``noise_glue`` in order
+    and returns ``result(x)``."""
+    def go():
+        for name in names:
+            if name in stage:
+                stage[name]()
+        return result(x)
+    return go
+
+
+def noise_stages(caught, card):
+    """The device time of each stage of the noise pass as it ran before
+    its glue moved into the keyed kernels, alone (CUDA events, 5 calls
+    each) on noise64's first-block inputs at each tier, and of the rest
+    of the block: the whole block, the torch mix of the noise tiers, the
+    carry's concatenation and the volume scan.  Returns {lanes: {stage:
+    ms}} and the rest."""
+    from skred_tpu_torch.engine import fused
+
+    reps = 5
+    res = {}
+    for (nm, m), (a, kw) in sorted(caught.items()):
+        if nm != "_noise_pass":
+            continue
+        res[m] = {name: cuda_ms(fn, reps)
+                  for name, fn in noise_glue(a, kw)[0].items()}
+        total = sum(res[m].values())
+        log(f"noise stages M={m} (noise64 first block, the pass before "
+            f"its glue moved into the keyed kernels): "
+            + ", ".join(f"{k} {t:.4f}" for k, t in res[m].items())
+            + f" ms; sum {total:.4f} ms (CUDA events, {reps} calls each), "
+            f"on {card}")
+    r, carry, k0 = caught["_block_step", 0][0]
+    ma, mkw = caught["_mix_parts", 0]
+    n, nb = r.block, r.B
+    vf = r.p_const["volume_final"]
+    a = np.float32(1.0) - np.float32(0.002)
+    bounds = np.cumsum((0,) + tuple(r.tiers))
+    cut = [(int(bounds[i]), int(bounds[i + 1])) for i in range(len(r.tiers))]
+    rest = {
+        "whole block": cuda_ms(lambda: fused._block_step(r, carry, k0), reps),
+        "torch mix (_mix_parts)": cuda_ms(
+            lambda: fused._mix_parts(*ma, **mkw), reps),
+        "carry concatenation": cuda_ms(lambda: {
+            k: torch.cat([carry[k][:, ts:te] for ts, te in cut], dim=1)
+            for k in fused._CK}, reps),
+        "volume scan": cuda_ms(lambda: fused._affine_scan(
+            torch.full_like(vf, float(a))[None],
+            (fused.f32(0.002) * vf)[None].expand(n, nb),
+            carry["vol_gain"]), reps),
+    }
+    log("noise block rest (noise64 first block): " + ", ".join(
+        f"{k} {t:.4f}" for k, t in rest.items())
+        + f" ms (CUDA events, {reps} calls each), on {card}")
+    return res, rest
+
+
+def keyed_sass(name, key, kernel, entry):
+    """SASS instructions per sample step of a keyed noise build's fast
+    chunk loop (its chunk length from the library)."""
+    from skred_tpu_torch.engine.kernels import build
+
+    fn = getattr(build.load(name, key, entry), f"{name}_chunk_samples")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return sass_loop(build._target(name, key), kernel, fn())
+
+
+def noise_turns(caught, specs, dev, card, errs):
+    """On noise64's first-block inputs at each tier: the keyed phase walk
+    against the general kernel with the glue it absorbed (the fm and cz
+    reads, the FM increment, the CZ warp and clip, the alive count), and
+    the keyed filter/smoother against the general kernel with its glue
+    (the noise select and dead mask, the envelope, the am read and
+    stream), in turns (general + glue, keyed, keyed, general + glue),
+    each bit-equal to the plain version; then each kernel alone (the
+    keyed two, the general two on the inputs the glue gives them, the
+    lookup); the keyed builds' SASS instructions a sample step and issue
+    floors beside their bytes bounds.  Returns {lanes: numbers}."""
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine.kernels import cuda_call
+    from skred_tpu_torch.engine.kernels import filt_smooth as fs
+    from skred_tpu_torch.engine.kernels import lookup as lk
+    from skred_tpu_torch.engine.kernels import phase_walk as pw
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {}
+    fmt = lambda ts: " / ".join(f"{t:.4f}" for t in ts)
+    for (nm, m), (a, kw) in sorted(caught.items()):
+        if nm != "_noise_pass":
+            continue
+        est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat, n, b = a[:11]
+        noise_blk = kw["noise_blk"]
+        bank, v, ph0, fin0, states = fused._noise_inputs(
+            est_vm, prev_vm, carry, tp, feat, b)
+        pf, ff = fused._pw_feat(feat), fused._fs_feat(feat)
+        pw_a, pw_kw = (bank, v, ph0, fin0), dict(feat=pf, exact=exact, n=n,
+                                                  b=b)
+        want_pw = pw.phase_walk_warp_plain(*pw_a, **pw_kw)
+        f = lk.lookup(table, v["base_off"], v["limit"], want_pw[0])
+        fs_a = (f, noise_blk, want_pw[1], cbase, bank, v, states)
+        fs_kw = dict(feat=ff, exact=exact, b=b)
+        want_fs = specs["filt_smooth_noise"]["plain"](fs_a, fs_kw)
+        want_pw = list(want_pw)
+        stage, x = noise_glue(a, kw)
+        clk0 = sm_clock()
+        times = {}
+        for kname, sa, skw, want, glue in (
+                ("phase_walk", pw_a, pw_kw, want_pw,
+                 glue_turn(stage, x, WALK_GLUE, lambda x: [
+                     x["idx"], x["cnt"], *x["walk"][2:]])),
+                ("filt_smooth", fs_a, fs_kw, want_fs,
+                 glue_turn(stage, x, FILTER_GLUE, lambda x: [x["fs"][0]] + [
+                     e for _, e in sorted(fs.end_states(x["fs"],
+                                                        ff).items())]))):
+            sp = specs["phase_walk_warp" if kname == "phase_walk"
+                       else "filt_smooth_noise"]
+            args, outs = sp["pack"](sa, skw)
+            go = sp["launch"](args, skw, dev)
+            times[kname] = {"general + glue": [], "keyed": []}
+            for turn in ("general + glue", "keyed", "keyed",
+                         "general + glue"):
+                if turn == "keyed":
+                    go()
+                    torch.cuda.synchronize()
+                    got, fn, reps = outs, go, 20
+                else:
+                    got, fn, reps = glue(), glue, 5
+                    torch.cuda.synchronize()
+                bad = [i for i, (g, w) in enumerate(zip(got, want))
+                       if not same_bits(g, w)]
+                ekey = RECORD_NAME[sp["name"]]
+                errs[ekey] = max([errs.get(ekey, 0.0)]
+                                 + [max_abs(g, w) for g, w in zip(got, want)
+                                    if g is not None])
+                if bad:
+                    fail(f"{kname} {turn} disagrees with the plain version "
+                         f"on noise64's first block at M={m} (outputs "
+                         f"{bad})")
+                times[kname][turn].append(cuda_ms(fn, reps))
+        clk1 = sm_clock()
+        # the general kernels alone, on the inputs the glue gives them
+        inc = stage["fm increment"]() if pf[0] else v["inc"]
+        # (each launch's outputs are kept until it has run: the kernel
+        # writes into them)
+        g_args, g_outs = pw._pack_args(inc, ph0, fin0, v["lo"], v["hi"],
+                                       v["L"], v.get("osn"),
+                                       v.get("one_shot"), v["adv"], v["act"],
+                                       pf[0], pf[1], n)
+        sel = stage["noise select + dead mask"]()
+        fs_in = (sel[0], stage["envelope"]() if ff[5] else None,
+                 stage["am stream"]() if ff[6] else None, sel[1],
+                 *(v.get(k) for k in fs._FS_ARG_VECS),
+                 *(states.get(k) for k in fs._END_NAMES))
+        gf_args, gf_outs = fs._pack_args(fs_in, exact, ff)
+        lk_args, lk_out = lk._pack_args(table, v["base_off"], v["limit"],
+                                        want_pw[0], False)
+        alone = {
+            "keyed phase_walk": times["phase_walk"]["keyed"],
+            "keyed filt_smooth": times["filt_smooth"]["keyed"],
+            "general phase_walk": [cuda_ms(lambda: cuda_call.launch(
+                "phase_walk", g_args, dev), 20)],
+            "general filt_smooth": [cuda_ms(lambda: cuda_call.launch(
+                "filt_smooth", gf_args, dev), 20)],
+            "lookup": [cuda_ms(lambda: cuda_call.launch(
+                "lookup", lk_args, dev), 20)],
+        }
+        del g_outs, gf_outs, lk_out
+        g_plain = {
+            "phase_walk": host_ms(lambda: pw.phase_walk_plain(
+                inc, ph0, fin0, v["lo"], v["hi"], v["L"], v.get("osn"),
+                v.get("one_shot"), v["adv"], v["act"], fm=pf[0],
+                finish=pf[1], n=n))[0],
+            "filt_smooth": host_ms(lambda: fs.filt_smooth_plain(
+                *fs_in, exact=exact, feat=ff))[0]}
+        g_bound = {"phase_walk": specs["phase_walk"]["bound"](
+            (inc, ph0, fin0, v["lo"], v["hi"], v["L"], v.get("osn"),
+             v.get("one_shot"), v["adv"], v["act"]),
+            dict(fm=pf[0], finish=pf[1], n=n)),
+            "filt_smooth": specs["filt_smooth"]["bound"](
+                fs_in, dict(feat=ff))}
+        mhz = max(float(c.split()[0]) for c in (clk0, clk1))
+        warps = -(-m // 32)
+        per_sched = -(-warps // (4 * sms))
+        floors = {}
+        for kname, name, key, entry in (
+                ("phase_walk", "phase_walk", pw.phase_walk_key(pf, exact),
+                 "phase_walk_keyed_launch"),
+                ("filt_smooth", "filt_smooth", fs.filt_smooth_key(ff, exact),
+                 "filt_smooth_keyed_launch")):
+            sass = keyed_sass(name, key, f"{name}_keyed_kernel", entry)
+            issue = sass["per_sample"] * n * per_sched / (mhz * 1e6) * 1e3
+            sp = specs["phase_walk_warp" if kname == "phase_walk"
+                       else "filt_smooth_noise"]
+            bms, bby = sp["bound"](pw_a if kname == "phase_walk" else fs_a,
+                                   pw_kw if kname == "phase_walk" else fs_kw)
+            floors[kname] = dict(sass=sass["per_sample"], issue_ms=issue,
+                                 bound_ms=bms, bound_by=bby)
+        res[m] = dict(times=times, alone=alone, floors=floors,
+                      general_plain=g_plain, general_bound=g_bound)
+        for kname in ("phase_walk", "filt_smooth"):
+            t, fl = times[kname], floors[kname]
+            mean_k = sum(t["keyed"]) / len(t["keyed"])
+            log(f"noise turns M={m} {kname} (noise64 first block, n={n}): "
+                f"general + glue {fmt(t['general + glue'])} ms/call, keyed "
+                f"{fmt(t['keyed'])} ms/call (in turns general + glue, keyed, "
+                f"keyed, general + glue; CUDA events, 5 and 20 calls), "
+                f"{min(t['general + glue']) / max(t['keyed']):.1f}x at "
+                f"least; SASS {fl['sass']:.2f} instructions a sample step, "
+                f"issue floor {fl['issue_ms']:.4f} ms at {mhz:.0f} MHz "
+                f"({warps} warps, {per_sched} a scheduler), bytes bound "
+                f"{fl['bound_ms']:.4f} ms ({fl['bound_by']}): keyed "
+                f"{mean_k / fl['bound_ms']:.2f}x its bound, "
+                f"{mean_k / fl['issue_ms']:.2f}x its issue floor; both "
+                f"bit-equal to the plain version; clocks.sm {clk0} -> "
+                f"{clk1}, on {card}")
+        log(f"noise alone M={m}: " + ", ".join(
+            f"{k} {sum(t) / len(t):.4f}" for k, t in alone.items())
+            + f" ms/call (CUDA events, 20 calls); general phase_walk bound "
+            f"{g_bound['phase_walk'][0]:.4f} ms, general filt_smooth bound "
+            f"{g_bound['filt_smooth'][0]:.4f} ms, on {card}")
+    return res
 
 
 # ---- the tier kernel's SASS: instructions per sample step, floors ----
@@ -915,7 +1436,8 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs,
         fail(f"bad checksum {cs}")
     log(profile_line(
         label, lambda: fused.render_fused_stream_device(
-            st, CHUNK, warmup_only=True, device=dev), on_path))
+            st, CHUNK, warmup_only=True, device=dev),
+        [specs[nm].get("symbol", nm) for nm in on_path]))
 
     timings = time_captured(label, captured, specs, dev, card, errs)
     log(f"{label} summary: wall {wall:.3f} s, {audio_s / wall:.1f}x realtime, "
@@ -1279,6 +1801,28 @@ def tier_keys():
     return keys
 
 
+def noise_keys():
+    """{label: (source, key)} of the keyed noise kernels' builds the run
+    needs: noise64's tiers as the main path renders them and the kernel
+    phase's calls."""
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine.kernels import filt_smooth as fs
+    from skred_tpu_torch.engine.kernels import phase_walk as pw
+    from skred_tpu_torch.engine.kernels import noise_inputs as ni
+
+    _, r, _ = fused._prepare(short_batch(NOISE64.read_text().splitlines()),
+                             True, "cpu")
+    keys = {f"noise64 build {i}": k
+            for i, k in enumerate(fused._noise_keys(r))}
+    for i, feat in enumerate((ni.NOISE64_WARP0, ni.NOISE64_WARP1)):
+        keys[f"kernel phase walk {i}"] = ("phase_walk",
+                                          pw.phase_walk_key(feat))
+    for i, feat in enumerate((ni.NOISE64_FSN0, ni.NOISE64_FSN1)):
+        keys[f"kernel phase filt_smooth {i}"] = ("filt_smooth",
+                                                 fs.filt_smooth_key(feat))
+    return keys
+
+
 def batch_phase(dev, card, counters):
     """render_batch over every in-repo script: the fused engine's two
     buckets and five cyclic scripts in one call."""
@@ -1302,12 +1846,14 @@ def batch_phase(dev, card, counters):
         fail("batch: non-finite samples")
     if min(peaks) <= 0.01:
         fail(f"batch: a silent row (peaks {peaks})")
-    for nm in ("tier", "tier_keyed", "phase_walk", "lookup", "filt_smooth",
-               "cyclic"):
+    for nm in ("tier", "tier_keyed", "phase_walk_warp", "lookup",
+               "filt_smooth_noise", "cyclic"):
         if counts[nm] <= 0:
             fail(f"batch: {nm} was not launched")
-    if counts["tier_general"]:
-        fail("batch: the render path launched the general tier variant")
+    for nm in ("tier_general", "phase_walk", "filt_smooth"):
+        if counts[nm]:
+            fail(f"batch: the render path launched the general variant "
+                 f"{nm}")
 
 
 def main():
@@ -1338,18 +1884,23 @@ def main():
     t0 = time.time()
     keys = cyclic_keys()
     tkeys = tier_keys()
+    nkeys = noise_keys()
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     secs = build.build_all(sources + [("cyclic", key)
                                       for key in keys.values()]
-                           + [("tier", key) for key in tkeys.values()])
+                           + [("tier", key) for key in tkeys.values()]
+                           + list(nkeys.values()))
     log(f"build: {len(secs)} build(s) ({len(sources)} sources, "
         f"{len(set(keys.values()))} keys of the cyclic kernel, "
-        f"{len(set(tkeys.values()))} of the tier kernel) in "
+        f"{len(set(tkeys.values()))} of the tier kernel, "
+        f"{len(set(nkeys.values()))} of the keyed noise kernels) in "
         f"{time.time() - t0:.1f} s")
     uses = {}
     for name, labelled in (("cyclic", keys), ("tier", tkeys)):
         for label, key in labelled.items():
             uses.setdefault((name, key), []).append(label)
+    for label, (name, key) in nkeys.items():
+        uses.setdefault((name, key), []).append(label)
     for name, key in [(src, ()) for src in sources] + list(uses):
         lab = build.label(name, key)
         what = f" ({', '.join(uses[name, key])})" if key else ""
@@ -1358,11 +1909,11 @@ def main():
         for line in build.report(name, key).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
-                if name == "tier" and "spill" in line and not \
+                if name != "cyclic" and "spill" in line and not \
                         line.strip().startswith("0 bytes stack frame, 0 "
                                                 "bytes spill stores, 0 "
                                                 "bytes spill loads"):
-                    fail(f"the tier kernel spills under {lab}: {line}")
+                    fail(f"{name}.cu spills under {lab}: {line}")
     for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
         build.load(name)
     build.load("cyclic", (), "cyclic_general_launch")
@@ -1370,11 +1921,15 @@ def main():
         build.load("cyclic", key, "cyclic_fixed_launch")
     for key in tkeys.values():
         build.load("tier", key, "tier_keyed_launch")
+    for name, key in nkeys.values():
+        build.load(name, key, f"{name}_keyed_launch")
 
     specs = {s["name"]: s for s in (tier_spec(tk), phase_walk_spec(pw),
                                     lookup_spec(lk), filt_smooth_spec(fs),
+                                    phase_walk_warp_spec(pw),
+                                    filt_smooth_noise_spec(fs),
                                     cyclic_spec(ck))}
-    noise_kernels = ["phase_walk", "lookup", "filt_smooth"]
+    noise_kernels = ["phase_walk_warp", "lookup", "filt_smooth_noise"]
     counters = {name: sp["fn"] for name, sp in specs.items()}
     counters.update(tier_keyed=tk.tier_keyed, tier_general=tk.tier_general,
                     table_lookup=lk.table_lookup_pallas,
@@ -1424,11 +1979,16 @@ def main():
     n_launch, n_time, n_lines, _ = main_path(
         "noise main", NOISE64, dev, card, specs, noise_kernels, counters,
         errs, seconds=NOISE64_SECONDS)
+    _, st = prepare(NOISE64, NOISE64_SECONDS)
+    caught = capture_noise(st, dev)
+    noise_stages(caught, card)
+    n_turns = noise_turns(caught, specs, dev, card, errs)
+    del caught, st
     short_path("noise short", short_batch(n_lines), dev, fused,
                fused.render_fused,
-               {"phase_walk": pw.phase_walk_plain,
+               {"phase_walk_warp": pw.phase_walk_warp_plain,
                 "lookup": lk.lookup_plain,
-                "filt_smooth": fs.filt_smooth_plain})
+                "filt_smooth_noise": fs.filt_smooth_noise_plain})
     tl_time = table_lookup_timing(lk, lib, card)
 
     # ---- 8./9. fb1-fb5: the cyclic kernel's path ----
@@ -1476,15 +2036,47 @@ def main():
                     bound_ms=tn["bound_ms"], bound_by=tn["bound_by"],
                     library_ms=None)
 
+    # the noise kernels' two variants on the noise main path's tier-1
+    # inputs: the keyed one timed in turns (its mean), the general one
+    # alone on the inputs the glue gives it; launches from the main
+    # path's timed pass, which runs the keyed variants only
+    nwide = max(n_turns)
+
+    def noise_record(name, variant, launches, keyed_name):
+        tn = n_turns[nwide]
+        rec = dict(name=name if variant == "keyed" else f"{name}_general",
+                   route="cuda",
+                   source=f"skred_tpu_torch/engine/kernels/csrc/{name}.cu",
+                   replaces="skred_tpu/engine/kernels.py:"
+                   + ("311" if name == "phase_walk" else "522"),
+                   launches=launches, library_ms=None)
+        rec["max_abs_err"] = errs.get(rec["name"], 0.0)
+        if variant == "keyed":
+            ms = tn["times"][name]["keyed"]
+            rec.update(ms=sum(ms) / len(ms),
+                       plain_ms=n_time[keyed_name, nwide]["plain_ms"],
+                       bound_ms=tn["floors"][name]["bound_ms"],
+                       bound_by=tn["floors"][name]["bound_by"])
+        else:
+            rec.update(ms=tn["alone"][f"general {name}"][0],
+                       plain_ms=tn["general_plain"][name],
+                       bound_ms=tn["general_bound"][name][0],
+                       bound_by=tn["general_bound"][name][1])
+        return rec
+
     kernels = [
         tier_record("tier", "keyed", s_launch["tier_keyed"]),
         tier_record("tier_general", "general", s_launch["tier_general"]),
-        record("phase_walk", n_launch["phase_walk"], n_time,
-               "skred_tpu/engine/kernels.py:311", "phase_walk"),
+        noise_record("phase_walk", "keyed",
+                     n_launch["phase_walk_warp"], "phase_walk_warp"),
+        noise_record("phase_walk", "general", n_launch["phase_walk"],
+                     "phase_walk_warp"),
         record("lookup", n_launch["lookup"], n_time,
                "skred_tpu/engine/kernels.py:780", "lookup"),
-        record("filt_smooth", n_launch["filt_smooth"], n_time,
-               "skred_tpu/engine/kernels.py:522", "filt_smooth"),
+        noise_record("filt_smooth", "keyed",
+                     n_launch["filt_smooth_noise"], "filt_smooth_noise"),
+        noise_record("filt_smooth", "general", n_launch["filt_smooth"],
+                     "filt_smooth_noise"),
         dict(name="table_lookup", route="cuda",
              source="skred_tpu_torch/engine/kernels/csrc/lookup.cu",
              replaces="skred_tpu/engine/kernels.py:648",

@@ -5,16 +5,18 @@ samples at a time.  Voices are laid out in tiers of the modulation DAG:
 tier k reads only tiers < k, so each block runs one pass per tier, in
 order, and every voice renders once per block.  A tier without noise
 voices runs one tier-kernel call (``engine/kernels/tier.py``); a tier
-that holds a noise voice (``w6``) runs the noise pass: the phase-walk,
-table-lookup and filter/smoother kernels with torch glue between them,
-the noise stream selected in for the noise voices.  After the tiers the
-stereo mix sums the voices and the master-volume smoother runs as an
-associative scan.
+that holds a noise voice (``w6``) runs the noise pass, three kernels: the
+keyed phase walk (modulator reads, FM increment, walk, CZ warp and index
+clip), the table lookup, and the keyed filter/smoother (the noise stream
+selected in for the noise voices, dead mask, envelope, am stream, serial
+stages).  After the tiers the stereo mix sums the voices and the
+master-volume smoother runs as an associative scan.
 
 Every pass writes its samples into its columns of one block buffer
 ``[N, Vp*B]``, which is the modulator bank of the later tiers.  With
 ``fold`` (the default) a tier-kernel tier past the first reads its fm /
-cz / am modulator streams from that bank inside the kernel; with ``mix``
+cz / am modulator streams from that bank inside the kernel (a noise
+tier's kernels always do); with ``mix``
 (the default) the kernel also sums its static-pan voices into the
 block's stereo accumulators, so torch is left with the pan-modulated
 lanes, the noise tiers' voices and the volume smoother.  ``mix=False,
@@ -48,12 +50,14 @@ import numpy as np
 import torch
 
 from skred_tpu_torch import config as C
-from skred_tpu_torch.engine.kernels.filt_smooth import filt_smooth
+from skred_tpu_torch.engine.kernels.filt_smooth import (filt_smooth_key,
+                                                        filt_smooth_noise)
 from skred_tpu_torch.engine.kernels.lookup import lookup
-from skred_tpu_torch.engine.kernels.phase_walk import phase_walk
-from skred_tpu_torch.engine.kernels.tier import (Fold, fold_read_plain,
+from skred_tpu_torch.engine.kernels.phase_walk import (phase_walk_key,
+                                                       phase_walk_warp)
+from skred_tpu_torch.engine.kernels.tier import (Fold, bank_read,
                                                  tier, tier_key)
-from skred_tpu_torch.engine.numerics import cz_phasor, div32, f32, fma32
+from skred_tpu_torch.engine.numerics import div32, f32
 from skred_tpu_torch.host.timeline import noise_stream
 
 F32 = torch.float32
@@ -233,11 +237,9 @@ def _read_vm(est_vm, prev_vm, osc, delayed, n, b):
     packed source index / delay flag.  A source outside [0, W) reads
     0.0, as the JAX package's one-hot product does (its +0.0 sum also
     turns -0.0 into +0.0).  Returns [N, V*B]."""
-    if est_vm is None:
-        return torch.zeros((n, osc.shape[1] * b), dtype=F32,
-                           device=osc.device)
-    return fold_read_plain(est_vm, prev_vm, to_vm_vec(osc.to(I32)),
-                           to_vm_vec(delayed), est_vm.shape[1] // b, b, n)
+    bank = None if est_vm is None \
+        else Fold(est_vm, prev_vm, est_vm.shape[1] // b)
+    return bank_read(bank, to_vm_vec(osc.to(I32)), to_vm_vec(delayed), n, b)
 
 
 def _tier_params(p, full_inc, feat, fold=False):
@@ -369,6 +371,19 @@ def _tier_keys(r):
     return tuple(dict.fromkeys(keys))
 
 
+def _noise_keys(r):
+    """The keyed noise kernels' builds of every noise tier the render
+    has: (source, key) pairs."""
+    keys = []
+    for ti in range(len(r.tiers)):
+        ft = r.feat_tiers[ti] if r.feat_tiers is not None else r.feat
+        if ft.noise:
+            keys += [("phase_walk", phase_walk_key(_pw_feat(ft), r.exact)),
+                     ("filt_smooth",
+                      filt_smooth_key(_fs_feat(ft), r.exact))]
+    return list(dict.fromkeys(keys))
+
+
 def _builds_kernels(device):
     """Whether a render on ``device`` launches the CUDA kernels."""
     return torch.device(device).type == "cuda"
@@ -444,123 +459,70 @@ def _voice_block_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact,
 
 # ---- noise-voice tiers: phase walk -> lookup -> filter/smoother ----
 
-def _envelope_block(counts, v):
-    """Closed-form ADSR over a block (synth.c:398-431), the JAX package's
-    ``_envelope_block``: counts [N, 1] i32 global 1-based sample counts,
-    ``v`` the [M] lane vectors → [N, M]."""
-    t = (counts - v["env_start"]).to(F32)
-    tr = (counts - v["env_rel_at"]).to(F32)
-    att, dec, sus, rel = v["att"], v["dec"], v["sus"], v["rel"]
-    e = torch.where(
-        t < att, div32(t, att),
-        torch.where(t < att + dec,
-                    fma32(-div32(t - att, dec), 1.0 - sus, 1.0),
-                    torch.where(v["env_rel_at"] == 0, sus,
-                                torch.where(tr < rel,
-                                            sus * (1.0 - div32(tr, rel)),
-                                            0.0))))
-    return torch.where(v["env_active"] != 0, e, 0.0)
+def _pw_feat(feat):
+    """The keyed phase walk's feature tuple of a ``Feat``."""
+    return (feat.fm, feat.finish, feat.direction, feat.cz, feat.czm,
+            tuple(feat.cz_modes), feat.ts_pow2)
+
+
+def _fs_feat(feat):
+    """The keyed filter/smoother's feature tuple of a ``Feat``."""
+    return (feat.flt, feat.sm, feat.hold, feat.quant, feat.am_self,
+            feat.env, feat.am, feat.finish)
+
+
+def _noise_inputs(est_vm, prev_vm, carry, tp, feat, b):
+    """A noise pass's kernel inputs in lane order: (bank, vecs, phase0,
+    fin0, start states)."""
+    f32v = lambda a: to_vm_vec(a.to(F32))
+    i32v = lambda a: to_vm_vec(a.to(I32))
+    v = dict(tp["vecs"])
+    # noise voices hold their phase
+    v["adv"] = to_vm_vec((tp["adv0"] & ~(carry["finished"] != 0)).to(I32))
+    bank = None if est_vm is None \
+        else Fold(est_vm, prev_vm, est_vm.shape[1] // b)
+    states = {}
+    if feat.flt:
+        states.update({k: f32v(carry[k]) for k in ("x1", "x2", "y1", "y2")})
+    if feat.sm:
+        states["smoother"] = f32v(carry["smoother"])
+    if feat.hold:
+        states.update(hold_count=i32v(carry["hold_count"]),
+                      hold_val=f32v(carry["hold_val"]))
+    return (bank, v, f32v(carry["phase"]),
+            i32v(carry["finished"]) if feat.finish else None, states)
 
 
 def _noise_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat,
-                n, b, noise_blk):
+                n, b, noise_blk, out=None):
     """One noise-voice tier over one block: the port of the JAX package's
     ``_voice_block_pass`` on its Pallas non-mega branch
-    (``skred_tpu/engine/fused.py:379-781``).  ``tp`` is the tier's
-    ``_pass_params``.  Returns what ``_voice_block_pass`` returns, with
-    no accumulators: a noise tier's voices mix in torch."""
+    (``skred_tpu/engine/fused.py:379-781``), in three kernels: the walk
+    with the modulator reads, the FM increment, the CZ warp and the clip
+    (``phase_walk_warp``); the table lookup; the noise select, dead mask,
+    envelope, am stream and serial stages (``filt_smooth_noise``).  ``tp``
+    is the tier's ``_pass_params``; ``out`` the tier's columns of the
+    block buffer.  Returns what ``_voice_block_pass`` returns, with no
+    accumulators: a noise tier's voices mix in torch."""
     v_ = p["amp"].shape[1]
-    v = tp["vecs"]
-    on = lambda k: v[k] != 0
-    fma = fma32 if exact else (lambda x, y, z: x * y + z)
-    f32v = lambda a: to_vm_vec(a.to(F32))
-    i32v = lambda a: to_vm_vec(a.to(I32))
-    read = lambda osc, dly: _read_vm(est_vm, prev_vm, p[osc], p[dly], n, b)
-
-    # FM increments
-    if feat.fm:
-        g = read("freq_mod_osc", "fm_delayed") * v["fm_depth"]
-        inc = torch.where(on("use_fm"), fma(v["mis"], g, v["pinc"]),
-                          v["pinc"])
-        if feat.direction:
-            inc = torch.where(on("dirneg"), -inc, inc)
-    else:
-        inc = tp["inc_row"]
-
-    # phase walk (noise voices hold their phase)
-    fin_prev = carry["finished"] != 0
-    adv = to_vm_vec((tp["adv0"] & ~fin_prev).to(I32))
-    ph, dead, ph_end, fin_end = phase_walk(
-        inc, f32v(carry["phase"]),
-        i32v(carry["finished"]) if feat.finish else None,
-        v["lo"], v["hi"], v["L"], v.get("osn"), v.get("one_shot"), adv,
-        v["act"], fm=feat.fm, finish=feat.finish, n=n)
-
-    # CZ warp and index clip
-    if feat.cz:
-        if feat.czm:
-            dm = torch.where(on("cm_ge0"),
-                             read("cz_mod_osc", "cm_delayed")
-                             * v["cz_depth"], 1.0)
-        else:
-            dm = tp["dm_row"]
-        cz_idx = cz_phasor(v["cz_mode"], ph, v["cz_dist"] + dm, v["tsize"],
-                           modes=feat.cz_modes)
-        idx_f = torch.where(v["cz_mode"] != 0, cz_idx, ph)
-    else:
-        idx_f = ph
-    idx = torch.minimum(torch.clamp(idx_f.to(I32), min=0), v["clip_i"])
-
-    # table lookup, the noise stream for noise voices, the dead mask
+    bank, v, phase0, fin0, states = _noise_inputs(est_vm, prev_vm, carry, tp,
+                                                  feat, b)
+    idx, cnt, ph_end, fin_end = phase_walk_warp(
+        bank, v, phase0, fin0, feat=_pw_feat(feat), exact=exact, n=n, b=b)
     f = lookup(table, v["base_off"], v["limit"], idx)
-    f = torch.where(tp["is_noise"], noise_blk[:, None], f)
-    if feat.finish:
-        alive = dead == 0
-        f = torch.where(alive, f, 0.0)
-        cnt = alive.sum(dim=0, dtype=I32)
-        alive_in = alive.to(I32)
-    else:
-        f = torch.where(on("act"), f, 0.0)
-        cnt = torch.where(on("act"), n, 0).to(I32)
-        alive_in = v["act"]
-
-    # envelope x velocity and the amp-mod stream
-    env = amod = None
-    if feat.env:
-        counts = cbase + torch.arange(n, dtype=I32, device=f.device)[:, None]
-        env = torch.where(on("use_env"),
-                          _envelope_block(counts, v) * v["vel"], 1.0)
-    if feat.am:
-        amod = torch.where(on("am_ge0"),
-                           read("amp_mod_osc", "am_delayed")
-                           * v["am_depth_a"], 1.0)
-
-    # serial S&H + quantizer + biquad + smoother
-    st = lambda k, used: f32v(carry[k]) if used else None
-    out, x1, x2, y1, y2, sg, hc, hv = filt_smooth(
-        f, env, amod, alive_in, *(v.get(k) for k in (
-            "b0", "b1", "b2", "na1", "na2", "use_flt", "use_sm", "amp",
-            "smoothing", "am_self", "am_depth", "hold_on", "hold_max",
-            "quant_on", "levels", "inv_levels")),
-        st("x1", feat.flt), st("x2", feat.flt), st("y1", feat.flt),
-        st("y2", feat.flt), st("smoother", feat.sm),
-        i32v(carry["hold_count"]) if feat.hold else None,
-        st("hold_val", feat.hold), exact=exact,
-        feat=(feat.flt, feat.sm, feat.hold, feat.quant, feat.am_self,
-              feat.env, feat.am, feat.finish))
+    out, ends = filt_smooth_noise(f, noise_blk, cnt, cbase, bank, v, states,
+                                  feat=_fs_feat(feat), exact=exact, b=b,
+                                  out=out)
 
     back = lambda a: from_vm_vec(a, b, v_)
     cnt = back(cnt)
-    kept = lambda x, k, used: back(x) if used else carry[k]
+    kept = lambda k: back(ends[k]) if k in ends else carry[k]
     new_carry = dict(
         phase=back(ph_end),
-        finished=kept(fin_end, "finished", feat.finish),
+        finished=back(fin_end) if feat.finish else carry["finished"],
         sample=back(out[n - 1]),
-        hold_count=kept(hc, "hold_count", feat.hold),
-        hold_val=kept(hv, "hold_val", feat.hold),
-        x1=kept(x1, "x1", feat.flt), x2=kept(x2, "x2", feat.flt),
-        y1=kept(y1, "y1", feat.flt), y2=kept(y2, "y2", feat.flt),
-        smoother=kept(sg, "smoother", feat.sm),
+        **{k: kept(k) for k in ("hold_count", "hold_val", "x1", "x2", "y1",
+                                "y2", "smoother")},
         pan_l=carry["pan_l"], pan_r=carry["pan_r"],
     )
     il = torch.clamp(cnt - 1, 0, n - 1)
@@ -773,17 +735,24 @@ def _gather_seg(groups, arrs, seg, B):
 
 
 def _pass_params(p_t, full_inc, ft, fold=False):
-    """A tier's per-lane vectors (``_tier_params``); a noise tier's pass
-    also takes the lookup's per-lane limit and the noise-voice mask."""
-    tp = _tier_params(p_t, full_inc, ft, fold)
+    """A tier's per-lane vectors (``_tier_params``).  A noise tier's pass
+    reads its modulator streams from the bank in its kernels (the source
+    vectors of a fold), and takes the lookup's per-lane limit, the
+    noise-voice mask and the constant increment or CZ offset of a tier
+    without fm or cz-mod in ``vecs``."""
+    tp = _tier_params(p_t, full_inc, ft, fold or ft.noise)
     if ft.noise:
         is_noise = p_t["table_index"] == C.WAVE_TABLE_NOISE_ALT
+        v = tp["vecs"]
         # limit = max(size, 1): an empty table reads its first entry, as
         # the XLA branch's table_buffer[table_off + idx] does
-        tp["vecs"]["limit"] = to_vm_vec(
-            torch.clamp(p_t["table_size"], min=1).to(I32))
-        tp.update(is_noise=to_vm_vec(is_noise),
-                  adv0=tp["active0"] & ~is_noise)
+        v["limit"] = to_vm_vec(torch.clamp(p_t["table_size"], min=1).to(I32))
+        v["is_noise"] = to_vm_vec(is_noise.to(I32))
+        if tp["inc_row"] is not None:
+            v["inc"] = tp["inc_row"]
+        if tp["dm_row"] is not None:
+            v["dm"] = tp["dm_row"]
+        tp["adv0"] = tp["active0"] & ~is_noise
     return tp
 
 
@@ -863,9 +832,9 @@ def _block_step(r: _Render, carry, k_glob):
             est = _estimate(r, run, c_t, p_t, tp, prev_vm, cbase) \
                 if any_mod else None
         out_cols = r.buf[:, ts * B:te * B]
-        kw = {}
+        kw = dict(out=out_cols)
         if not ft.noise:
-            kw = dict(out=out_cols, fold=fold)
+            kw["fold"] = fold
             if r.mix:
                 kw.update(mixw=(wl_vm[ts * B:te * B], wr_vm[ts * B:te * B]),
                           acc=acc)
@@ -874,8 +843,6 @@ def _block_step(r: _Render, carry, k_glob):
             cbase, r.table, r.exact, ft, n, B, **kw)
         if macc is not None:
             acc = macc
-        if ft.noise and any_mod and ti + 1 < len(r.tiers):
-            out_cols.copy_(out_t)        # a later tier may read it
         nc_parts.append(nc_t)
         parts.append((out_t, contrib_t, aa_t, il_t, (ts, te),
                       macc is not None))
@@ -991,9 +958,10 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
     if _builds_kernels(device):
         from skred_tpu_torch.engine.kernels import build
 
-        # every tier key at once, in parallel, before the first block (a
-        # failed build raises)
-        build.build_all([("tier", key) for key in _tier_keys(r)])
+        # every tier and noise key at once, in parallel, before the first
+        # block (a failed build raises)
+        build.build_all([("tier", key) for key in _tier_keys(r)]
+                        + _noise_keys(r))
     return st, r, d["carry"]
 
 

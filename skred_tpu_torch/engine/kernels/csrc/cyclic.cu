@@ -502,14 +502,6 @@ __device__ __forceinline__ float read_src(int code, const float* cur,
 // again).  The slow paths are branches, and a branch in the frame body
 // keeps the compiler from overlapping one voice's chain with another's.
 template <bool FAST>
-__device__ __forceinline__ float wrap(float x, float L, bool& slow) {
-    if (!FAST) return wrap_fmod(x, L);
-    const bool once = x >= L && x < 2.0f * L;   // wrap_fmod's two ranges
-    slow = slow || !(once || fabsf(x) < L);
-    return once ? x - L : x;
-}
-
-template <bool FAST>
 __device__ __forceinline__ float div_inv(float a, float y1, float b,
                                          bool& slow) {
     if (!FAST) return kdiv_inv(a, y1, b);

@@ -1,9 +1,10 @@
 // Exact-f32 device helpers shared by the port's kernels (tier.cu,
-// cyclic.cu): the JAX package's in-kernel arithmetic (kernels.py
-// _kfma, _kdiv_from, _kdiv, _kdiv_inv, _k_fast_pow, _cz_scales,
-// _cz_warp_k, _cz_warp_coeffs, _cz_warp_fast), bit for bit.  A source
-// that includes this header builds with -fmad=false: nothing here may be
-// contracted beyond the __fmaf_rn calls it spells out.
+// cyclic.cu, phase_walk.cu, filt_smooth.cu): the JAX package's in-kernel
+// arithmetic (kernels.py _kfma, _kdiv_from, _kdiv, _kdiv_inv,
+// _k_fast_pow, _cz_scales, _cz_warp_k, _cz_warp_coeffs, _cz_warp_fast),
+// bit for bit.  A source that includes this header builds with
+// -fmad=false: nothing here may be contracted beyond the __fmaf_rn calls
+// it spells out.
 
 #pragma once
 
@@ -68,6 +69,19 @@ __device__ __forceinline__ float wrap_fmod(float x, float L) {
     if (x >= L && x < 2.0f * L) return x - L;
     if (fabsf(x) < L) return x;
     return fmod_slow(x, L);
+}
+
+// wrap_fmod without its slow path (FAST): exact for operands in its two
+// in-range cases; any other sets `slow`, and the keyed kernels render
+// such a lane again with FAST false, writing every output again.  A
+// branch to fmodf would end the basic block in which the compiler
+// overlaps the samples (or voices) of a chunk.
+template <bool FAST>
+__device__ __forceinline__ float wrap(float x, float L, bool& slow) {
+    if (!FAST) return wrap_fmod(x, L);
+    const bool once = x >= L && x < 2.0f * L;   // wrap_fmod's two ranges
+    slow = slow || !(once || fabsf(x) < L);
+    return once ? x - L : x;
 }
 
 __device__ __forceinline__ bool has_mode(int mask, int k) {

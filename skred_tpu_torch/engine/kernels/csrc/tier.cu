@@ -85,6 +85,7 @@
 
 #include <type_traits>
 
+#include "bank.cuh"
 #include "numerics.cuh"
 
 struct TierArgs {
@@ -501,77 +502,6 @@ constexpr int T = 8;
 // T, for code that counts the chunk loop's instructions per sample step
 extern "C" int tier_chunk_samples() { return T; }
 
-// One modulator stream of one lane, chunk by chunk: the raw [N, M]
-// stream or (FOLD) the source voice's column of the bank.  A null `p`
-// reads +0.0 (a lane whose select drops the read loads nothing).  A
-// delayed fold lane (the serial-order rule) reads its column one sample
-// late: its loads are shifted by one sample, and the block's first
-// sample takes the previous block's last.  The loads of a chunk depend
-// on no state: they are issued as soon as the chunk before has been
-// read, a whole phase before their use.
-template <bool FOLD>
-struct Stream {
-    const float* p;
-    int stride;          // floats between two samples
-    float prev;          // FOLD: the column's sample at t = -1
-    int shift;           // FOLD: 1 on a delayed lane
-    float buf[T];
-
-    __device__ __forceinline__ void clear() {
-        p = nullptr; prev = 0.0f; shift = 0;
-#pragma unroll
-        for (int j = 0; j < T; ++j) buf[j] = 0.0f;
-    }
-
-    __device__ __forceinline__ void raw(const float* base, int m, int M,
-                                        bool on) {
-        clear();
-        stride = M;
-        if (on) p = base + m;
-    }
-
-    __device__ __forceinline__ void fold(const TierArgs& a, bool on,
-                                         const int* src, const int* dly,
-                                         int m) {
-        clear();
-        stride = a.bank_stride;
-        if (!on) return;
-        const int s = src[m];
-        if (s < 0 || s >= a.bank_w) return;
-        const int c = s * a.b + m % a.b;
-        p = a.bank + c;
-        prev = a.prev[c];
-        shift = dly[m] != 0 ? 1 : 0;
-    }
-
-    // issue the loads of the chunk that starts at t0 (none past n)
-    __device__ __forceinline__ void fetch(int t0, int n) {
-        if (p == nullptr || t0 >= n) return;
-        const int t1 = t0 - shift;            // the sample buf[0] holds
-        const float* q = p + (ptrdiff_t)t1 * (ptrdiff_t)stride;
-        if (t0 + T <= n) {
-#pragma unroll
-            for (int j = 0; j < T; ++j)
-                buf[j] = (j == 0 && t1 < 0) ? prev : __ldg(q + j * stride);
-        } else {
-#pragma unroll
-            for (int j = 0; j < T; ++j)
-                if (t0 + j < n)
-                    buf[j] = (j == 0 && t1 < 0) ? prev
-                                                : __ldg(q + j * stride);
-        }
-    }
-
-    // the read at offset j of the chunk (a fold adds +0.0, as the
-    // caller's one-hot read does)
-    __device__ __forceinline__ float at(int j) const {
-        return FOLD ? buf[j] + 0.0f : buf[j];
-    }
-
-    // the chunk is read: issue the next one's loads
-    __device__ __forceinline__ void next(int t0, int n) { fetch(t0 + T, n); }
-};
-
 // The block runs first with a phase wrap and a CZ divide that have no
 // slow path (FAST): exact wherever their operands are in range, and a
 // lane whose operand is not sets `slow` and renders the block again with
@@ -579,14 +509,6 @@ struct Stream {
 // same inputs, writing every output again.  A branch on the walk would
 // end the basic block in which the compiler interleaves the walk of one
 // chunk with the S&H / filter / smoother chain of the chunk before.
-template <bool FAST>
-__device__ __forceinline__ float wrap(float x, float L, bool& slow) {
-    if (!FAST) return wrap_fmod(x, L);
-    const bool once = x >= L && x < 2.0f * L;   // wrap_fmod's two ranges
-    slow = slow || !(once || fabsf(x) < L);
-    return once ? x - L : x;
-}
-
 template <bool FAST>
 __device__ __forceinline__ float div_inv(float a, float y1, float b,
                                          bool& slow) {
@@ -660,14 +582,17 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
     float amdep_a = 0.0f;
     if (AM) { am_ge = a.am_ge0[m] != 0; amdep_a = a.am_depth_a[m]; }
 
-    Stream<FOLD_FM> s_fm;
-    Stream<FOLD_CZ> s_cz;
-    Stream<FOLD_AM> s_am;
-    if (FOLD_FM) s_fm.fold(a, use_fm, a.fm_src, a.fm_del, m);
+    Stream<T, FOLD_FM> s_fm;
+    Stream<T, FOLD_CZ> s_cz;
+    Stream<T, FOLD_AM> s_am;
+    if (FOLD_FM) s_fm.fold(a.bank, a.prev, a.bank_w, a.bank_stride, a.b,
+                       use_fm, a.fm_src, a.fm_del, m);
     else s_fm.raw(a.inc, m, M, FM);
-    if (FOLD_CZ) s_cz.fold(a, cm_ge, a.cz_src, a.cz_del, m);
+    if (FOLD_CZ) s_cz.fold(a.bank, a.prev, a.bank_w, a.bank_stride, a.b,
+                       cm_ge, a.cz_src, a.cz_del, m);
     else s_cz.raw(a.dm, m, M, CZM && cm_ge);
-    if (FOLD_AM) s_am.fold(a, am_ge, a.am_src, a.am_del, m);
+    if (FOLD_AM) s_am.fold(a.bank, a.prev, a.bank_w, a.bank_stride, a.b,
+                       am_ge, a.am_src, a.am_del, m);
     else s_am.raw(a.amod, m, M, AM && am_ge);
 
     float b0 = 0, b1 = 0, b2 = 0, na1 = 0, na2 = 0;

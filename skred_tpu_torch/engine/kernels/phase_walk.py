@@ -8,16 +8,29 @@ dead mask and the end finished flag.  Layout: time-major ``[N, M]``
 streams, ``[M]`` per-lane vectors.  A CPU tensor runs
 ``phase_walk_plain``, the same arithmetic in torch ops; a CUDA tensor
 launches ``csrc/phase_walk.cu`` or raises.
+
+``phase_walk_warp`` is the noise pass's first stage with its glue: the
+modulator reads from the bank of earlier tiers, the FM increment, the
+walk, the CZ warp and the index clip, giving the int32 table index the
+lookup takes and each lane's alive count.  A CPU tensor runs
+``phase_walk_warp_plain``, the composition of the glue's torch ops and
+``phase_walk_plain`` in the noise pass's order; a CUDA tensor launches
+the keyed variant of ``csrc/phase_walk.cu``, built once per
+``phase_walk_key`` with the stages compiled in.  ``phase_walk`` is the
+general variant, with run-time flags, launched only by
+name.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from skred_tpu_torch.engine.kernels import cuda_call
-from skred_tpu_torch.engine.numerics import f32
+from skred_tpu_torch.engine.kernels.tier import bank_args, bank_read
+from skred_tpu_torch.engine.numerics import cz_phasor, f32, fma32
 
 F32 = torch.float32
 I32 = torch.int32
@@ -132,3 +145,193 @@ def phase_walk(inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act, *,
 
 
 phase_walk.launches = 0
+
+
+# ---- the keyed variant: the walk with the noise pass's glue ----
+
+# PwFeat: (fm, finish, direction, cz, czm, cz_modes, ts_pow2), a noise
+# tier's flags as ``fused.Feat`` names them
+
+def fm_increment(read, v, exact=True, direction=False):
+    """[N, M] increments from the raw fm read stream: mis·(read·depth) +
+    pinc where the lane is FM-modulated (``fma32`` when exact), pinc
+    elsewhere, negated on reversed lanes."""
+    fma = fma32 if exact else (lambda x, y, z: x * y + z)
+    g = read * v["fm_depth"]
+    inc = torch.where(v["use_fm"] != 0, fma(v["mis"], g, v["pinc"]),
+                      v["pinc"])
+    if direction:
+        inc = torch.where(v["dirneg"] != 0, -inc, inc)
+    return inc
+
+
+def cz_offset(read, v):
+    """[N, M] the CZ distortion's modulator term from the raw cz read:
+    read·depth where the lane has a cz-mod edge, else 1.0."""
+    return torch.where(v["cm_ge0"] != 0, read * v["cz_depth"], 1.0)
+
+
+def cz_clip(ph, dm, v, cz=True, modes=(1, 2, 3, 4, 5, 6, 7)):
+    """The clipped int32 table index of each phase: the CZ warp
+    (``numerics.cz_phasor``) on lanes with a CZ mode, then [0, clip_i]."""
+    if cz:
+        cz_idx = cz_phasor(v["cz_mode"], ph, v["cz_dist"] + dm, v["tsize"],
+                           modes=modes)
+        idx_f = torch.where(v["cz_mode"] != 0, cz_idx, ph)
+    else:
+        idx_f = ph
+    return torch.minimum(torch.clamp(idx_f.to(I32), min=0), v["clip_i"])
+
+
+def alive_count(dead, act, n):
+    """[M] i32 samples each lane is alive for: a lane's dead mask is
+    monotone within a block (its finished flag only sets), so its live
+    samples are a prefix.  Without finish (``dead`` None) a lane lives
+    the whole block when it is active."""
+    if dead is None:
+        return torch.where(act != 0, n, 0).to(I32)
+    return (dead == 0).sum(dim=0, dtype=I32)
+
+
+def phase_walk_warp_plain(bank, vecs, phase0, fin0, *, feat, exact=True, n,
+                          b):
+    """The keyed kernel's function in torch ops: the fm read, the FM
+    increment, the walk (``phase_walk_plain``), the cz read, the CZ warp
+    and the clip, the alive count, in the noise pass's order.  Takes and
+    returns what ``phase_walk_warp`` does."""
+    fm, finish, direction, cz, czm, modes, _ = feat
+    v = vecs
+    read = lambda s: bank_read(bank, v[s + "_src"], v[s + "_del"], n, b)
+    if fm:
+        inc = fm_increment(read("fm"), v, exact, direction)
+    else:
+        inc = v["inc"]
+    ph, dead, ph_end, fin_end = phase_walk_plain(
+        inc, phase0, fin0 if finish else None, v["lo"], v["hi"], v["L"],
+        v.get("osn"), v.get("one_shot"), v["adv"], v["act"], fm=fm,
+        finish=finish, n=n)
+    dm = None
+    if cz:
+        dm = cz_offset(read("cz"), v) if czm else v["dm"]
+    idx = cz_clip(ph, dm, v, cz, modes)
+    return idx, alive_count(dead, v["act"], n), ph_end, fin_end
+
+
+def _pw_flags(feat, exact):
+    """The flags a build depends on: direction only with fm (a constant
+    increment comes negated), czm, the mode mask and ts_pow2 only with
+    cz, the arithmetic mode only with fm (the CZ warp rounds the same in
+    both)."""
+    fm, finish, direction, cz, czm, modes, ts_pow2 = feat
+    cz = bool(cz)
+    return dict(fm=bool(fm), finish=bool(finish),
+                direction=bool(fm and direction), cz=cz, czm=cz and bool(czm),
+                cz_mask=sum(1 << k for k in modes if 1 <= k <= 7) if cz
+                else 0, ts_pow2=cz and bool(ts_pow2),
+                exact=bool(exact) or not fm)
+
+
+@functools.lru_cache(maxsize=None)
+def phase_walk_key(feat, exact=True):
+    """The keyed variant's build key (``-D`` defines): one library per
+    tier feature set and, with fm, arithmetic mode."""
+    fl = _pw_flags(feat, exact)
+    return ("PW_KEYED=1",) + tuple(f"PW_{k.upper()}={int(v)}"
+                                   for k, v in fl.items())
+
+
+_PW_INTS = ("n", "m", "b", "bank_w", "bank_stride", "exact", "has_fm",
+            "has_finish", "has_direction", "has_cz", "has_czm", "cz_mask",
+            "ts_pow2")
+_PW_PTRS = ("bank", "prev", "fm_src", "fm_del", "cz_src", "cz_del", "inc",
+            "dm", "use_fm", "mis", "pinc", "fm_depth", "dirneg", "cm_ge0",
+            "cz_depth", "cz_mode", "cz_dist", "tsize", "lo", "hi", "L",
+            "clip_i", "osn", "one_shot", "adv", "act", "phase_0",
+            "finished_0", "idx", "cnt", "phase_e", "finished_e")
+
+
+class PhaseWarpArgs(ctypes.Structure):
+    """Mirrors csrc/phase_walk.cu's PhaseWarpArgs."""
+    _fields_ = ([(k, ctypes.c_int) for k in _PW_INTS]
+                + [(k, ctypes.c_void_p) for k in _PW_PTRS])
+
+
+def _pw_vec_keys(fl):
+    keys = [("lo", F32), ("hi", F32), ("L", F32), ("clip_i", I32),
+            ("adv", I32), ("act", I32)]
+    if fl["finish"]:
+        keys += [("osn", I32), ("one_shot", I32)]
+    if fl["fm"]:
+        keys += [("use_fm", I32), ("mis", F32), ("pinc", F32),
+                 ("fm_depth", F32), ("fm_src", I32), ("fm_del", I32)]
+        if fl["direction"]:
+            keys.append(("dirneg", I32))
+    else:
+        keys.append(("inc", F32))
+    if fl["cz"]:
+        keys += [("cz_mode", I32), ("cz_dist", F32), ("tsize", F32)]
+        if fl["czm"]:
+            keys += [("cm_ge0", I32), ("cz_depth", F32), ("cz_src", I32),
+                     ("cz_del", I32)]
+        else:
+            keys.append(("dm", F32))
+    return keys
+
+
+def _pw_pack(bank, vecs, phase0, fin0, feat, exact, n, b):
+    """Check the CUDA tensors and fill the argument struct.  Returns
+    (PhaseWarpArgs, (idx, cnt, phase_end, fin_end))."""
+    fl = _pw_flags(feat, exact)
+    dev = phase0.device
+    m = phase0.shape[0]
+    chk = lambda name, x, dt, shape: cuda_call.check("phase_walk_warp",
+                                                     name, x, dev, dt, shape)
+    a = PhaseWarpArgs(n=n, m=m, exact=int(fl["exact"]),
+                      cz_mask=fl["cz_mask"], ts_pow2=int(fl["ts_pow2"]))
+    for k in ("fm", "finish", "direction", "cz", "czm"):
+        setattr(a, "has_" + k, int(fl[k]))
+    bank_args(a, "phase_walk_warp", bank, dev, n, b, m)
+    for k, dt in _pw_vec_keys(fl):
+        if k not in vecs:
+            raise KeyError(f"phase_walk_warp: feat needs vecs[{k!r}]")
+        setattr(a, k, chk(k, vecs[k], dt, (m,)))
+    a.phase_0 = chk("phase0", phase0, F32, (m,))
+    idx = torch.empty((n, m), dtype=I32, device=dev)
+    cnt = torch.empty(m, dtype=I32, device=dev)
+    ph_e = torch.empty(m, dtype=F32, device=dev)
+    a.idx, a.cnt, a.phase_e = idx.data_ptr(), cnt.data_ptr(), ph_e.data_ptr()
+    fin_e = None
+    if fl["finish"]:
+        a.finished_0 = chk("fin0", fin0, I32, (m,))
+        fin_e = torch.empty(m, dtype=I32, device=dev)
+        a.finished_e = fin_e.data_ptr()
+    return a, (idx, cnt, ph_e, fin_e)
+
+
+def phase_walk_warp(bank, vecs, phase0, fin0, *, feat, exact=True, n, b):
+    """One block of a noise tier's walk with its glue, over M lanes
+    (lane ``v*b + row``).
+
+    bank: a ``tier.Fold`` (its ``streams`` unused) holding the earlier
+    tiers' samples, or None; the fm and cz reads take it per lane
+    (``fm_src``/``fm_del``, ``cz_src``/``cz_del`` in ``vecs``) as
+    ``tier.fold_read_plain`` does.  vecs: [M] per-lane vectors
+    (``_pw_vec_keys``; ``inc`` is the constant increment without fm,
+    ``dm`` the constant CZ offset without czm); phase0 [M] f32, fin0 [M]
+    i32 (with finish).  feat: (fm, finish, direction, cz, czm, cz_modes,
+    ts_pow2).  Returns (idx [N, M] i32, cnt [M] i32, phase_end [M],
+    fin_end [M] or None)."""
+    dev = phase0.device
+    if dev.type == "cpu":
+        return phase_walk_warp_plain(bank, vecs, phase0, fin0, feat=feat,
+                                     exact=exact, n=n, b=b)
+    if dev.type != "cuda":
+        raise ValueError(f"phase_walk_warp: no kernel for device {dev}")
+    args, outs = _pw_pack(bank, vecs, phase0, fin0, feat, exact, n, b)
+    cuda_call.launch("phase_walk", args, dev, phase_walk_key(feat, exact),
+                     "phase_walk_keyed_launch")
+    phase_walk_warp.launches += 1
+    return outs
+
+
+phase_walk_warp.launches = 0

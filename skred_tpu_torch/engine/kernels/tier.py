@@ -126,6 +126,37 @@ def fold_read_plain(bank, prev, src, delayed, w, b, n):
     return torch.where(delayed[None] != 0, shifted, cur)
 
 
+def bank_read(bank, src, delayed, n, b):
+    """``fold_read_plain`` from a ``Fold`` (its ``streams`` unused); a
+    bank of None, a tier with no earlier tier, reads +0.0 everywhere."""
+    if bank is None:
+        return torch.zeros((n, src.shape[0]), dtype=F32, device=src.device)
+    return fold_read_plain(bank.bank, bank.prev, src, delayed, bank.w, b, n)
+
+
+def bank_args(a, kernel, bank, dev, n, b, m):
+    """Check the bank of a kernel that reads one (csrc/bank.cuh) and fill
+    its fields ``b``, ``bank_w``, ``bank_stride``, ``bank``, ``prev``:
+    None (or no voices) reads +0.0 everywhere."""
+    if b < 1 or m % b:
+        raise ValueError(f"{kernel}: b={b} rows do not divide {m} lanes")
+    a.b = b
+    if bank is None or bank.w == 0:
+        return
+    w = int(bank.w)
+    x, prev = bank.bank, bank.prev
+    if x.device != dev or prev.device != dev or x.dtype != F32 \
+            or prev.dtype != F32:
+        raise ValueError(f"{kernel}: the bank must be f32 on {dev}")
+    if x.dim() != 2 or x.shape[0] != n or x.shape[1] < w * b \
+            or x.stride(1) != 1 or prev.dim() != 1 \
+            or prev.shape[0] < w * b or not prev.is_contiguous():
+        raise ValueError(f"{kernel}: the bank must be [{n}, >= {w * b}] "
+                         f"with unit stride along lanes, prev [>= {w * b}]")
+    a.bank_w, a.bank_stride = w, x.stride(0)
+    a.bank, a.prev = x.data_ptr(), prev.data_ptr()
+
+
 def mix_plain(out, wl, wr, b, acc=None):
     """Phase 5 in torch ops: per channel the sum over voices of
     out[:, v*b:(v+1)*b] * w[v*b:(v+1)*b], product and sum each rounded
@@ -196,9 +227,8 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
     if folded or mixw is not None:
         if b is None:
             raise ValueError("tier: the fold and the mix need b")
-    reads = {k: fold_read_plain(fold.bank, fold.prev, vecs[_FOLD_VECS[k][0]],
-                                vecs[_FOLD_VECS[k][1]], fold.w, b, n)
-             for k in folded}
+    reads = {k: bank_read(fold, vecs[_FOLD_VECS[k][0]],
+                          vecs[_FOLD_VECS[k][1]], n, b) for k in folded}
     inc = reads.get("fm", inc)
     dm = reads.get("cz", dm)
     amod = reads.get("am", amod)

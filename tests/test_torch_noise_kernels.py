@@ -196,6 +196,8 @@ def _c_struct_fields(src, name):
     ("phase_walk", "PhaseWalkArgs", pw.PhaseWalkArgs),
     ("lookup", "LookupArgs", lk.LookupArgs),
     ("filt_smooth", "FiltSmoothArgs", fs.FiltSmoothArgs),
+    ("phase_walk", "PhaseWarpArgs", pw.PhaseWarpArgs),
+    ("filt_smooth", "FiltNoiseArgs", fs.FiltNoiseArgs),
 ])
 def test_args_match_cuda_structs(kernel, struct, cls):
     src = open(pw.__file__.rsplit("/", 1)[0]

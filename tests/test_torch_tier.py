@@ -224,8 +224,10 @@ UNION_CYCLE = ["v0 w0 f330 a3 F1,0.5", "v1 w2 f2 a2", "v2 w0 f220 a2 p0.3 "
                "~.02 v0 F1,0 v1 F0,0.4"]
 # noise in tier 0 (no tier kernel), the tier kernel (folded) in tier 1
 NOISE_MIXED = ["v1 w6 f3 a1 h40", "v0 w0 f220 a3 F1,0.5"]
+# script, keys its render builds (noise_mixed: one tier key and its noise
+# tier's keyed phase walk and filter/smoother)
 RENDERS = {"three_streams": (THREE_STREAMS, 2),
-           "union_cycle": (UNION_CYCLE, 2), "noise_mixed": (NOISE_MIXED, 1)}
+           "union_cycle": (UNION_CYCLE, 2), "noise_mixed": (NOISE_MIXED, 3)}
 
 
 def _port_batch(lines, rows=2, seconds=0.03):
@@ -257,11 +259,13 @@ def _stand_in_nvcc(tmp_path):
 def test_render_builds_its_tier_keys_together_before_the_first_block(
         script, tmp_path, monkeypatch):
     """A render on the card builds the keys of all its tier-kernel calls
-    in one parallel build before its first block, and launches no other
-    key.  The render runs on the CPU (the plain version) with the build
-    switched on and a stand-in for nvcc."""
+    and keyed noise-kernel calls in one parallel build before its first
+    block, and launches no other key.  The render runs on the CPU (the
+    plain version) with the build switched on and a stand-in for nvcc."""
     from skred_tpu_torch.engine import fused as tf
     from skred_tpu_torch.engine.kernels import build
+    from skred_tpu_torch.engine.kernels import filt_smooth as tfs
+    from skred_tpu_torch.engine.kernels import phase_walk as tpw
 
     lines, n_keys = RENDERS[script]
     nvcc, log = _stand_in_nvcc(tmp_path)
@@ -282,21 +286,32 @@ def test_render_builds_its_tier_keys_together_before_the_first_block(
                                            kw["mixw"] is not None, folded)))
         return real_tier(*a, **kw)
 
+    def keyed(name, real, key):
+        def call(*a, **kw):
+            events.append(("noise", (name, key(kw["feat"], kw["exact"]))))
+            return real(*a, **kw)
+        return call
+
     monkeypatch.setattr(build, "build_all", build_all)
     monkeypatch.setattr(tf, "tier", tier)
+    monkeypatch.setattr(tf, "phase_walk_warp", keyed(
+        "phase_walk", tf.phase_walk_warp, tpw.phase_walk_key))
+    monkeypatch.setattr(tf, "filt_smooth_noise", keyed(
+        "filt_smooth", tf.filt_smooth_noise, tfs.filt_smooth_key))
     st = _port_batch(lines)
     assert (st.tiers is None) == (script == "union_cycle")
     out = tf.render_fused(st, device="cpu")
     assert np.isfinite(out).all() and np.abs(out).max() > 0.01
     builds = [e for e in events if e[0] == "build"]
     assert len(builds) == 1 and events[0][0] == "build"
-    assert all(name == "tier" for name, _ in builds[0][1])
-    built = {key for _, key in builds[0][1]}
-    launched = {key for kind, key in events if kind == "tier"}
+    built = set(builds[0][1])
+    launched = {("tier", key) if kind == "tier" else key
+                for kind, key in events if kind != "build"}
     assert launched == built and len(built) == n_keys
+    assert any(name == "tier" for name, _ in built)
     assert len(log.read_text().splitlines()) == n_keys
-    for key in built:
-        assert build._target("tier", key).exists()
+    for name, key in built:
+        assert build._target(name, key).exists()
 
 
 def test_cpu_render_builds_and_launches_nothing(monkeypatch):
