@@ -79,7 +79,18 @@ non-zero):
                   the general kernel plus the glue it absorbed, each
                   bit-equal to the plain version, with its SASS
                   instructions a sample step, issue floor and bytes
-                  bound); the "noise alone" lines (each kernel alone)
+                  bound); the "noise alone" lines (each kernel alone);
+                  the single-lane lookup's form alone (row 6's shape);
+                  the "lookup turns" lines: the lookup in turns with
+                  torch.take (each turn 20 calls in a CUDA graph, so that
+                  the device time is read, not the launch from Python)
+                  on tier 1's and tier 0's first-block calls
+                  and at row 6's shape (lane-major, N=512, M=8192,
+                  32768-sample slots), each kernel turn bit-equal to the
+                  plain version, with the SASS instructions an element,
+                  the issue floor, the bytes bound, the bandwidth
+                  reached as a share of 3.35 TB/s and a device copy of
+                  the same bytes
   7. noise short  noise64 as in 5
   8. cyclic main  each of fb1-fb5: stack_timelines (1024 rows) ->
                   pack_stacked(cyclic=True) ->
@@ -164,6 +175,28 @@ def cuda_ms(fn, reps):
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device milliseconds of ``fn`` over ``reps`` calls captured in
+    one CUDA graph, by CUDA events around its replay, after a warm-up
+    call: the device runs the calls back to back, so a call shorter than
+    its launch from Python is timed, not the host."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -788,6 +821,87 @@ def table_lookup_timing(lk, lib, card):
         f"bound {bound_ms:.4f} ms ({bound_by}), on {card}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def lookup_turns(captured, lib, dev, card, errs):
+    """The lookup kernel in turns with torch.take (take, kernel, kernel,
+    take; 20 calls each in a CUDA graph: tier 0's call is shorter than
+    its launch from Python) on the noise main path's
+    first-block lookups at tier 1 and tier 0 (the pass form, [N, M]) and
+    at row 6's shape (the lane-major form, N=512, M=8192, 32768-sample
+    slots), each kernel turn bit-equal to the plain version; the SASS
+    instructions an element of the layout's main loop, the issue floor,
+    the bytes bound and the bandwidth reached."""
+    from skred_tpu_torch.engine.kernels import build, cuda_call
+    from skred_tpu_torch.engine.kernels import lookup as lk
+
+    fn = build.load("lookup").lookup_step_elements
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    step = fn()            # elements a thread handles in a main-loop pass
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    calls = sorted(((m, a) for (nm, m), (a, _) in captured.items()
+                    if nm == "lookup"), key=lambda c: -c[0])
+    shapes = [(f"tier {1 - i} (noise64 first block, pass form)", *a, False)
+              for i, (m, a) in enumerate(calls)]
+    _, _, idx, table, base = lib[32768]
+    shapes.append(("row 6 (table_lookup_pallas's shape, 32768-sample "
+                   "slots)", table, base, torch.full_like(base, 32768), idx,
+                   True))
+    fmt = lambda ts: " / ".join(f"{t:.4f}" for t in ts)
+    for label, table, base, limit, idx, lane_major in shapes:
+        args, out = lk._pack_args(table, base, limit, idx, lane_major)
+        go = lambda: cuda_call.launch("lookup", args, dev)
+        want = lk.lookup_plain(table, base, limit, idx, lane_major)
+        b64 = base.long()[:, None] if lane_major else base.long()[None]
+        take = lambda: torch.take(table, b64 + idx)
+        if not same_bits(take(), want):
+            fail(f"torch.take does not compute the lookup on {label}")
+        clk0 = sm_clock()
+        times = {"torch.take": [], "kernel": []}
+        for turn in ("torch.take", "kernel", "kernel", "torch.take"):
+            if turn == "kernel":
+                out.fill_(float("nan"))
+                go()
+                torch.cuda.synchronize()
+                errs["lookup"] = max(errs.get("lookup", 0.0),
+                                     max_abs(out, want))
+                if not same_bits(out, want):
+                    fail(f"lookup kernel disagrees with its plain version "
+                         f"on {label}")
+            times[turn].append(graph_ms(go if turn == "kernel" else take,
+                                        20))
+        # the card's rate on this read-and-write stream: a device copy of
+        # the index block (the same 8 B an element, no gathers)
+        copy_ms = graph_ms(lambda: out.view(torch.int32).copy_(idx), 20)
+        copy_rate = 2 * nbytes(idx) / (copy_ms * 1e-3)
+        clk1 = sm_clock()
+        mhz = max(float(c.split()[0]) for c in (clk0, clk1))
+        kname = "lane" if lane_major else "time"
+        sass = sass_loop(build._target("lookup"),
+                         f"lookup_{kname}_major_kernelILb1E", 1)
+        per_elem = sass["loop"] / step
+        issue_ms = per_elem * idx.numel() / 32 / (4 * sms) / (mhz * 1e6) \
+            * 1e3
+        moved = nbytes(table, base, limit, idx) + nbytes(idx)
+        bound_ms, bound_by = bound(moved - nbytes(idx), nbytes(idx), 0)
+        mean = sum(times["kernel"]) / 2
+        rate = moved / (mean * 1e-3)
+        n, m = (idx.shape[1], idx.shape[0]) if lane_major else idx.shape
+        log(f"lookup turns {label}, N={n}, M={m}: kernel "
+            f"{fmt(times['kernel'])} ms/call, torch.take "
+            f"{fmt(times['torch.take'])} ms/call (in turns torch.take, "
+            f"kernel, kernel, torch.take; 20 calls each in a CUDA graph, "
+            f"CUDA events); "
+            f"bound {bound_ms:.4f} ms ({bound_by}); SASS "
+            f"{per_elem:.3f} instructions an element ({sass['loop']} in "
+            f"the main loop of {step} elements, {sass['instructions']} in "
+            f"{sass['kernel']}), issue floor {issue_ms:.4f} ms at "
+            f"{mhz:.0f} MHz, {sms} SMs; {rate / 1e12:.3f} TB/s = "
+            f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s, "
+            f"{bound_ms / mean:.1%} of the bound; a device copy of the "
+            f"index block {copy_ms:.4f} ms ({copy_rate / 1e12:.3f} TB/s); "
+            f"bit-equal to the plain "
+            f"version; clocks.sm {clk0} -> {clk1}, on {card}")
 
 
 def prepare(path, seconds):
@@ -1976,7 +2090,7 @@ def main():
 
     # ---- 6./7. noise64: the noise pass's path ----
     phase("noise main, noise short")
-    n_launch, n_time, n_lines, _ = main_path(
+    n_launch, n_time, n_lines, n_calls = main_path(
         "noise main", NOISE64, dev, card, specs, noise_kernels, counters,
         errs, seconds=NOISE64_SECONDS)
     _, st = prepare(NOISE64, NOISE64_SECONDS)
@@ -1990,6 +2104,7 @@ def main():
                 "lookup": lk.lookup_plain,
                 "filt_smooth_noise": fs.filt_smooth_noise_plain})
     tl_time = table_lookup_timing(lk, lib, card)
+    lookup_turns(n_calls, lib, dev, card, errs)
 
     # ---- 8./9. fb1-fb5: the cyclic kernel's path ----
     phase("cyclic main, cyclic short")

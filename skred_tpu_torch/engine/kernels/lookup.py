@@ -1,7 +1,7 @@
 """The table-lookup kernel: wavetable reads from the packed table buffer.
 
-One CUDA kernel (``csrc/lookup.cu``) serves the JAX package's two lookup
-kernels and the noise pass:
+One CUDA source (``csrc/lookup.cu``, a kernel for each layout) serves the
+JAX package's two lookup kernels and the noise pass:
 
 * ``lookup(table, base, limit, idx)``, the noise pass's form: time-major
   ``idx [N, M]`` → ``out[t, m] = table[base[m] + idx[t, m]]`` where
@@ -11,7 +11,7 @@ kernels and the noise pass:
 * ``table_lookup_grouped`` and ``table_lookup_pallas``, the ports of the
   JAX functions of those names, with their signature ``(table3, slot,
   idx [M, N], slot_size)`` → ``[M, N]``: ``base = slot·slot_size`` and
-  ``limit = slot_size``, so an index past its slot reads 0.
+  ``limit = slot_size``, so an index below 0 or past its slot reads 0.
 
 Each form counts its own launches.  A CPU tensor runs ``lookup_plain``;
 a CUDA tensor launches the kernel or raises.
@@ -43,10 +43,13 @@ def lookup_plain(table, base, limit, idx, lane_major=False):
 
 class LookupArgs(ctypes.Structure):
     """Mirrors csrc/lookup.cu's LookupArgs."""
-    _fields_ = [("total", ctypes.c_longlong), ("lanes", ctypes.c_int),
-                ("lane_div", ctypes.c_int)] \
+    _fields_ = [("n", ctypes.c_int), ("m", ctypes.c_int),
+                ("lane_major", ctypes.c_int)] \
         + [(k, ctypes.c_void_p) for k in ("table", "base", "limit", "idx",
                                           "out")]
+
+
+INDEX_LIMIT = 2 ** 31   # the kernel's index arithmetic is 32-bit
 
 
 def _pack_args(table, base, limit, idx, lane_major):
@@ -55,12 +58,14 @@ def _pack_args(table, base, limit, idx, lane_major):
                                                      dt, shape)
     if table.dim() != 1 or idx.dim() != 2:
         raise ValueError("lookup: table must be [R] and idx 2-D")
-    lanes = idx.shape[0] if lane_major else idx.shape[1]
-    a = LookupArgs(total=idx.numel(), lanes=lanes,
-                   lane_div=idx.shape[1] if lane_major else 1)
+    if table.numel() >= INDEX_LIMIT or idx.numel() >= INDEX_LIMIT:
+        raise ValueError("lookup: the table and the index block must each "
+                         "hold fewer than 2^31 elements")
+    m, n = idx.shape if lane_major else idx.shape[::-1]
+    a = LookupArgs(n=n, m=m, lane_major=int(lane_major))
     a.table = chk("table", table, F32, tuple(table.shape))
-    a.base = chk("base", base, I32, (lanes,))
-    a.limit = chk("limit", limit, I32, (lanes,))
+    a.base = chk("base", base, I32, (m,))
+    a.limit = chk("limit", limit, I32, (m,))
     a.idx = chk("idx", idx, I32, tuple(idx.shape))
     out = torch.empty(idx.shape, dtype=F32, device=dev)
     a.out = out.data_ptr()

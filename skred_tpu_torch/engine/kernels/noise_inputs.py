@@ -66,11 +66,13 @@ def random_phase_inputs(fm, finish, n, m, seed=0):
 
 
 def random_lookup_inputs(n, m, slot_size, seed=0, n_slots=4,
-                         lane_major=True, out_of_range=False):
+                         lane_major=True, out_of_range=False,
+                         negative=False):
     """Returns (table [n_slots·slot_size] f32, slot [M] i32, idx i32) for
     the JAX-form lookups: idx is [M, N] (``lane_major``) or [N, M].
     Indices stay inside the slot unless ``out_of_range``, which puts some
-    at or past its end (they read 0)."""
+    at or past its end, or ``negative``, which puts some below 0 (both
+    read 0)."""
     rng = np.random.default_rng(seed)
     table = rng.standard_normal(n_slots * slot_size).astype(np.float32)
     slot = rng.integers(0, n_slots, m).astype(np.int32)
@@ -83,6 +85,10 @@ def random_lookup_inputs(n, m, slot_size, seed=0, n_slots=4,
     if out_of_range:
         hit = rng.uniform(0, 1, shape) < 0.05
         idx = np.where(hit, slot_size + rng.integers(0, 3 * slot_size, shape),
+                       idx).astype(np.int32)
+    if negative:
+        hit = rng.uniform(0, 1, shape) < 0.05
+        idx = np.where(hit, -1 - rng.integers(0, 3 * slot_size, shape),
                        idx).astype(np.int32)
     return table, slot, idx
 

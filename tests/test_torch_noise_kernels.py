@@ -138,6 +138,76 @@ def test_lookup_pass_form_is_the_flat_gather():
     _same(got.numpy(), table[off[None, :] + idx], "out")
 
 
+# lane counts that are no multiple of the kernel's 4-lane quads nor of the
+# JAX grouped kernel's 32-lane groups
+RAGGED = [(97, 128), (33, 128)]
+
+
+@pytest.mark.parametrize("slot_size", [4096, 32768])
+@pytest.mark.parametrize("m,n", RAGGED)
+def test_lookup_plain_matches_table_lookup_pallas_ragged(m, n, slot_size):
+    """Indices out of range both ways (below 0, at or past the slot's
+    end) read 0 in the JAX kernel and in both lane-major forms here."""
+    table, slot, idx = random_lookup_inputs(n, m, slot_size, seed=m,
+                                            out_of_range=True, negative=True)
+    assert (idx < 0).any() and (idx >= slot_size).any()
+    tab3 = table.reshape(-1, slot_size // 128, 128)
+    want = _interpret(jk.table_lookup_pallas, _j(tab3), _j(slot), _j(idx),
+                      slot_size=slot_size)
+    for fn in (lk.table_lookup_pallas, lk.table_lookup_grouped):
+        got = fn(_t(tab3), _t(slot), _t(idx), slot_size)
+        _same(got.numpy(), want, fn.__name__)
+
+
+@pytest.mark.parametrize("slot_size", [4096, 32768])
+@pytest.mark.parametrize("m,n", RAGGED)
+def test_lookup_plain_matches_table_lookup_grouped_ragged(m, n, slot_size):
+    """The JAX grouped kernel pads the lanes to its groups.  It takes
+    clipped indices only (its docstring): past the slot its interpreted
+    sweep reads the slot's last row, below 0 it sweeps 2^25 rows.  So its
+    indices stay inside the slot here; out of range, the port's grouped
+    form is held to ``table_lookup_pallas`` above."""
+    table, slot, idx = random_lookup_inputs(n, m, slot_size, seed=m + 1)
+    tab3 = table.reshape(-1, slot_size // 128, 128)
+    want = _interpret(jk.table_lookup_grouped, _j(tab3), _j(slot), _j(idx),
+                      slot_size=slot_size)
+    got = lk.table_lookup_grouped(_t(tab3), _t(slot), _t(idx), slot_size)
+    _same(got.numpy(), want, "out")
+
+
+@pytest.mark.parametrize("m,n", RAGGED + [(40, 7)])
+def test_lookup_pass_form_matches_the_xla_gather(m, n):
+    """The pass form on time-major indices against the JAX package's XLA
+    branch, ``table_buffer[table_off[..., None] + idx]``
+    (``skred_tpu/engine/fused.py:573``), on indices clipped to
+    ``max(size, 1)`` as the walk clips them, tables of size 0 and 1
+    among them."""
+    rng = np.random.default_rng(m + n)
+    table = rng.standard_normal(3 * 32768).astype(np.float32)
+    size = rng.choice(np.array([0, 1, 707, 4096, 32768]), m)
+    off = (rng.integers(0, 2, m) * 32768).astype(np.int32)
+    lim = np.maximum(size, 1).astype(np.int32)
+    idx = (rng.uniform(0, 1, (m, n)) * lim[:, None]).astype(np.int32)
+    want = np.asarray(jnp.asarray(table)[jnp.asarray(off)[..., None]
+                                         + jnp.asarray(idx)])
+    got = lk.lookup(_t(table), _t(off), _t(lim),
+                    _t(np.ascontiguousarray(idx.T)))
+    _same(got.numpy().T, want, "out")
+
+
+@pytest.mark.parametrize("what", ["table", "idx"])
+def test_lookup_refuses_2_31_elements(what):
+    """The kernel's index arithmetic is 32-bit: its wrapper refuses a
+    table or an index block of 2^31 elements (meta tensors: no memory)."""
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    table = meta((2 ** 31 if what == "table" else 64,), torch.float32)
+    idx = meta((2 ** 16, 2 ** 15) if what == "idx" else (4, 8), torch.int32)
+    lanes = idx.shape[1]
+    with pytest.raises(ValueError, match=r"2\^31"):
+        lk._pack_args(table, meta((lanes,), torch.int32),
+                      meta((lanes,), torch.int32), idx, False)
+
+
 @pytest.mark.parametrize("case", sorted(FS_CASES))
 def test_filt_smooth_plain_matches_pallas_interpret(case):
     feat = FS_CASES[case]
