@@ -15,8 +15,12 @@ stream); and corpus/fb1-fb5.sk, whose cyclic modulation
 graphs take the cyclic kernel.  Phases, in order (any failure exits
 non-zero):
 
-  1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc for every csrc/*.cu, for the cyclic kernel's keys
+  1. device       the card's name and power limit (nvidia-smi), and its
+                  peaks from skred_tpu_torch/parallel/roofline.py (a card
+                  the table does not hold fails the run: every bound
+                  would be a guess)
+  2. build        the native host compiler (g++, csrc/skred_host.cpp into
+                  build/host/); nvcc for every csrc/*.cu, for the cyclic kernel's keys
                   (fb1-fb5 as the main path and the kernel phase render
                   them, and the all-features script), for the tier
                   kernel's keys (stress64's tiers with mix and fold on and
@@ -89,8 +93,8 @@ non-zero):
                   32768-sample slots), each kernel turn bit-equal to the
                   plain version, with the SASS instructions an element,
                   the issue floor, the bytes bound, the bandwidth
-                  reached as a share of 3.35 TB/s and a device copy of
-                  the same bytes
+                  reached as a share of the card's memory rate and a
+                  device copy of the same bytes
   7. noise short  noise64 as in 5
   8. cyclic main  each of fb1-fb5: stack_timelines (1024 rows) ->
                   pack_stacked(cyclic=True) ->
@@ -112,8 +116,23 @@ non-zero):
                   per block), at 8 rows x 4 blocks, as in 5
  10. batch        render_batch over stress64, noise64 and fb1-fb5 at
                   0.25 s: finite, no silent row, every kernel launched
+ 11. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
+                  headline and, per bucket, x_rt, wall spread, set-up
+                  seconds and roofline label; it fails unless there are
+                  seven buckets (stress64, noise64, fb1-fb5), each
+                  compiled by the native compiler, with equal checksums
+                  over its timed passes, no build inside them (the bench
+                  itself exits 1 on either), and the launches its path
+                  needs: the keyed tier kernel on stress64, the keyed
+                  walk, the lookup and the keyed filter on noise64, the
+                  keyed cyclic kernel on fb1-fb5, no general variant
 
-The line before the last is the kernels' JSON record; the last line is
+Every bound comes from skred_tpu_torch/parallel/roofline.py, and the
+profiled chunks are aggregated by skred_tpu_torch/tools/profile_roofline.py.
+
+The line before the last is the kernels' JSON record (``launches`` from
+the main paths' timed passes, ``bench_launches`` from the bench's); the
+last line is
 {"ok": true, "device": {...}}.  Needs torch with CUDA and nvcc; imports
 nothing of JAX.
 """
@@ -128,8 +147,9 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+from skred_tpu_torch.parallel import roofline
+from skred_tpu_torch.parallel.roofline import nbytes
+
 SECONDS = 10.0
 ROWS = 1024
 CHUNK = 172
@@ -238,19 +258,6 @@ def max_abs(a, b):
     return float(torch.where(agree, 0.0, (a - b).abs()).max())
 
 
-def nbytes(*xs):
-    return sum(x.numel() * x.element_size() for x in xs if x is not None)
-
-
-def bound(read, write, ops):
-    """Least time on this card: the bytes read once and written once over
-    the memory rate, against the f32 operations over the f32 rate (fma
-    counted as 2).  Returns (ms, "bytes" | "operations")."""
-    t_bytes = (read + write) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def to_card(arrs, dev):
     return [None if a is None else torch.from_numpy(a).to(dev) for a in arrs]
 
@@ -259,9 +266,8 @@ def to_card(arrs, dev):
 # bound, each taking (a, kw): the positional and keyword arguments as the
 # renderer passed them.
 
-def tier_spec(tk):
-    from skred_tpu_torch.engine.kernels.tier import (_FOLD_VECS, _flags,
-                                                     _folded, _state_keys)
+def tier_spec(tk, peaks):
+    from skred_tpu_torch.engine.kernels.tier import _flags, _folded
 
     def pack(a, kw):
         args, out, outs = tk._pack_args(
@@ -285,42 +291,6 @@ def tier_spec(tk):
             kw["out"] = None
         return a, kw
 
-    def bnd(a, kw):
-        """Bytes: every stream passed in, the bank columns this call's
-        lanes read (each once, whatever the number of readers, plus their
-        previous samples), the per-lane vectors and states; out, the end
-        states and, with the mix, the weights and the accumulators (read
-        too where the call adds onto earlier ones)."""
-        table, cbase, inc, dm, amod, vecs, states = a
-        fl, n = _flags(kw["feat"]), kw["n"]
-        m = vecs["amp"].shape[0]
-        ops = 6 + (3 if fl["fm"] else 0) + (5 if fl["cz"] else 0) \
-            + (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
-            + (3 if fl["sm"] else 0) + (12 if fl["env"] else 0) \
-            + (2 if fl["am"] else 0) + 1
-        read = nbytes(table, inc, dm, amod, *vecs.values(), *states.values())
-        write = n * m * 4 + m * 4 * (len(_state_keys(fl)) + 1)
-        fold = kw.get("fold")
-        folded = _folded(fl, fold)
-        if folded and fold.w:
-            b = kw["b"]
-            lane_b = torch.arange(m, device=vecs["amp"].device) % b
-            gate = {"fm": "use_fm", "cz": "cm_ge0", "am": "am_ge0"}
-            cols = []
-            for k in folded:
-                src = vecs[_FOLD_VECS[k][0]].long()
-                on = (src >= 0) & (src < fold.w) & (vecs[gate[k]] != 0)
-                cols.append((src * b + lane_b)[on])
-            read += (n + 1) * 4 * int(torch.unique(torch.cat(cols)).numel())
-        if kw.get("mixw") is not None:
-            b = kw["b"]
-            ops += 4
-            read += nbytes(*kw["mixw"])
-            write += 2 * n * b * 4 + m * 4
-            if kw.get("acc") is not None:
-                read += 2 * n * b * 4
-        return bound(read, write, ops * n * m)
-
     def key(kw):
         return tk.tier_key(kw["feat"], kw.get("exact", True),
                            kw.get("mixw") is not None,
@@ -343,38 +313,26 @@ def tier_spec(tk):
                 folded=lambda kw: _folded(_flags(kw["feat"]), kw.get("fold")),
                 run=lambda a, kw: flat(tk.tier(*a, **kw)),
                 plain=lambda a, kw: flat(tk.tier_plain(*a, **plain_kw(kw))),
-                bound=bnd, lanes=lambda a, kw: a[5]["amp"].shape[0])
+                bound=lambda a, kw: roofline.tier_bound(a, kw, peaks),
+                lanes=lambda a, kw: a[5]["amp"].shape[0])
 
 
-def phase_walk_spec(pw):
+def phase_walk_spec(pw, peaks):
     def pack(a, kw):
         args, outs = pw._pack_args(*a, kw["fm"], kw["finish"], kw["n"])
         return args, list(outs)
 
-    def bnd(a, kw):
-        inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act = a
-        n, m = kw["n"], phase0.shape[0]
-        fin = kw["finish"]
-        read = nbytes(inc, phase0, lo, hi, L, adv) \
-            + (nbytes(fin0, osn, one_shot, act) if fin else 0)
-        write = n * m * 4 * (2 if fin else 1) + m * 4 * (2 if fin else 1)
-        # add, subtract, fmod, two wrap adds per lane-sample
-        return bound(read, write, 5 * n * m)
-
     return dict(name="phase_walk", fn=pw.phase_walk, pack=pack,
                 run=lambda a, kw: list(pw.phase_walk(*a, **kw)),
                 plain=lambda a, kw: list(pw.phase_walk_plain(*a, **kw)),
-                bound=bnd, lanes=lambda a, kw: a[1].shape[0])
+                bound=lambda a, kw: roofline.phase_walk_bound(a, kw, peaks),
+                lanes=lambda a, kw: a[1].shape[0])
 
 
-def lookup_spec(lk):
+def lookup_spec(lk, peaks):
     def pack(a, kw):
         args, out = lk._pack_args(*a, False)
         return args, [out]
-
-    def bnd(a, kw):
-        table, base, limit, idx = a
-        return bound(nbytes(table, base, limit, idx), nbytes(idx), 0)
 
     def library(a):
         # torch.take indexes with int64: the i64 base makes the sum i64
@@ -385,55 +343,21 @@ def lookup_spec(lk):
     return dict(name="lookup", fn=lk.lookup, pack=pack,
                 run=lambda a, kw: [lk.lookup(*a)],
                 plain=lambda a, kw: [lk.lookup_plain(*a)],
-                bound=bnd, library=library,
+                bound=lambda a, kw: roofline.lookup_bound(a, kw, peaks),
+                library=library, symbol="lookup_time_major",
                 lanes=lambda a, kw: a[1].shape[0])
 
 
-def filt_smooth_spec(fs):
+def filt_smooth_spec(fs, peaks):
     def pack(a, kw):
         args, res = fs._pack_args(a, kw.get("exact", True), kw["feat"])
         return args, list(res)
 
-    def bnd(a, kw):
-        fl = dict(zip(fs._FS_NAMES, kw["feat"]))
-        named = dict(zip(fs._ARG_NAMES, a))
-        x = named["x"]
-        n, m = x.shape
-        read = nbytes(x, named["alive"], named["amp"],
-                      named["env"] if fl["env"] else None,
-                      named["amod"] if fl["am"] else None)
-        write = nbytes(x)
-        for stage, keys in fs._VECS.items():
-            if fl[stage]:
-                read += nbytes(*(named[k] for k, _ in keys))
-        for stage, keys in fs._STATES.items():
-            if fl[stage]:
-                read += nbytes(*(named[k + "_0"] for k, _, _ in keys))
-                write += m * 4 * len(keys)
-        ops = (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
-            + (3 if fl["sm"] else 0) + 2 + 1
-        return bound(read, write, ops * n * m)
-
     return dict(name="filt_smooth", fn=fs.filt_smooth, pack=pack,
                 run=lambda a, kw: list(fs.filt_smooth(*a, **kw)),
                 plain=lambda a, kw: list(fs.filt_smooth_plain(*a, **kw)),
-                bound=bnd, lanes=lambda a, kw: a[0].shape[1])
-
-
-def bank_bytes(fold, vecs, pairs, b, n, m):
-    """Bytes of the bank columns a call's lanes read, each column once
-    whatever its readers, with its sample before the block: ``pairs``
-    are (source vector, gate vector) names of the streams read."""
-    if fold is None or not fold.w or not pairs:
-        return 0
-    dev = vecs[pairs[0][0]].device
-    lane_b = torch.arange(m, device=dev) % b
-    cols = []
-    for src_k, gate_k in pairs:
-        src = vecs[src_k].long()
-        on = (src >= 0) & (src < fold.w) & (vecs[gate_k] != 0)
-        cols.append((src * b + lane_b)[on])
-    return (n + 1) * 4 * int(torch.unique(torch.cat(cols)).numel())
+                bound=lambda a, kw: roofline.filt_smooth_bound(a, kw, peaks),
+                lanes=lambda a, kw: a[0].shape[1])
 
 
 # the JSON's and the max|diff| record's name of each wrapper: the keyed
@@ -444,7 +368,7 @@ RECORD_NAME = {"phase_walk_warp": "phase_walk",
                "filt_smooth": "filt_smooth_general"}
 
 
-def phase_walk_warp_spec(pw):
+def phase_walk_warp_spec(pw, peaks):
     def pack(a, kw):
         args, outs = pw._pw_pack(*a, kw["feat"], kw.get("exact", True),
                                  kw["n"], kw["b"])
@@ -457,31 +381,16 @@ def phase_walk_warp_spec(pw):
         return lambda: cuda_call.launch("phase_walk", args, dev, key,
                                         "phase_walk_keyed_launch")
 
-    def bnd(a, kw):
-        """Bytes: the per-lane vectors and start states, the bank columns
-        the lanes' fm and cz reads take; the index, the alive count and
-        the end states.  Operations: the walk (6), the FM increment (3),
-        the CZ warp (the divide and the curve, 8)."""
-        bank, vecs, phase0, fin0 = a
-        fl = pw._pw_flags(kw["feat"], kw.get("exact", True))
-        n, m = kw["n"], phase0.shape[0]
-        read = nbytes(phase0, fin0 if fl["finish"] else None,
-                      *(vecs[k] for k, _ in pw._pw_vec_keys(fl)))
-        pairs = ([("fm_src", "use_fm")] if fl["fm"] else []) \
-            + ([("cz_src", "cm_ge0")] if fl["czm"] else [])
-        read += bank_bytes(bank, vecs, pairs, kw["b"], n, m)
-        write = n * m * 4 + m * 4 * (3 if fl["finish"] else 2)
-        ops = 6 + (3 if fl["fm"] else 0) + (8 if fl["cz"] else 0)
-        return bound(read, write, ops * n * m)
-
     return dict(name="phase_walk_warp", fn=pw.phase_walk_warp, pack=pack,
                 launch=launch, symbol="phase_walk_keyed",
                 run=lambda a, kw: list(pw.phase_walk_warp(*a, **kw)),
                 plain=lambda a, kw: list(pw.phase_walk_warp_plain(*a, **kw)),
-                bound=bnd, lanes=lambda a, kw: a[2].shape[0])
+                bound=lambda a, kw: roofline.phase_walk_warp_bound(a, kw,
+                                                                   peaks),
+                lanes=lambda a, kw: a[2].shape[0])
 
 
-def filt_smooth_noise_spec(fs):
+def filt_smooth_noise_spec(fs, peaks):
     def pack(a, kw):
         args, out, ends = fs._fn_pack(*a, kw["feat"], kw.get("exact", True),
                                       kw["b"], kw.get("out"))
@@ -503,60 +412,24 @@ def filt_smooth_noise_spec(fs):
         not write over the kernel's."""
         return a, dict(kw, out=None) if plain else kw
 
-    def bnd(a, kw):
-        """Bytes: the lookup's samples the lanes need (live samples of
-        lanes that are not noise voices), the noise stream, the alive
-        counts, the per-lane vectors the key reads (``fn_vec_keys``) and
-        the start states of its stages, the bank columns
-        the am reads take; the output and the end states.  Operations:
-        the serial stages, the envelope (12) and the gain."""
-        f, noise_blk, cnt, cbase, bank, vecs, states = a
-        fl = fs._fs_flags(kw["feat"], kw.get("exact", True))
-        n, m = f.shape
-        tpos = torch.arange(n, device=f.device)[:, None]
-        need = (tpos < cnt[None]) & (vecs["is_noise"][None] == 0)
-        used = [states[k] for stage, keys in fs._NOISE_STATES.items()
-                if fl[stage] for k, _ in keys]
-        read = 4 * int(need.sum()) + nbytes(
-            noise_blk, cnt, *(vecs[k] for k, _ in fs.fn_vec_keys(fl)), *used)
-        if fl["am"]:
-            read += bank_bytes(bank, vecs, [("am_src", "am_ge0")], kw["b"],
-                               n, m)
-        write = n * m * 4 + nbytes(*used)
-        ops = (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
-            + (3 if fl["sm"] else 0) + (12 if fl["env"] else 0) \
-            + (2 if fl["am"] else 0) + 3
-        return bound(read, write, ops * n * m)
-
     return dict(name="filt_smooth_noise", fn=fs.filt_smooth_noise,
                 pack=pack, launch=launch, fresh=fresh,
                 symbol="filt_smooth_keyed",
                 run=lambda a, kw: flat(fs.filt_smooth_noise(*a, **kw)),
                 plain=lambda a, kw: flat(fs.filt_smooth_noise_plain(*a,
                                                                     **kw)),
-                bound=bnd, lanes=lambda a, kw: a[0].shape[1])
+                bound=lambda a, kw: roofline.filt_smooth_noise_bound(a, kw,
+                                                                     peaks),
+                lanes=lambda a, kw: a[0].shape[1])
 
 
-def cyclic_spec(ck):
+def cyclic_spec(ck, peaks):
     def outs_of(out_l, out_r, new_states):
         return [out_l, out_r] + [new_states[k] for k in sorted(new_states)]
 
     def pack(a, kw):
         args, out_l, out_r, new_states = ck._pack_args(*a)
         return args, outs_of(out_l, out_r, new_states)
-
-    def bnd(a, kw):
-        table, table_off, _, noise_blk, vecs, states, vf, feat, k, n = a[:10]
-        fl, rows = ck._flags(feat), vf.shape[0]
-        per_voice = 12 + (3 if fl["fm"] else 0) + (8 if fl["cz"] else 0) \
-            + (4 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
-            + (12 if fl["env"] else 0) + (2 if fl["am"] else 0) \
-            + (3 if fl["sm"] else 0) + (6 if fl["pm"] else 0)
-        read = nbytes(table, table_off, noise_blk, vf, *vecs.values(),
-                      *states.values())
-        write = 2 * n * rows * 4 + nbytes(*(states[key] for key, _ in
-                                            ck._state_keys(fl))) + rows * 4
-        return bound(read, write, n * rows * (k * per_voice + 5))
 
     def launcher(a, variant):
         """Pack ``a`` once for ``variant``; returns (a launch that counts
@@ -576,7 +449,8 @@ def cyclic_spec(ck):
                 run=lambda a, kw: outs_of(*ck.cyclic_block(*a, **kw)),
                 plain=lambda a, kw: outs_of(*ck.cyclic_block_plain(
                     *a, **plain_kw(kw))),
-                bound=bnd, lanes=lambda a, kw: a[6].shape[0])
+                bound=lambda a, kw: roofline.cyclic_bound(a, kw, peaks),
+                lanes=lambda a, kw: a[6].shape[0])
 
 
 # ---- phases ----
@@ -795,7 +669,7 @@ def tier_variant_calls(dev, n):
     return calls
 
 
-def table_lookup_timing(lk, lib, card):
+def table_lookup_timing(lk, lib, card, peaks):
     """The single-lane form alone (it is on no render path): kernel,
     plain version, torch.take and bound at N=512, M=8192, 32768-sample
     slots."""
@@ -814,8 +688,8 @@ def table_lookup_timing(lk, lib, card):
     library_ms = cuda_ms(library, 20)
     if not same_bits(library(), want):
         fail("torch.take does not compute table_lookup's function")
-    bound_ms, bound_by = bound(nbytes(table, base, limit, idx), nbytes(idx),
-                              0)
+    bound_ms, bound_by = roofline.lookup_bound((table, base, limit, idx), {},
+                                               peaks)
     log(f"table_lookup M={idx.shape[0]} N={idx.shape[1]}: kernel {ms:.4f} "
         f"ms/call, plain {plain_ms:.1f} ms, torch.take {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), on {card}")
@@ -823,7 +697,7 @@ def table_lookup_timing(lk, lib, card):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def lookup_turns(captured, lib, dev, card, errs):
+def lookup_turns(captured, lib, dev, card, errs, peaks):
     """The lookup kernel in turns with torch.take (take, kernel, kernel,
     take; 20 calls each in a CUDA graph: tier 0's call is shorter than
     its launch from Python) on the noise main path's
@@ -883,7 +757,8 @@ def lookup_turns(captured, lib, dev, card, errs):
         issue_ms = per_elem * idx.numel() / 32 / (4 * sms) / (mhz * 1e6) \
             * 1e3
         moved = nbytes(table, base, limit, idx) + nbytes(idx)
-        bound_ms, bound_by = bound(moved - nbytes(idx), nbytes(idx), 0)
+        bound_ms, bound_by = roofline.lookup_bound((table, base, limit, idx),
+                                                   {}, peaks)
         mean = sum(times["kernel"]) / 2
         rate = moved / (mean * 1e-3)
         n, m = (idx.shape[1], idx.shape[0]) if lane_major else idx.shape
@@ -897,7 +772,8 @@ def lookup_turns(captured, lib, dev, card, errs):
             f"the main loop of {step} elements, {sass['instructions']} in "
             f"{sass['kernel']}), issue floor {issue_ms:.4f} ms at "
             f"{mhz:.0f} MHz, {sms} SMs; {rate / 1e12:.3f} TB/s = "
-            f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s, "
+            f"{rate / peaks.hbm_bytes_s:.1%} of "
+            f"{peaks.hbm_bytes_s / 1e12:.2f} TB/s, "
             f"{bound_ms / mean:.1%} of the bound; a device copy of the "
             f"index block {copy_ms:.4f} ms ({copy_rate / 1e12:.3f} TB/s); "
             f"bit-equal to the plain "
@@ -1602,57 +1478,46 @@ def config_compare(dev, card, specs, errs):
     out = {}
     for cfg in configs:
         log(profile_line(f"config {cfg}",
-                         lambda: run(cfg, warmup_only=True), ["tier"]))
+                         lambda: run(cfg, warmup_only=True),
+                         ["tier_keyed"]))
         out[cfg] = time_captured(f"config {cfg}", captured[cfg], specs, dev,
                                  card, errs)
     return out
 
 
 def profile_line(label, run, names):
-    """Device time by kernel over one profiled chunk (``run`` renders
-    it)."""
-    try:
-        from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel and by category over one profiled chunk
+    (``run`` renders it), from the profiler tool's aggregation."""
+    from skred_tpu_torch.tools import profile_roofline as prof
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.time()
-            run()
-            torch.cuda.synchronize()
-            pwall = time.time() - t0
-        dev_us, host_ops = {}, {}
-        for e in prof.key_averages():
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = getattr(e, "cuda_time_total", 0)
-            if us and e.device_type is not None \
-                    and "cuda" in str(e.device_type).lower():
-                dev_us[e.key] = (us, e.count)
-            elif e.key.startswith("aten::"):
-                host_ops[e.key[6:]] = e.count
-        if not dev_us:
-            return f"profile ({label}): not measured (no device events)"
-        busy = sum(u for u, _ in dev_us.values()) / 1e6
-        parts = []
-        for name in names:
-            hits = [(u, c) for k, (u, c) in dev_us.items()
-                    if f"{name}_kernel" in k]
-            parts.append(f"{name}_kernel {hits[0][0] / 1e3 / hits[0][1]:.3f} "
-                         f"ms/call x {hits[0][1]} = {hits[0][0] / 1e3:.1f} ms"
-                         if hits else f"{name}_kernel not found")
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:6]
-        n_ops = sum(c for _, c in dev_us.values())
-        return (f"profile ({label}, {CHUNK} blocks, wall {pwall:.3f} s): "
-                f"device busy {busy:.3f} s = {100 * busy / pwall:.1f}% of "
-                f"wall; {n_ops} device operations = {n_ops / CHUNK:.1f} per "
-                f"block; " + "; ".join(parts) + "; top: " + "; ".join(
-                    f"{k[:40]} {u / 1e3:.1f} ms/{c}" for k, (u, c) in top)
-                + "; torch ops per block (nested calls counted too): "
-                + ", ".join(f"{k} {c / CHUNK:.1f}" for k, c in sorted(
-                    host_ops.items(), key=lambda kv: -kv[1])[:12]))
+    try:
+        events, pwall = prof.trace(run)
+        agg = prof.aggregate(events, CHUNK)
     except Exception as ex:   # noqa: BLE001 - the profiler is optional
         return f"profile ({label}): not measured ({type(ex).__name__}: {ex})"
+    if agg is None:
+        return f"profile ({label}): not measured (no device events)"
+    busy, kernels = agg["device_busy_s"], agg["kernels"]
+    parts = []
+    for name in names:
+        hits = [t for k, t in kernels.items() if f"{name}_kernel" in k]
+        parts.append(f"{name}_kernel {hits[0]['ms'] / hits[0]['calls']:.3f} "
+                     f"ms/call x {hits[0]['calls']} = {hits[0]['ms']:.1f} ms"
+                     if hits else f"{name}_kernel not found")
+    top = list(kernels.items())[:6]
+    return (f"profile ({label}, {CHUNK} blocks, wall {pwall:.3f} s): "
+            f"device busy {busy:.3f} s = {100 * busy / pwall:.1f}% of "
+            f"wall; {agg['device_ops']} device operations = "
+            f"{agg['device_ops_per_block']:.1f} per block; "
+            + "; ".join(parts) + "; by category: " + ", ".join(
+                f"{c} {ms:.1f} ms" for c, ms in agg["categories_ms"].items())
+            + f" (the volume scan's kernels {agg['volume_scan_ms']:.1f} ms of "
+            f"them, its span {agg['volume_scan_span_ms']:.1f} ms); "
+            "top: " + "; ".join(f"{k[:40]} {t['ms']:.1f} ms/{t['calls']}"
+                                for k, t in top)
+            + "; torch ops per block (nested calls counted too): "
+            + ", ".join(f"{k} {c:.1f}" for k, c in list(
+                agg["torch_calls_per_block"].items())[:12]))
 
 
 def short_path(label, st4, dev, module, render, plain_swap,
@@ -1970,10 +1835,72 @@ def batch_phase(dev, card, counters):
                  f"{nm}")
 
 
+BENCH_SECONDS = NOISE64_SECONDS    # 344 whole blocks: 2 chunks of 172
+
+
+def bench_phase(card, counters):
+    """bench_torch.main on the card at 4 s: its seven buckets (stress64
+    and noise64 at fill_bucket's 2048 rows, fb1-fb5 at 1024), each with
+    the launches its render path needs in its two timed passes and no
+    general variant's.  Returns the launches summed over the buckets'
+    timed passes."""
+    import bench_torch
+
+    want_scripts = [STRESS64.name, NOISE64.name] + [p.name for p in FEEDBACK]
+    try:
+        res = bench_torch.main(seconds=BENCH_SECONDS)
+    except SystemExit as ex:
+        fail(f"bench: bench_torch.main exited with {ex.code}")
+    log(f"bench: {res['value']}x realtime over {len(res['buckets'])} "
+        f"buckets, "
+        f"slowest bucket {res['slowest_bucket_x_rt']}x, "
+        f"{res['total_audio_s']} s of audio in {res['total_wall_s']} s "
+        f"(best of 2 timed passes a bucket), on {res['card']['name']}, "
+        f"power limit {res['card']['power_limit']}")
+    found = [s for b in res["buckets"] for s in b["scripts"]]
+    if sorted(found) != sorted(want_scripts) or len(res["buckets"]) != 7 \
+            or res.get("partial"):
+        fail(f"bench: buckets {[b['scripts'] for b in res['buckets']]}, "
+             f"not one for each of {want_scripts}")
+    general = ("tier_general", "phase_walk", "filt_smooth", "cyclic_general")
+    totals = {}
+    for b in res["buckets"]:
+        roof = b["roofline"]
+        log(f"bench bucket {','.join(b['scripts'])}: {b['rows']} rows x "
+            f"{b['blocks']} blocks, x_rt {b['x_rt']}, wall_spread "
+            f"{b['wall_spread']} s, setup_s {b['setup_s']} s, roofline "
+            f"{roof['bound']} ({roof['pct_hbm_peak']}% of the memory rate, "
+            f"{roof['pct_f32_peak']}% of the f32 rate, bound "
+            f"{roof['bound_ms_per_block']:.4f} ms a block), launches "
+            f"{b['launches']}, compiler {b['compiler']}, checksums "
+            f"{b['checksums']}, on {card}")
+        if len(set(b["checksums"])) != 1:
+            fail(f"bench: checksums differ between passes: {b}")
+        if set(b["compiler"].values()) != {"native"}:
+            fail(f"bench: not compiled by the native compiler: {b}")
+        name, per_pass = b["scripts"][0], 2 * b["blocks"]
+        if name == STRESS64.name:
+            want = {"tier": 2 * per_pass, "tier_keyed": 2 * per_pass}
+        elif name == NOISE64.name:
+            want = {k: 2 * per_pass for k in ("phase_walk_warp", "lookup",
+                                              "filt_smooth_noise")}
+        else:
+            want = {"cyclic": per_pass, "cyclic_fixed": per_pass}
+        if b["launches"] != want:
+            fail(f"bench: {name}'s timed passes launched {b['launches']}, "
+                 f"not {want}")
+        for nm, c in b["launches"].items():
+            totals[nm] = totals.get(nm, 0) + c
+    if any(totals.get(nm) for nm in general):
+        fail(f"bench: a general variant was launched: {totals}")
+    return {nm: totals.get(nm, 0) for nm in counters}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "card")
+    import bench_torch
     from skred_tpu_torch.engine import cyclic, fused
     from skred_tpu_torch.engine.kernels import build
     from skred_tpu_torch.engine.kernels import cyclic as ck
@@ -1984,6 +1911,11 @@ def main():
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    peaks = roofline.peaks_for(kind)
+    if peaks is None:
+        fail(f"no published peaks for {kind} in "
+             f"skred_tpu_torch/parallel/roofline.py: the bounds would be "
+             f"guesses")
 
     # ---- 1. device ----
     smi = subprocess.run(
@@ -2004,6 +1936,12 @@ def main():
                                       for key in keys.values()]
                            + [("tier", key) for key in tkeys.values()]
                            + list(nkeys.values()))
+    from skred_tpu_torch.host import native
+
+    t1 = time.time()
+    lib_path = native.build_library()
+    log(f"build: the native host compiler {lib_path.name} in "
+        f"{time.time() - t1:.1f} s (g++)")
     log(f"build: {len(secs)} build(s) ({len(sources)} sources, "
         f"{len(set(keys.values()))} keys of the cyclic kernel, "
         f"{len(set(tkeys.values()))} of the tier kernel, "
@@ -2038,18 +1976,13 @@ def main():
     for name, key in nkeys.values():
         build.load(name, key, f"{name}_keyed_launch")
 
-    specs = {s["name"]: s for s in (tier_spec(tk), phase_walk_spec(pw),
-                                    lookup_spec(lk), filt_smooth_spec(fs),
-                                    phase_walk_warp_spec(pw),
-                                    filt_smooth_noise_spec(fs),
-                                    cyclic_spec(ck))}
+    specs = {s["name"]: s for s in (
+        tier_spec(tk, peaks), phase_walk_spec(pw, peaks),
+        lookup_spec(lk, peaks), filt_smooth_spec(fs, peaks),
+        phase_walk_warp_spec(pw, peaks), filt_smooth_noise_spec(fs, peaks),
+        cyclic_spec(ck, peaks))}
     noise_kernels = ["phase_walk_warp", "lookup", "filt_smooth_noise"]
-    counters = {name: sp["fn"] for name, sp in specs.items()}
-    counters.update(tier_keyed=tk.tier_keyed, tier_general=tk.tier_general,
-                    table_lookup=lk.table_lookup_pallas,
-                    table_lookup_grouped=lk.table_lookup_grouped,
-                    cyclic_fixed=ck.cyclic_fixed,
-                    cyclic_general=ck.cyclic_general)
+    counters = bench_torch.launch_counters()
 
     # ---- 3. kernel vs plain on random blocks ----
     phase("kernel")
@@ -2103,8 +2036,8 @@ def main():
                {"phase_walk_warp": pw.phase_walk_warp_plain,
                 "lookup": lk.lookup_plain,
                 "filt_smooth_noise": fs.filt_smooth_noise_plain})
-    tl_time = table_lookup_timing(lk, lib, card)
-    lookup_turns(n_calls, lib, dev, card, errs)
+    tl_time = table_lookup_timing(lk, lib, card, peaks)
+    lookup_turns(n_calls, lib, dev, card, errs, peaks)
 
     # ---- 8./9. fb1-fb5: the cyclic kernel's path ----
     phase("cyclic main, cyclic short")
@@ -2126,6 +2059,10 @@ def main():
     # ---- 10. every in-repo script through render_batch ----
     phase("batch")
     batch_phase(dev, card, counters)
+
+    # ---- 11. the port's bench ----
+    phase("bench")
+    b_launch = bench_phase(card, counters)
 
     def record(name, launches, timings, replaces, source):
         m = max(mm for (nm, mm) in timings if nm == name)
@@ -2214,6 +2151,16 @@ def main():
              max_abs_err=errs.get("cyclic_general", 0.0),
              **c_time["fb2", ROWS, "general"]),
     ]
+    # the bench's launches: each bucket's two timed passes, summed; the
+    # JSON's name of each record -> the wrapper whose count it reads
+    bench_counter = {"tier": "tier_keyed", "phase_walk": "phase_walk_warp",
+                     "phase_walk_general": "phase_walk",
+                     "filt_smooth": "filt_smooth_noise",
+                     "filt_smooth_general": "filt_smooth",
+                     "cyclic": "cyclic_fixed"}
+    for rec in kernels:
+        rec["bench_launches"] = b_launch[bench_counter.get(rec["name"],
+                                                           rec["name"])]
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -33,11 +33,11 @@ Layout: per-lane streams are time-major ``[N, M]`` over voice-major lanes
 the kernels and the mix never transpose a block.  Per-voice parameters
 and the carry stay ``[B, V]`` as the JAX package keeps them.
 
-Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_stream,
-render_fused_stream_device) on its Pallas paths.  A cyclic batch is a
-ValueError here, as in the JAX package: ``engine/cyclic.py`` renders it
-(``render_cyclic``).  Not ported yet, each raising NotImplementedError:
-capture and several devices.
+Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_device,
+render_fused_stream, render_fused_stream_device) on its Pallas paths.  A
+cyclic batch is a ValueError here, as in the JAX package:
+``engine/cyclic.py`` renders it (``render_cyclic``).  Not ported yet,
+each raising NotImplementedError: capture and several devices.
 """
 
 from __future__ import annotations
@@ -355,18 +355,15 @@ def _tier_keys(r):
     and the fold where it folds), and in the repeat-passes layout its
     estimate passes (no mix, no fold).  Per-tier features are static
     over a render, so these are all its calls' keys."""
-    feat = r.feat
-    any_mod = feat.fm or (feat.cz and feat.czm) or feat.am
     keys = []
     for ti in range(len(r.tiers)):
-        ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
+        ft = r.tier_feat(ti)
         if ft.noise:
             continue
-        fold = bool(r.fold_tiers and r.fold_tiers[ti])
         kf = _kernel_feat(ft)
         keys.append(tier_key(kf, r.exact, r.mix,
-                             ("fm", "cz", "am") if fold else ()))
-        if len(r.tiers) == 1 and any_mod and r.mod_passes > 1:
+                             ("fm", "cz", "am") if r.folds(ti) else ()))
+        if r.estimate()[0]:
             keys.append(tier_key(kf, r.exact))
     return tuple(dict.fromkeys(keys))
 
@@ -376,7 +373,7 @@ def _noise_keys(r):
     has: (source, key) pairs."""
     keys = []
     for ti in range(len(r.tiers)):
-        ft = r.feat_tiers[ti] if r.feat_tiers is not None else r.feat
+        ft = r.tier_feat(ti)
         if ft.noise:
             keys += [("phase_walk", phase_walk_key(_pw_feat(ft), r.exact)),
                      ("filt_smooth",
@@ -686,7 +683,67 @@ def _pack_by_dtype(arrs: dict, Vp: int):
 # ---- the block loop ----
 
 @dataclasses.dataclass
-class _Render:
+class Plan:
+    """The static routing of a packed batch's blocks: which kernels each
+    tier runs, on which lanes, and where its modulator streams come
+    from.  The block loop, its kernel builds and the roofline model
+    (``parallel/roofline.py``) all read it, so the routing is decided
+    here once."""
+    Vp: int
+    tiers: tuple                  # voices per tier; (Vp,) without tiers
+    feat: Feat
+    feat_tiers: Optional[tuple]   # per-tier features (None: one tier)
+    mix: bool                     # tier-kernel tiers mix in the kernel
+    fold_tiers: Optional[tuple]   # per-tier bank fold (None: none folds)
+    mod_passes: int
+    n_src: int                    # modulator-source prefix (no tiers)
+
+    @property
+    def any_mod(self) -> bool:
+        f = self.feat
+        return bool(f.fm or (f.cz and f.czm) or f.am)
+
+    def tier_feat(self, ti) -> Feat:
+        return self.feat_tiers[ti] if self.feat_tiers is not None \
+            else self.feat
+
+    def folds(self, ti) -> bool:
+        """Tier ``ti`` reads its streams from the bank in the kernel."""
+        return bool(self.fold_tiers and self.fold_tiers[ti])
+
+    def streams_in(self, ti) -> bool:
+        """Tier ``ti`` reads modulator streams: the earlier tiers'
+        columns of the block buffer, or in a batch of one tier its
+        estimate passes' output."""
+        return self.any_mod and (ti > 0 or len(self.tiers) == 1)
+
+    def estimate(self) -> tuple:
+        """(passes, voices) of the estimate passes each block of a
+        one-tier batch runs before its last pass: ``mod_passes - 1``
+        passes over the modulator-source prefix where the pack made one,
+        else over all voices; (0, 0) where there are none."""
+        if len(self.tiers) != 1 or not self.any_mod or self.mod_passes < 2:
+            return 0, 0
+        ns = self.n_src
+        return self.mod_passes - 1, ns if 0 < ns < self.Vp else self.Vp
+
+
+def plan(st, mix: bool = True, fold: bool = True) -> Plan:
+    """The ``Plan`` of a packed batch as the renderer takes it with these
+    ``mix`` and ``fold`` options (see the module docstring)."""
+    feat = compute_feat(st)
+    vp = int(np.asarray(st.params["amp"]).shape[-1])
+    fts = _feat_tiers(st)
+    return Plan(Vp=vp, tiers=tuple(st.tiers) if st.tiers else (vp,),
+                feat=feat, feat_tiers=fts,
+                # only a tier that takes the tier kernel mixes in it
+                mix=bool(mix) and not all(ft.noise for ft in fts or (feat,)),
+                fold_tiers=_fold_tiers(st, fts) if fold else None,
+                mod_passes=st.fused_passes, n_src=int(st.n_src or 0))
+
+
+@dataclasses.dataclass
+class _Render(Plan):
     """A packed batch on the device, ready for the block loop."""
     params: dict
     ops: dict
@@ -694,17 +751,9 @@ class _Render:
     seg_is_start: torch.Tensor
     table: torch.Tensor
     B: int
-    Vp: int
     block: int
-    tiers: tuple
-    feat: Feat
-    feat_tiers: tuple
     exact: bool
     single_seg: bool
-    mod_passes: int = 1
-    n_src: int = 0                # modulator-source prefix (no tiers)
-    mix: bool = True              # tier-kernel tiers mix in the kernel
-    fold_tiers: Optional[tuple] = None
     buf: Optional[torch.Tensor] = None       # [N, Vp*B] block buffer
     p_const: Optional[dict] = None
     o_const: Optional[dict] = None
@@ -763,20 +812,21 @@ def _estimate(r, run, carry, p, tp, prev_vm, cbase):
     passes renders into a tensor of its own, over the ``n_src``
     modulator-source prefix only where the pack made one (no other
     voice is read).  Returns [N, Vp*B]."""
-    B, n, ns = r.B, r.block, r.n_src
+    B, n = r.B, r.block
     est = prev_vm[None].expand(n, -1)
     args = (cbase, r.table, r.exact, r.feat, n, B)
-    if 0 < ns < r.Vp and r.mod_passes > 1:
+    passes, ns = r.estimate()
+    if passes and ns < r.Vp:
         p_s = _tier_slice(p, 0, ns, r.Vp)
         c_s = _tier_slice(carry, 0, ns, r.Vp)
         tp_s = r.src_params if r.single_seg \
             else _pass_params(p_s, p["phase_inc"], r.feat)
-        for _ in range(r.mod_passes - 1):
+        for _ in range(passes):
             s_src = run(est[:, :ns * B], prev_vm[:ns * B], c_s, p_s, tp_s,
                         *args)[0]
             est = torch.cat([s_src, est[:, ns * B:]], dim=1)
     else:
-        for _ in range(r.mod_passes - 1):
+        for _ in range(passes):
             est = run(est, prev_vm, carry, p, tp, *args)[0]
     return est
 
@@ -796,7 +846,6 @@ def _block_step(r: _Render, carry, k_glob):
                          r.feat)
     cbase = k_glob * n + 1               # 1-based global sample count
     feat = r.feat
-    any_mod = feat.fm or (feat.cz and feat.czm) or feat.am
     bounds = np.cumsum((0,) + tuple(r.tiers))
     layered = len(r.tiers) > 1
     # taken after the segment-start ops: a delayed read at t = 0 sees a
@@ -814,8 +863,8 @@ def _block_step(r: _Render, carry, k_glob):
         ts, te = int(bounds[ti]), int(bounds[ti + 1])
         p_t = _tier_slice(p, ts, te, r.Vp)
         c_t = _tier_slice(carry, ts, te, r.Vp)
-        ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
-        fold = bool(r.fold_tiers and r.fold_tiers[ti])
+        ft = r.tier_feat(ti)
+        fold = r.folds(ti)
         if ft.noise:
             run = functools.partial(_noise_pass, noise_blk=nblk)
         else:
@@ -824,13 +873,14 @@ def _block_step(r: _Render, carry, k_glob):
             tp = r.tier_params[ti]
         else:
             tp = _pass_params(p_t, full_inc, ft, fold)
-        if layered:
+        if not r.streams_in(ti):
+            est = None
+        elif layered:
             # earlier tiers' columns of the block buffer are the bank
-            est = r.buf[:, :ts * B] if any_mod and ts else None
+            est = r.buf[:, :ts * B]
         else:
             # fixed-point passes read columns that have not converged
-            est = _estimate(r, run, c_t, p_t, tp, prev_vm, cbase) \
-                if any_mod else None
+            est = _estimate(r, run, c_t, p_t, tp, prev_vm, cbase)
         out_cols = r.buf[:, ts * B:te * B]
         kw = dict(out=out_cols)
         if not ft.noise:
@@ -900,7 +950,8 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
                                   "not ported yet (ROADMAP item 8)")
     if "fm_delayed" not in st.params:
         st = pack_stacked(st)
-    feat = compute_feat(st)
+    pl = plan(st, mix, fold)
+    feat = pl.feat
     if exact is None:
         exact = True
     # the kernel reads table_off + [0, table_size) unchecked: hold every
@@ -911,24 +962,18 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
         raise ValueError("a lane's table runs past the table buffer")
     d = from_stacked(st, device)
     params, ops = d["params"], d["ops"]
-    Vp = params["amp"].shape[-1]
-    # no tiers (the repeat-passes layout): one pass group of all voices
-    tiers = tuple(st.tiers) if st.tiers else (Vp,)
-    fts = _feat_tiers(st)
+    Vp = pl.Vp
     single_seg = all(v.shape[1] == 1 for v in params.values()) \
         and all(v.shape[1] == 1 for v in ops.values())
-    r = _Render(params=params, ops=ops,
+    r = _Render(**{f.name: getattr(pl, f.name)
+                   for f in dataclasses.fields(Plan)},
+                params=params, ops=ops,
                 seg_of_block=torch.as_tensor(d["seg_of_block"],
                                              device=device).long(),
                 seg_is_start=torch.as_tensor(d["seg_is_start"],
                                              device=device),
-                table=d["table_buffer"], B=st.batch, Vp=Vp, block=st.block,
-                tiers=tiers, feat=feat, feat_tiers=fts, exact=bool(exact),
-                single_seg=single_seg, mod_passes=st.fused_passes,
-                n_src=int(st.n_src or 0),
-                # only a tier that takes the tier kernel mixes in it
-                mix=bool(mix) and not all(ft.noise for ft in fts or (feat,)),
-                fold_tiers=_fold_tiers(st, fts) if fold else None,
+                table=d["table_buffer"], B=st.batch, block=st.block,
+                exact=bool(exact), single_seg=single_seg,
                 buf=torch.empty((st.block, Vp * st.batch), dtype=F32,
                                 device=device))
     if feat.noise:
@@ -944,11 +989,10 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
         for ti in range(len(r.tiers)):
             ts, te = int(bounds[ti]), int(bounds[ti + 1])
             p_t = _tier_slice(r.p_const, ts, te, Vp)
-            ft = r.feat_tiers[ti] if r.feat_tiers is not None else feat
             r.tier_params.append(_pass_params(
-                p_t, r.p_const["phase_inc"], ft,
-                bool(r.fold_tiers and r.fold_tiers[ti])))
-        if 0 < r.n_src < Vp and len(tiers) == 1:
+                p_t, r.p_const["phase_inc"], r.tier_feat(ti), r.folds(ti)))
+        passes, ns = r.estimate()
+        if passes and ns < Vp:
             r.src_params = _pass_params(
                 _tier_slice(r.p_const, 0, r.n_src, Vp),
                 r.p_const["phase_inc"], feat)
@@ -984,6 +1028,20 @@ def render_fused(st, exact: Optional[bool] = None, capture: bool = False,
         carry, outs = _render_chunk(r, carry, 0, st.num_blocks)
     return outs.permute(2, 0, 1, 3).reshape(
         st.batch, st.num_blocks * st.block, 2).cpu().numpy()
+
+
+def render_fused_device(st, noise=None, exact: Optional[bool] = None,
+                        device="cuda", mix: bool = True,
+                        fold: bool = True) -> torch.Tensor:
+    """Like render_fused but keeps the result on ``device``, as a tensor
+    ``[num_blocks, B, block, 2]`` (for benchmarks and pipelines where the
+    download would dominate).  A cyclic batch is a ValueError.  Runs on
+    the card unless ``device="cpu"``."""
+    st, r, carry = _prepare(st, exact, device, noise=noise, mix=mix,
+                            fold=fold)
+    with torch.no_grad():
+        _, outs = _render_chunk(r, carry, 0, st.num_blocks)
+    return outs.transpose(1, 2).contiguous()
 
 
 def render_fused_stream(st, chunk_blocks: int = 256, noise=None,
