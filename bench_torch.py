@@ -92,6 +92,7 @@ def launch_counters() -> dict:
     """name -> kernel wrapper: each adds one to its ``launches`` where it
     launches its kernel (a CPU tensor runs the plain version and counts
     nothing)."""
+    from skred_tpu_torch.engine.kernels import compat as cm
     from skred_tpu_torch.engine.kernels import cyclic as ck
     from skred_tpu_torch.engine.kernels import filt_smooth as fs
     from skred_tpu_torch.engine.kernels import lookup as lk
@@ -106,7 +107,7 @@ def launch_counters() -> dict:
                 filt_smooth_noise=fs.filt_smooth_noise,
                 filt_smooth=fs.filt_smooth, cyclic=ck.cyclic_block,
                 cyclic_fixed=ck.cyclic_fixed,
-                cyclic_general=ck.cyclic_general)
+                cyclic_general=ck.cyclic_general, compat=cm.compat_block)
 
 
 def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
@@ -133,7 +134,7 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
         buckets = make_buckets(scripts, seconds, replicas, max_rows)
     except GateRefusal as ex:
         _error(f"the cyclic kernel's gate refused {ex.script} ({ex.reason}); "
-               f"the port has no compat-scan engine to bench it on", 1)
+               f"the bench has no compat-scan bucket for it", 1)
     exact = False if fast else None
     counters = launch_counters()
     baseline = _load_baseline(seconds, chunk, "fast" if fast else "exact")

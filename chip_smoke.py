@@ -12,8 +12,8 @@ in both tiers), whose tiers take the noise pass (the keyed phase walk
 with its reads, FM increment, CZ warp and clip; the table lookup; the
 keyed filter/smoother with its noise select, dead mask, envelope and am
 stream); and corpus/fb1-fb5.sk, whose cyclic modulation
-graphs take the cyclic kernel.  Phases, in order (any failure exits
-non-zero):
+graphs take the cyclic kernel; the compat engine renders stress64
+through its own kernel.  Phases, in order (any failure exits non-zero):
 
   1. device       the card's name and power limit (nvidia-smi), and its
                   peaks from skred_tpu_torch/parallel/roofline.py (a card
@@ -26,8 +26,8 @@ non-zero):
                   kernel's keys (stress64's tiers with mix and fold on and
                   off, and the kernel phase's calls) and for the keyed
                   noise kernels' (noise64's tiers), all started
-                  together; seconds, registers and spills of each (a tier
-                  or noise key that spills fails the run)
+                  together; seconds, registers and spills of each (a build
+                  that spills fails the run, but for the cyclic kernel's)
   3. kernel       every kernel vs its plain version on the card, bit for
                   bit, on random blocks (N=512, M=8192): tier, keyed and
                   general variants, on stress64's two tier feature sets,
@@ -114,9 +114,39 @@ non-zero):
                   tiled), with clocks.sm beside them, and the bound
   9. cyclic short fb2, and fb4 with its waits cut to 0.012 s (a segment
                   per block), at 8 rows x 4 blocks, as in 5
- 10. batch        render_batch over stress64, noise64 and fb1-fb5 at
-                  0.25 s: finite, no silent row, every kernel launched
- 11. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
+ 10. compat       the compat engine (engine/render.py, one CUDA block of
+                  64 threads a row, csrc/compat.cu): the kernel against
+                  its plain version on the card, bit for bit, on 8 rows x
+                  2 blocks of stress64, noise64, fb2, fb4 cut to a segment
+                  a block and a voice copy ('>' of a voice with sample &
+                  hold on), exact and fast, 1 and 2 passes, capture on and
+                  off, and on the next 2 blocks from the kernel's carry;
+                  the card's render of the 4 blocks against the CPU's,
+                  bit for bit, on the output and the capture; the main
+                  path, stress64
+                  10 s through render_stream_device (172-block chunks) at
+                  1 row, 1 row with capture and 1024 rows, each with its
+                  launches read around it (the compat kernel alone, a
+                  launch a chunk), ms a block, x realtime and two
+                  estimates a sample step, neither a floor (static SASS
+                  issue, a chain counted from the source); the plain
+                  version and the bound on the 1024-row run's first
+                  block, the kernel held to the plain version bit for bit
+                  on that block and on blocks 172-173 from its own carry;
+                  the compat render of stress64 against the fused one,
+                  both on the card (<= -60 dB); the fused engine's
+                  capture (stress64, noise64, 8 rows x 2 blocks) on the
+                  card: its capture bit-equal to the CPU's, its output
+                  against the CPU's (<= -120 dB), against the captured
+                  voices' sum times the volume gain and against the
+                  render with the kernel's mix and fold (<= -100 dB); the
+                  recorder's WAV on the card against the CPU's, byte for
+                  byte
+ 11. batch        render_batch over stress64, noise64 and fb1-fb5 at
+                  0.25 s: finite, no silent row, every kernel launched but
+                  the compat kernel; then with engine="compat": the
+                  compat kernel alone
+ 12. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
                   headline and, per bucket, x_rt, wall spread, set-up
                   seconds and roofline label; it fails unless there are
                   seven buckets (stress64, noise64, fb1-fb5), each
@@ -1802,6 +1832,318 @@ def noise_keys():
     return keys
 
 
+# ---- the compat engine (engine/render.py, csrc/compat.cu) ----
+
+# a voice copy ('>') of a voice with sample & hold on, in a later segment
+VOICE_COPY = ["v0 w0 f220 a3 h5 J900 K5000 Q25", "v1 w1 f110 a2 F0,0.5",
+              "~.012 v0 >2 v2 f330 a2"]
+# tests/test_recorder.py's recording, its wait cut to 0.02 s
+RECORDER = ["v0 w0 f440 a4 r1", "v1 w4 f220 a2 r1", "v2 w2 f2 a1 m1",
+            "<1", "~0.02 *"]
+# The compat kernel's serial chain a sample, an estimate counted from the
+# source (compat.cu voice_pass), not read from the SASS: a pass of a
+# stress64 voice is ~32 dependent FP32/integer operations (the modulator
+# read's product, the FM fma, the phase add, the wrap's compares and
+# select, the CZ phase divide's ~6 and its curve, the index conversion
+# and clip, the quantizer's 4, the biquad's 4 fmas, the gain, the pan) at
+# OP_CYCLES, a shared-memory read and an L1 table load (~60 cycles), and
+# its barrier (~40); a sample is the passes, the barrier before them and
+# the 10-step shuffle tree with its barrier (~230 cycles).  Divergence
+# (the warp's voices on different CZ curves or envelope branches) runs
+# paths one after another and is not in this estimate.
+COMPAT_PASS_OPS = 32
+COMPAT_PASS_WAIT = 100
+COMPAT_SAMPLE_WAIT = 230
+
+
+def compat_batch(rows, seconds=0.0464):
+    """stress64, noise64, fb2, fb4 cut to a segment a block and the
+    voice copy, compiled for ``seconds`` (4 blocks) and stacked to
+    ``rows`` rows."""
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.host.timeline import compile_script
+    from skred_tpu_torch.parallel.batch import stack_timelines
+
+    fb4 = [ln.replace("~.5", "~.012")
+           for ln in FEEDBACK[3].read_text().splitlines()]
+    scripts = [STRESS64.read_text().splitlines(),
+               NOISE64.read_text().splitlines(),
+               FEEDBACK[1].read_text().splitlines(), fb4, VOICE_COPY]
+    bank = WaveBank()
+    tls = [compile_script(lines, seconds, bank=bank,
+                          script_dir=HERE / "corpus") for lines in scripts]
+    return stack_timelines([tls[i % len(tls)] for i in range(rows)])
+
+
+def compat_sass():
+    """Instructions of compat_kernel<exact, no capture>'s sample loop
+    (static: every run-time branch, the CZ curves and the envelope's
+    arms included once; not what a warp issues, which depends on the
+    arms its voices take): the second largest loop, inside the block
+    loop."""
+    import re
+
+    from skred_tpu_torch.engine.kernels import build
+
+    funcs = sass_functions(build._target("compat"))
+    name = next(nm for nm in funcs if "compat_kernelILb1ELb0E" in nm)
+    ins = funcs[name]
+    loops = []
+    for a, t in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            lo = int(m.group(1), 16)
+            loops.append(sum(1 for aa, _ in ins if lo <= aa <= a))
+    loops.sort(reverse=True)
+    return dict(kernel=name, instructions=len(ins),
+                per_sample=loops[1] if len(loops) > 1 else loops[0])
+
+
+def compat_phase(dev, card, peaks, counters, errs):
+    """The compat engine on the card (see the module docstring).
+    Returns its record for the kernels' JSON."""
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine import render as cr
+    from skred_tpu_torch.engine.kernels import compat as K
+    from skred_tpu_torch.host.timeline import compile_script, noise_stream
+    from skred_tpu_torch.io.recorder import render_recordings
+    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+
+    def db(a, b):
+        """max |a - b| in dB of b's peak"""
+        return 20 * np.log10(max(float(np.abs(a - b).max()), 1e-30)
+                             / float(np.abs(b).max()))
+
+    def hold(got, want, capture, what):
+        """The kernel's (carry, out, cap) bit for bit against the plain
+        version's; the largest difference goes into errs."""
+        torch.cuda.synchronize()
+        pairs = list(zip(got[0], want[0])) + [(got[1], want[1])]
+        if capture:
+            pairs.append((got[2], want[2]))
+        errs["compat"] = max([errs.get("compat", 0.0)] + [
+            max_abs(g, w) for g, w in pairs])
+        bad = [i for i, (g, w) in enumerate(pairs) if not same_bits(g, w)]
+        if bad:
+            fail(f"compat kernel disagrees with its plain version ({what}; "
+                 f"outputs {bad})")
+
+    # ---- the kernel against its plain version on the card ----
+    st = compat_batch(8)
+    if not (np.asarray(st.seg_is_start)[:, 2:].any()
+            and (st.ops["copy_hold_from"] >= 0).any()):
+        fail("compat: the batch has no segment start past block 1 or no "
+             "voice copy")
+    inp = cr.stacked_inputs(st, dev)
+    nz = torch.as_tensor(noise_stream(4 * 512), device=dev)
+    plain_t = {}
+    carry2 = None
+    for exact in (True, False):
+        for passes in (1, 2):
+            zero = K.zero_carry(8, dev)
+            t_ms, want = host_ms(lambda: K.compat_block_plain(
+                inp, zero, nz[:1024], 0, 2, passes, exact, True))
+            plain_t[exact, passes] = t_ms
+            for capture in (False, True):
+                got = K.compat_block(inp, zero, nz[:1024], 0, 2, passes,
+                                     exact, capture)
+                hold(got, want, capture, f"8 rows, blocks 0-1, exact="
+                     f"{exact}, passes={passes}, capture={capture}")
+                if exact and passes == 2 and not capture:
+                    carry2 = got[0]
+    # a later chunk: blocks 2-3 from the kernel's own carry, where the
+    # segments, the sample count and the noise stream start past 0
+    want = K.compat_block_plain(inp, carry2, nz[1024:], 2, 2, 2, True, True)
+    hold(K.compat_block(inp, carry2, nz[1024:], 2, 2, 2, True, True), want,
+         True, "8 rows, blocks 2-3 from the kernel's carry")
+    log(f"compat kernel vs plain: bit-equal on 8 rows x 2 blocks (stress64, "
+        f"noise64, fb2, fb4 cut, the voice copy; "
+        f"{st.params['amp'].shape[1]} segments), exact and fast, 1 and 2 "
+        f"passes, capture on and off, and on blocks 2-3 from the kernel's "
+        f"carry (exact, 2 passes, capture); the plain version on the card "
+        + ", ".join(f"{t:.0f} ms ({'exact' if e else 'fast'}, {p} "
+                    f"pass{'es' if p > 1 else ''})"
+                    for (e, p), t in plain_t.items()) + f", on {card}")
+
+    # ---- the card's render against the port's CPU render ----
+    out_d, cap_d = cr.render_rows(st, capture=True, device=dev)
+    out_c, cap_c = cr.render_rows(st, capture=True, device="cpu")
+    if not (same_bits(torch.from_numpy(out_d), torch.from_numpy(out_c))
+            and same_bits(torch.from_numpy(cap_d), torch.from_numpy(cap_c))):
+        fail("compat: the card's render differs from the CPU's")
+    log(f"compat card vs CPU: out {out_d.shape} and capture {cap_d.shape} "
+        f"bit-equal (8 rows x 4 blocks, exact, 2 passes)")
+
+    # ---- the main path: stress64 10 s, streamed, 1 and 1024 rows ----
+    tl = compile_script(STRESS64.read_text().splitlines(), SECONDS,
+                        bank=WaveBank(), script_dir=STRESS64.parent)
+    sass = compat_sass()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nz = torch.as_tensor(noise_stream(CHUNK * 512), device=dev)
+    runs = {}
+    launches = 0
+    for rows, capture in ((1, False), (1, True), (ROWS, False)):
+        batch = tl if rows == 1 else stack_timelines([tl] * rows)
+        whole = batch.num_blocks // CHUNK * CHUNK
+        # the kernel alone on the first chunk, by CUDA events
+        inp = cr.stacked_inputs(stack_timelines([tl] * rows), dev)
+        zero = K.zero_carry(rows, dev)
+        k_ms = cuda_ms(lambda: K.compat_block(
+            inp, zero, nz, 0, CHUNK, tl.mod_passes, True, capture), 2) / CHUNK
+        cr.render_stream_device(batch, CHUNK, capture=capture,
+                                warmup_only=True, device=dev)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        clk0 = sm_clock()
+        t0 = time.time()
+        cs = cr.render_stream_device(batch, CHUNK, capture=capture,
+                                     device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        clk1 = sm_clock()
+        counts = {nm: fn.launches for nm, fn in counters.items()
+                  if fn.launches}
+        if counts != {"compat": whole // CHUNK}:
+            fail(f"compat main ({rows} rows): launches {counts}, not "
+                 f"{whole // CHUNK} of compat alone")
+        if not (np.isfinite(cs) and cs > 0):
+            fail(f"compat main ({rows} rows): bad checksum {cs}")
+        if rows == ROWS:
+            launches = counts["compat"]
+        mhz = max(float(c.split()[0]) for c in (clk0, clk1))
+        per_sched = -(-2 * rows // (4 * sms))
+        issue_us = sass["per_sample"] * per_sched / mhz
+        chain_us = (tl.mod_passes * (COMPAT_PASS_OPS * OP_CYCLES
+                                     + COMPAT_PASS_WAIT)
+                    + COMPAT_SAMPLE_WAIT) / mhz
+        runs[rows, capture] = dict(wall=wall, ms=k_ms)
+        audio = rows * whole * tl.block / 44100.0
+        log(f"compat main stress64 {rows} row(s), capture "
+            f"{'on' if capture else 'off'}: {whole} blocks "
+            f"({tl.mod_passes} passes, exact) in {wall:.3f} s (host clock, "
+            f"set-up and uploads included), {wall / whole * 1e3:.4f} ms a "
+            f"block; the kernel alone {k_ms:.4f} ms a block, "
+            f"{k_ms / tl.block * 1e3:.3f} us a sample step (CUDA events, "
+            f"2 calls of {CHUNK} blocks); {audio / wall:.1f}x realtime ({rows} x "
+            f"{whole * tl.block / 44100.0:.3f} s), launches {counts}, "
+            f"checksum {cs}; estimates a sample step at {mhz:.0f} MHz, "
+            f"neither measured nor a floor: static issue {issue_us:.3f} us "
+            f"(the sample loop's {sass['per_sample']} SASS instructions, "
+            f"every branch arm once, x {per_sched} warp(s) a scheduler), "
+            f"chain {chain_us:.3f} us (from the source: {tl.mod_passes} x "
+            f"({COMPAT_PASS_OPS} x {OP_CYCLES} + {COMPAT_PASS_WAIT}) + "
+            f"{COMPAT_SAMPLE_WAIT} cycles); clocks.sm {clk0} -> {clk1}, on "
+            f"{card}")
+    # the plain version and the bound on the 1024-row run's first block
+    # (inp and zero: the last run's, 1024 rows), the kernel held to it;
+    # then blocks 172-173 from the kernel's carry after its first chunk
+    passes = tl.mod_passes
+    plain_ms, want = host_ms(lambda: K.compat_block_plain(
+        inp, zero, nz[:512], 0, 1, passes, True))
+    hold(K.compat_block(inp, zero, nz[:512], 0, 1, passes, True), want,
+         False, f"{ROWS} rows of stress64, block 0")
+    c_chunk = K.compat_block(inp, zero, nz, 0, CHUNK, passes, True)[0]
+    nz2 = torch.as_tensor(noise_stream((CHUNK + 2) * 512)[CHUNK * 512:],
+                          device=dev)
+    want = K.compat_block_plain(inp, c_chunk, nz2, CHUNK, 2, passes, True)
+    hold(K.compat_block(inp, c_chunk, nz2, CHUNK, 2, passes, True), want,
+         False, f"{ROWS} rows of stress64, blocks {CHUNK}-{CHUNK + 1}")
+    log(f"compat kernel vs plain at the main path's shapes: bit-equal on "
+        f"{ROWS} rows of stress64 ({passes} passes, exact), block 0 from "
+        f"the zero carry and blocks {CHUNK}-{CHUNK + 1} from the kernel's "
+        f"carry after its first {CHUNK}-block chunk")
+    bound_ms, bound_by = roofline.compat_bound(inp, 0, CHUNK, tl.mod_passes,
+                                               peaks)
+    bound_ms /= CHUNK
+    log(f"compat stress64 at {ROWS} rows: kernel {runs[ROWS, False]['ms']:.4f}"
+        f" ms a block (1 row {runs[1, False]['ms']:.4f}, with capture "
+        f"{runs[1, True]['ms']:.4f}), plain {plain_ms:.0f} ms a block (host clock), bound "
+        f"{bound_ms:.4f} ms a block ({bound_by}), library call: none; SASS "
+        f"{sass['instructions']} instructions in {sass['kernel']}; on {card}")
+
+    # ---- the compat render against the fused render, both on the card ----
+    tl_s = compile_script(STRESS64.read_text().splitlines(), 0.25,
+                          bank=WaveBank(), script_dir=STRESS64.parent)
+    a = cr.render_timeline(tl_s, device=dev)
+    b = fused.render_fused(pack_stacked(stack_timelines([tl_s])),
+                           device=dev)[0]
+    d_db = db(b, a)
+    log(f"compat vs fused, stress64 0.25 s on the card: {d_db:.1f} dB of "
+        f"the peak {float(np.abs(a).max()):.3f}")
+    if not d_db <= -60.0:
+        fail(f"compat vs fused: {d_db:.1f} dB")
+
+    # ---- the fused engine's capture on the card and on the CPU ----
+    for path in (STRESS64, NOISE64):
+        ftl = compile_script(path.read_text().splitlines(), 0.0232,
+                             bank=WaveBank(), script_dir=path.parent)
+        fst = pack_stacked(stack_timelines([ftl] * 8))
+        out_d, cap_d = fused.render_fused(fst, capture=True, device=dev)
+        out_c, cap_c = fused.render_fused(fst, capture=True, device="cpu")
+        if cap_d.shape != (2, 8, 64, 512, 2) or not same_bits(
+                torch.from_numpy(cap_d), torch.from_numpy(cap_c)):
+            fail(f"fused capture ({path.name}): the card's capture "
+                 f"{cap_d.shape} differs from the CPU's")
+        # the output is the captured voices' sum times the master volume
+        # smoother (zero at the start), here in f64 on the engine's f32
+        # constants
+        a = float(np.float32(1.0) - np.float32(0.002))
+        b = float(np.float32(0.002))
+        vf = np.repeat(np.take_along_axis(
+            np.asarray(fst.params["volume_final"], np.float64),
+            np.asarray(fst.seg_of_block), 1), 512, axis=1)
+        vg = np.empty_like(vf)
+        g = np.zeros(vf.shape[0])
+        for t in range(vf.shape[1]):
+            g = a * g + b * vf[:, t]
+            vg[:, t] = g
+        voices = cap_d.astype(np.float64).sum(axis=2).transpose(
+            1, 0, 2, 3).reshape(8, -1, 2) * vg[..., None]
+        mixed = fused.render_fused(fst, device=dev)
+        d_cpu, d_sum, d_mix = (db(out_d, out_c), db(out_d, voices),
+                               db(out_d, mixed))
+        log(f"fused capture {path.name}, 8 rows x 2 blocks on the card: "
+            f"capture {cap_d.shape} bit-equal to the CPU's; out against "
+            f"the CPU's {d_cpu:.1f} dB (the voice sum's order), against "
+            f"the captured voices' sum x the volume gain {d_sum:.1f} dB, "
+            f"against the render with the kernel's mix and fold "
+            f"{d_mix:.1f} dB")
+        if not (d_cpu <= -120.0 and d_sum <= -100.0 and d_mix <= -100.0):
+            fail(f"fused capture ({path.name}): {d_cpu:.1f}, {d_sum:.1f}, "
+                 f"{d_mix:.1f} dB")
+
+    # ---- the recorder on the card and on the CPU ----
+    import tempfile
+    import wave
+
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        got = {}
+        for where in (dev, "cpu"):
+            rt = compile_script(RECORDER, 0.05, bank=WaveBank(),
+                                script_dir=HERE / "corpus")
+            files = render_recordings(rt, pathlib.Path(tmp) / str(where),
+                                      device=where)
+            if len(files) != 1:
+                fail(f"recorder on {where}: {files}")
+            with wave.open(str(files[0][0])) as f:
+                got[str(where)] = (f.getnchannels(), f.getnframes(),
+                                   f.readframes(f.getnframes()))
+        if got[str(dev)] != got["cpu"] or got["cpu"][1] == 0:
+            fail("recorder: the card's WAV differs from the CPU's")
+        log(f"recorder: {got['cpu'][0]} channels x {got['cpu'][1]} frames, "
+            f"the card's WAV equal to the CPU's byte for byte")
+    return dict(name="compat", route="cuda",
+                source="skred_tpu_torch/engine/kernels/csrc/compat.cu",
+                replaces="skred_tpu/engine/render.py:375",
+                launches=launches, max_abs_err=errs.get("compat", 0.0),
+                ms=runs[ROWS, False]["ms"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ms_1_row=runs[1, False]["ms"],
+                ms_1_row_capture=runs[1, True]["ms"])
+
+
 def batch_phase(dev, card, counters):
     """render_batch over every in-repo script: the fused engine's two
     buckets and five cyclic scripts in one call."""
@@ -1833,6 +2175,27 @@ def batch_phase(dev, card, counters):
         if counts[nm]:
             fail(f"batch: the render path launched the general variant "
                  f"{nm}")
+    if counts["compat"]:
+        fail("batch: the fused and cyclic engines launched the compat "
+             "kernel")
+    # the same scripts through the compat engine: its kernel alone
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    out = render_batch(scripts, 0.25, engine="compat", device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {nm: fn.launches for nm, fn in counters.items() if fn.launches}
+    peaks = [float(np.abs(row).max()) for row in out]
+    log(f"batch (engine=\"compat\"): {len(scripts)} scripts x 0.25 s in "
+        f"{wall:.2f} s, out {out.shape}, peaks "
+        f"{[round(x, 3) for x in peaks]}, launches {counts} on {card}")
+    if out.shape != (len(scripts), 22 * 512, 2) or \
+            not np.isfinite(out).all() or min(peaks) <= 0.01:
+        fail(f"batch (compat): bad output {out.shape}, peaks {peaks}")
+    if set(counts) != {"compat"}:
+        fail(f"batch (compat): launches {counts}, not the compat kernel's "
+             f"alone")
 
 
 BENCH_SECONDS = NOISE64_SECONDS    # 344 whole blocks: 2 chunks of 172
@@ -1961,12 +2324,14 @@ def main():
         for line in build.report(name, key).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+                # the cyclic kernel is a latency-bound serial recurrence:
+                # a small stack frame there is printed, not held against it
                 if name != "cyclic" and "spill" in line and not \
                         line.strip().startswith("0 bytes stack frame, 0 "
                                                 "bytes spill stores, 0 "
                                                 "bytes spill loads"):
                     fail(f"{name}.cu spills under {lab}: {line}")
-    for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
+    for name in ("tier", "phase_walk", "lookup", "filt_smooth", "compat"):
         build.load(name)
     build.load("cyclic", (), "cyclic_general_launch")
     for key in keys.values():
@@ -2056,11 +2421,15 @@ def main():
                f"{st4.params['amp'].shape[1]} segments)", st4, dev, cyclic,
                cyclic.render_cyclic, {"cyclic_block": ck.cyclic_block_plain})
 
-    # ---- 10. every in-repo script through render_batch ----
+    # ---- 10. the compat engine ----
+    phase("compat")
+    compat_rec = compat_phase(dev, card, peaks, counters, errs)
+
+    # ---- 11. every in-repo script through render_batch ----
     phase("batch")
     batch_phase(dev, card, counters)
 
-    # ---- 11. the port's bench ----
+    # ---- 12. the port's bench ----
     phase("bench")
     b_launch = bench_phase(card, counters)
 
@@ -2150,6 +2519,9 @@ def main():
              launches=c_launch["ring16"]["cyclic_general"],
              max_abs_err=errs.get("cyclic_general", 0.0),
              **c_time["fb2", ROWS, "general"]),
+        # not a TPU kernel: the compat engine's two lax.scans; stress64 10 s
+        # at 1024 rows (ms a block), with its 1-row figures beside
+        compat_rec,
     ]
     # the bench's launches: each bucket's two timed passes, summed; the
     # JSON's name of each record -> the wrapper whose count it reads

@@ -1,0 +1,1 @@
+from skred_tpu_torch.engine.render import render_timeline  # noqa: F401

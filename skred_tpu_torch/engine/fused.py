@@ -33,11 +33,16 @@ Layout: per-lane streams are time-major ``[N, M]`` over voice-major lanes
 the kernels and the mix never transpose a block.  Per-voice parameters
 and the carry stay ``[B, V]`` as the JAX package keeps them.
 
+``render_fused(capture=True)`` also returns each voice's post-pan
+stereo pair, before the voice sum: the mix and the fold are off, every
+tier writes its samples into the block buffer, and ``_mix_parts`` keeps
+each lane's panned samples beside the sum it takes.
+
 Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_device,
 render_fused_stream, render_fused_stream_device) on its Pallas paths.  A
 cyclic batch is a ValueError here, as in the JAX package:
-``engine/cyclic.py`` renders it (``render_cyclic``).  Not ported yet,
-each raising NotImplementedError: capture and several devices.
+``engine/cyclic.py`` renders it (``render_cyclic``).  Several devices
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -538,7 +543,7 @@ def _mix_mask(p, feat):
     return mask
 
 
-def _mix_parts(carry, p, parts, feat, n, b, acc=None):
+def _mix_parts(carry, p, parts, feat, n, b, acc=None, caps=None):
     """Stereo mix of the tiers' kernel outputs ([N, B] each channel).
 
     parts: list of (out_vm, contrib [B, V_t], any_alive, il, (ts, te),
@@ -547,11 +552,15 @@ def _mix_parts(carry, p, parts, feat, n, b, acc=None):
     static-pan lanes sum out·pan over voices here; pan-modulated lanes
     (feat.pm_lanes) take a per-sample pan from their modulator (or
     their own sample), and their pan carry freezes at the last alive
-    sample.  Returns (mix_l, mix_r, pan update or None)."""
+    sample.  With ``caps`` (a list; no part mixed, the capture path of
+    ``skred_tpu/engine/fused.py:1441-1482``) every lane's post-pan
+    stereo pair, zero where the lane does not sound, is appended to it
+    as ``[B, Vp, N, 2]``.  Returns (mix_l, mix_r, pan update or None)."""
     pms_lanes = tuple(feat.pm_lanes) if feat.pm else ()
     srcs = tuple(feat.pm_srcs)
     mix_l = mix_r = None
     pm_s, pm_c, pm_aa, pm_il, src_s = [], [], [], [], []
+    cap_l, cap_r = [], []
     for out_vm, contrib_t, aa_t, il_t, (ts, te), mixed in parts:
         o3 = out_vm.view(n, te - ts, b)
         loc = [v - ts for v in pms_lanes if ts <= v < te]
@@ -574,20 +583,43 @@ def _mix_parts(carry, p, parts, feat, n, b, acc=None):
             src_s.append(o3[:, sloc])
         if mixed:
             continue
-        l_t = (o3 * wl.T[None]).sum(dim=1)
-        r_t = (o3 * wr.T[None]).sum(dim=1)
+        lw, rw = o3 * wl.T[None], o3 * wr.T[None]
+        if caps is not None:
+            sounds = contrib_t.T[None]
+            cap_l.append(torch.where(sounds, lw, 0.0))
+            cap_r.append(torch.where(sounds, rw, 0.0))
+        l_t, r_t = lw.sum(dim=1), rw.sum(dim=1)
         mix_l = l_t if mix_l is None else mix_l + l_t
         mix_r = r_t if mix_r is None else mix_r + r_t
     if acc is not None:
         mix_l = acc[0] if mix_l is None else mix_l + acc[0]
         mix_r = acc[1] if mix_r is None else mix_r + acc[1]
-    if not pms_lanes:
-        return mix_l, mix_r, None
+    pan_upd = None
+    if pms_lanes:
+        lanes, lpm, rpm, new_pl, new_pr = _pan_mod_mix(
+            carry, p, feat, b, pm_s, pm_c, pm_aa, pm_il, src_s)
+        mix_l = mix_l + lpm.sum(dim=1)
+        mix_r = mix_r + rpm.sum(dim=1)
+        pan_upd = (lanes, new_pl, new_pr)
+    if caps is not None:
+        left, right = torch.cat(cap_l, dim=1), torch.cat(cap_r, dim=1)
+        if pan_upd is not None:
+            left[:, lanes], right[:, lanes] = lpm, rpm
+        caps.append(torch.stack([left, right], dim=-1).permute(2, 1, 0, 3))
+    return mix_l, mix_r, pan_upd
+
+
+def _pan_mod_mix(carry, p, feat, b, pm_s, pm_c, pm_aa, pm_il, src_s):
+    """The pan-modulated lanes of ``_mix_parts``: their post-pan samples
+    ``[N, P, B]`` (zero where a lane does not sound) and their pan
+    carry, frozen at the last alive sample.  Returns (lanes, left,
+    right, new pan_l, new pan_r)."""
+    srcs = tuple(feat.pm_srcs)
     pms = torch.cat(pm_s, dim=1)                     # [N, P, B]
     cpm = torch.cat(pm_c, dim=1).T                   # [P, B]
     aa = torch.cat(pm_aa, dim=1)                     # [B, P]
     il = torch.cat(pm_il, dim=1)
-    lanes = list(pms_lanes)
+    lanes = list(feat.pm_lanes)
     pm_osc = p["pan_mod_osc"][:, lanes]              # [B, P]
     if srcs:
         est = torch.cat(src_s, dim=1)                # [N, S, B]
@@ -614,8 +646,6 @@ def _mix_parts(carry, p, parts, feat, n, b, acc=None):
                      carry["pan_l"][:, lanes].T[None])
     pr = torch.where(pan_on.T[None], (1.0 + qv) * 0.5,
                      carry["pan_r"][:, lanes].T[None])
-    mix_l = mix_l + torch.where(cpm[None], pms * pl, 0.0).sum(dim=1)
-    mix_r = mix_r + torch.where(cpm[None], pms * pr, 0.0).sum(dim=1)
     # pan carry freezes at the last alive sample
     il_t = il.T.long()[None]                          # [1, P, B]
     act_pan = pan_on & aa
@@ -623,7 +653,8 @@ def _mix_parts(carry, p, parts, feat, n, b, acc=None):
                          carry["pan_l"][:, lanes])
     new_pr = torch.where(act_pan, pr.gather(0, il_t)[0].T + 0.0,
                          carry["pan_r"][:, lanes])
-    return mix_l, mix_r, (lanes, new_pl, new_pr)
+    return (lanes, torch.where(cpm[None], pms * pl, 0.0),
+            torch.where(cpm[None], pms * pr, 0.0), new_pl, new_pr)
 
 
 def _apply_ops_b(carry, ops, flag, feat=Feat()):
@@ -831,10 +862,12 @@ def _estimate(r, run, carry, p, tp, prev_vm, cbase):
     return est
 
 
-def _block_step(r: _Render, carry, k_glob):
+def _block_step(r: _Render, carry, k_glob, caps=None):
     """One 512-sample block: every tier through its pass (the tier
     kernel, or the noise pass for a tier with noise voices), then the mix
-    and the volume smoother.  Returns (carry, out [N, B, 2])."""
+    and the volume smoother.  With ``caps`` (a list; the render's mix and
+    fold off) the block's per-voice stereo pairs are appended to it.
+    Returns (carry, out [N, B, 2])."""
     B, n = r.B, r.block
     if r.single_seg:
         p, o = r.p_const, r.o_const
@@ -898,7 +931,8 @@ def _block_step(r: _Render, carry, k_glob):
                       macc is not None))
     new_carry = {kk: torch.cat([nc[kk] for nc in nc_parts], dim=1)
                  for kk in _CK}
-    mix_l, mix_r, pan_upd = _mix_parts(carry, p, parts, feat, n, B, acc)
+    mix_l, mix_r, pan_upd = _mix_parts(carry, p, parts, feat, n, B, acc,
+                                       caps)
     if pan_upd is not None:
         lanes, new_pl, new_pr = pan_upd
         new_carry["pan_l"][:, lanes] = new_pl
@@ -938,7 +972,8 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
     (``noise``, or the engine's own), when a tier has noise voices,
     covers ``noise_blocks`` (default: all) blocks.  ``mix`` and ``fold``
     choose the tier kernel's in-kernel stereo mix and modulator-bank
-    fold (see the module docstring)."""
+    fold (see the module docstring); ``capture`` turns both off, as the
+    JAX package does (``skred_tpu/engine/fused.py:1410``)."""
     from skred_tpu_torch.parallel.batch import pack_stacked
 
     if st.fused_passes is None:
@@ -946,8 +981,7 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
             "cyclic modulation graph (1-sample feedback): the fused "
             "engine cannot render it; use engine.cyclic.render_cyclic")
     if capture:
-        raise NotImplementedError("capture=True: per-voice streams are "
-                                  "not ported yet (ROADMAP item 8)")
+        mix = fold = False
     if "fm_delayed" not in st.params:
         st = pack_stacked(st)
     pl = plan(st, mix, fold)
@@ -1009,10 +1043,10 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
     return st, r, d["carry"]
 
 
-def _render_chunk(r: _Render, carry, block0, nb):
+def _render_chunk(r: _Render, carry, block0, nb, caps=None):
     outs = []
     for k in range(nb):
-        carry, o = _block_step(r, carry, block0 + k)
+        carry, o = _block_step(r, carry, block0 + k, caps=caps)
         outs.append(o)
     return carry, torch.stack(outs)               # [nb, N, B, 2]
 
@@ -1021,13 +1055,19 @@ def render_fused(st, exact: Optional[bool] = None, capture: bool = False,
                  device="cuda", mix: bool = True,
                  fold: bool = True) -> np.ndarray:
     """Render a StackedTimelines batch with the fused engine → numpy
-    [B, T, 2].  Runs on the card unless ``device="cpu"``.  ``mix`` and
-    ``fold``: see the module docstring."""
+    [B, T, 2]; with ``capture`` also each voice's post-pan stereo pair
+    as the JAX package returns it, ``[num_blocks, B, Vp, block, 2]``
+    (packed voice order).  Runs on the card unless ``device="cpu"``.
+    ``mix`` and ``fold``: see the module docstring."""
     st, r, carry = _prepare(st, exact, device, capture, mix=mix, fold=fold)
+    caps = [] if capture else None
     with torch.no_grad():
-        carry, outs = _render_chunk(r, carry, 0, st.num_blocks)
-    return outs.permute(2, 0, 1, 3).reshape(
+        carry, outs = _render_chunk(r, carry, 0, st.num_blocks, caps)
+    out = outs.permute(2, 0, 1, 3).reshape(
         st.batch, st.num_blocks * st.block, 2).cpu().numpy()
+    if capture:
+        return out, torch.stack(caps).cpu().numpy()
+    return out
 
 
 def render_fused_device(st, noise=None, exact: Optional[bool] = None,

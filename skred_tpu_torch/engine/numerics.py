@@ -115,6 +115,18 @@ def wrap_fmod(x, L):
                        torch.where(x.abs() < L, x, torch.fmod(x, L)))
 
 
+def f2i(x):
+    """f32 -> i32 as XLA's ``convert`` and the card's ``__float2int_rz``
+    give it: toward zero, saturated to the int32 range, NaN to 0.  (The
+    CPU's ``.to(int32)`` gives INT_MIN for NaN and for every operand out
+    of range.)"""
+    big = x >= 2147483648.0
+    small = x < -2147483648.0
+    i = torch.where(big | small | torch.isnan(x), 0.0, x).to(I32)
+    i = torch.where(big, 2147483647, i)
+    return torch.where(small, -2147483648, i).to(I32)
+
+
 def fast_pow(a, b):
     """``fused._fast_pow``: the reference's bit-trick pow (synth.c:140)."""
     i = _as_i32(a)

@@ -1,16 +1,18 @@
 """Batch packing: many scripts stacked into one ``[scripts, ...]`` batch.
 
 Scripts are padded to a common segment count (repeating their final
-segment) and share one packed wavetable buffer.  The packing is numpy;
-``render_batch`` sends each script to its engine (``engine/fused.py``, or
-``engine/cyclic.py`` for a cyclic modulation graph), imported when it is
-called.
+segment) and share one packed wavetable buffer and one noise stream.
+The packing is numpy; ``render_batch`` sends each script to its engine
+(``engine/fused.py``, ``engine/cyclic.py`` for a cyclic modulation graph,
+or the compat engine, ``engine/render.py``, through ``render_stacked``),
+imported when it is called.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pathlib
+import sys
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -123,16 +125,36 @@ def stack_timelines(tls: Sequence[Timeline]) -> StackedTimelines:
     )
 
 
-def _prep_params(st: StackedTimelines):
-    params = dict(st.params)
+def rename_filter(params: dict) -> dict:
+    """``flt_*`` -> ``b0, b1, b2, na1, na2``, the feedback terms negated
+    (exact), as the engines take the biquad's coefficients."""
+    params = dict(params)
     for old, new in (("flt_b0", "b0"), ("flt_b1", "b1"), ("flt_b2", "b2"),
                      ("flt_a1", "na1"), ("flt_a2", "na2")):
         a = params.pop(old)
         params[new] = -a if new.startswith("na") else a
+    return params
+
+
+def _prep_params(st: StackedTimelines):
+    params = rename_filter(st.params)
     params.pop("table_key", None)
     # the renderer reads table_key only through table_off
     params["table_key"] = np.zeros_like(params["table_off"])
     return params
+
+
+def render_stacked(st: StackedTimelines, noise: Optional[np.ndarray] = None,
+                   exact: bool = False, device="cuda") -> np.ndarray:
+    """Render a stacked batch with the compat engine -> numpy ``[B, T,
+    2]``, one row a script; the rows share the table buffer and the
+    noise stream (synth.c:508 seeds the stream once per process).
+    ``exact=False`` is the JAX package's default for a batch
+    (``_render_batch_jit``).  Runs on the card unless ``device="cpu"``;
+    the rows are independent CUDA blocks (several devices: ROADMAP)."""
+    from skred_tpu_torch.engine.render import render_rows
+
+    return render_rows(st, noise=noise, exact=exact, device=device)
 
 
 def render_batch(scripts: List[pathlib.Path], seconds: float,
@@ -146,20 +168,16 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
     engine "auto": acyclic scripts are grouped by ``bucket_key`` (voices,
     passes, feature set) and each group renders as one batch with the
     fused engine; a script with a cyclic modulation graph renders alone,
-    at the rows it has, with the cyclic engine.  A cyclic script that the
-    cyclic engine's gate refuses, and ``engine="compat"``, need the
-    compat engine, which is not ported: both raise NotImplementedError.
-    ``outdir`` writes one 16-bit WAV per rendered script.  Runs on the
-    card unless ``device="cpu"``."""
+    at the rows it has, with the cyclic engine, or, where that engine's
+    gate refuses it, with the compat engine (loudly, on stderr).
+    "compat" renders every script with the compat engine
+    (``render_stacked``).  ``outdir`` writes one 16-bit WAV per rendered
+    script.  Runs on the card unless ``device="cpu"``."""
     from skred_tpu_torch.assets.bank import WaveBank, write_wav_16
     from skred_tpu_torch.engine import cyclic
     from skred_tpu_torch.engine.fused import render_fused
     from skred_tpu_torch.host.timeline import compile_script
 
-    if engine == "compat":
-        raise NotImplementedError(
-            'engine="compat": the compat engine is not ported '
-            "(ROADMAP item 8)")
     bank = WaveBank()
     tls, ok_scripts = [], []
     for p in scripts:
@@ -173,29 +191,40 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
     if not tls:
         return np.zeros((0, 0, 2), np.float32)
 
-    buckets: dict = {}
-    cyclic_idx = []
-    for i, tl in enumerate(tls):
-        if tl.fused_passes is None:
-            cyclic_idx.append(i)
-        else:
-            buckets.setdefault(bucket_key(tl), []).append(i)
-    out = np.zeros((len(tls), tls[0].num_blocks * tls[0].block, 2),
-                   np.float32)
-    for _, idxs in sorted(buckets.items()):
-        st = pack_stacked(stack_timelines([tls[i] for i in idxs]))
-        out[idxs] = render_fused(st, device=device)
-    for i in cyclic_idx:
-        # one bucket per script identity keeps the per-voice table
-        # bindings row-uniform, which is all the gate asks for
-        st = pack_stacked(stack_timelines([tls[i]]), cyclic=True)
-        reason = cyclic.cyclic_gate(st)
-        if reason is not None:
-            raise NotImplementedError(
-                f"the cyclic engine refused {ok_scripts[i]} ({reason}); "
-                f"it needs the compat engine, which is not ported "
-                f"(ROADMAP item 8)")
-        out[i] = cyclic.render_cyclic(st, device=device)[0]
+    if engine == "compat":
+        out = render_stacked(stack_timelines(tls), device=device)
+    else:
+        out = np.zeros((len(tls), tls[0].num_blocks * tls[0].block, 2),
+                       np.float32)
+        buckets: dict = {}
+        cyclic_idx, scan_idx = [], []
+        for i, tl in enumerate(tls):
+            if tl.fused_passes is None:
+                cyclic_idx.append(i)
+            else:
+                buckets.setdefault(bucket_key(tl), []).append(i)
+        for _, idxs in sorted(buckets.items()):
+            st = pack_stacked(stack_timelines([tls[i] for i in idxs]))
+            out[idxs] = render_fused(st, device=device)
+        for i in cyclic_idx:
+            # one bucket per script identity keeps the per-voice table
+            # bindings row-uniform, which is all the gate asks for
+            st = pack_stacked(stack_timelines([tls[i]]), cyclic=True)
+            reason = cyclic.cyclic_gate(st)
+            if reason is not None:
+                # the compat engine runs the script on the device through
+                # its own kernel; it is slower than the cyclic kernel, so
+                # the fall-back is loud (skred_tpu/parallel/batch.py:250)
+                print(f"# WARNING: cyclic engine refused script #{i} "
+                      f"({reason}); falling back to the compat scan "
+                      f"engine (orders of magnitude slower on "
+                      f"accelerators)", file=sys.stderr, flush=True)
+                scan_idx.append(i)
+                continue
+            out[i] = cyclic.render_cyclic(st, device=device)[0]
+        if scan_idx:
+            out[scan_idx] = render_stacked(
+                stack_timelines([tls[i] for i in scan_idx]), device=device)
 
     if outdir is not None:
         for p, audio in zip(ok_scripts, out):

@@ -11,8 +11,9 @@ passes, feature set) and fill to ``fill_bucket``'s rows; the TPU's
 lane-quantum fill (``_pad_quantum``) is not ported.  Each cyclic script
 is a bucket of its own at ``CYCLIC_ROWS`` rows, the JAX bench's count (a
 TPU grid quantum there, kept so the figures stay comparable).  A cyclic
-script the kernel's gate refuses is a ``GateRefusal``: the port has no
-compat-scan engine to send it to.
+script the kernel's gate refuses is a ``GateRefusal``: the bench has no
+compat-scan bucket to send it to (the compat engine, ``engine/render.py``,
+renders it outside the bench).
 """
 
 from __future__ import annotations

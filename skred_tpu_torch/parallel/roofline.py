@@ -10,7 +10,7 @@ Three parts, one source for the counts:
     the card rather than guess its rates.
   * per-kernel counts and bounds (``tier_counts`` / ``tier_bound``,
     ``phase_walk_warp_*``, ``lookup_*``, ``filt_smooth_noise_*``,
-    ``cyclic_*`` and the general variants'), each taking one call's
+    ``cyclic_*``, ``compat_*`` and the general variants'), each taking one call's
     arguments as the renderer passes them: the bytes the call must move
     (each input read once, each output written once; where the work
     depends on the data, what these inputs need) against its f32
@@ -107,6 +107,51 @@ def cyclic_frame_ops(fl, k):
         + (12 if fl["env"] else 0) + (2 if fl["am"] else 0) \
         + (3 if fl["sm"] else 0) + (6 if fl["pm"] else 0)
     return k * per_voice + 5
+
+
+def compat_voice_ops(flags, cz_on, am_on, pm_on):
+    """One voice pass of the compat kernel, by the voice's stages: the
+    oscillator and the lookup (12), the FM increment (3), the CZ warp
+    (8), the quantizer (4), the biquad (9), the envelope (12), the
+    amp-mod (2), the smoother (3), the pan-mod (6).  Arrays of the
+    packed flags and stage masks in, operations out."""
+    from skred_tpu_torch.engine.kernels import compat as K
+
+    on = lambda name: (flags & (1 << K.FLAGS.index(name))) != 0
+    return (12 + 3 * on("use_fm") + 8 * cz_on + 4 * on("quant")
+            + 9 * on("use_flt") + 12 * on("use_env") + 2 * am_on
+            + 3 * on("use_sm") + 6 * pm_on)
+
+
+def compat_counts(inp, block0, nb, passes, capture=False):
+    """The compat kernel over blocks ``block0 .. block0+nb`` of ``inp``
+    (``engine.kernels.compat.CompatInputs``) at ``passes`` passes: its
+    inputs read once (the parameters, ops and maps, the table buffer,
+    the blocks' noise, the carry), its outputs written once (the stereo
+    stream, the carry, the capture), and the operations of the voices
+    each block's segment sounds (amp != 0), every pass, with the voice
+    sum and the volume smoother a row-sample."""
+    from skred_tpu_torch.engine.kernels import compat as K
+
+    n, rows = inp.block, inp.rows
+    pi = inp.pi.cpu().numpy()
+    amp = inp.pf[:, :, K.PF.index("amp")].cpu().numpy()
+    col = lambda name: pi[:, :, K.PI.index(name)]
+    per = compat_voice_ops(col("flags"), col("cz_mode") != 0,
+                           col("am_osc") >= 0, col("pm_osc") >= 0)
+    per = np.where(amp != 0.0, per, 0).sum(axis=-1)          # [B, S]
+    seg = inp.seg[:, block0:block0 + nb].cpu().numpy().astype(np.int64)
+    voice_ops = int(np.take_along_axis(per, seg, axis=1).sum())
+    ops = n * (passes * voice_ops + nb * rows * (2 * 63 + 5))
+    carry = (rows * (len(K.CF) + len(K.CI)) * 64 + rows) * 4
+    read = nbytes(inp.pf, inp.pi, inp.vf, inp.of, inp.oi, inp.seg,
+                  inp.start, inp.table) + nb * n * 4 + carry
+    write = rows * nb * n * 2 * 4 * (1 + (64 if capture else 0)) + carry
+    return read, write, ops
+
+
+def compat_bound(inp, block0, nb, passes, peaks, capture=False):
+    return bound(*compat_counts(inp, block0, nb, passes, capture), peaks)
 
 
 # ---- per-kernel counts, on one call's arguments ``(a, kw)``: (bytes

@@ -59,15 +59,20 @@ def test_render_batch_without_a_readable_script(tmp_path):
     assert out.shape == (0, 0, 2)
 
 
-def test_render_batch_names_what_is_not_ported(monkeypatch):
+def test_render_batch_names_what_is_not_ported(monkeypatch, capsys):
     """A script the cyclic engine's gate refuses, and engine="compat",
-    need the compat engine: no fallback, an error that names the item."""
+    take the compat engine (ported since): the fall-back names the
+    gate's reason on stderr (tests/test_torch_render_batch.py holds both
+    renders to render_stacked)."""
     monkeypatch.setattr(tc, "cyclic_gate", lambda st: "forced-refusal")
-    with pytest.raises(NotImplementedError,
-                       match=r"forced-refusal.*ROADMAP item 8"):
-        tb.render_batch([FB1], 0.02, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tb.render_batch([STRESS64], 0.02, engine="compat", device="cpu")
+    out = tb.render_batch([FB1], 0.02, device="cpu")
+    err = capsys.readouterr().err
+    assert "forced-refusal" in err and "compat scan engine" in err
+    assert out.shape == (1, 2 * 512, 2) and np.abs(out).max() > 0.01
+    out = tb.render_batch([STRESS64], 0.02, engine="compat", device="cpu")
+    assert "WARNING" not in capsys.readouterr().err
+    assert out.shape == (1, 2 * 512, 2) and np.isfinite(out).all()
+    assert np.abs(out).max() > 0.01
 
 
 def test_render_fused_stream_equals_render_fused():
