@@ -13,7 +13,10 @@ with its reads, FM increment, CZ warp and clip; the table lookup; the
 keyed filter/smoother with its noise select, dead mask, envelope and am
 stream); and corpus/fb1-fb5.sk, whose cyclic modulation
 graphs take the cyclic kernel; the compat engine renders stress64
-through its own kernel.  Phases, in order (any failure exits non-zero):
+through its own kernel; a mesh splits batches' rows, and the command
+line renders through both engines.  Phases, in order (any failure exits
+non-zero), each new one reading the launch counts set to 0 just before
+it:
 
   1. device       the card's name and power limit (nvidia-smi), and its
                   peaks from skred_tpu_torch/parallel/roofline.py (a card
@@ -145,8 +148,25 @@ through its own kernel.  Phases, in order (any failure exits non-zero):
  11. batch        render_batch over stress64, noise64 and fb1-fb5 at
                   0.25 s: finite, no silent row, every kernel launched but
                   the compat kernel; then with engine="compat": the
-                  compat kernel alone
- 12. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
+                  compat kernel alone; the cyclic rows against the compat
+                  rows, fb1 and fb4 within -60 dB
+ 12. repair       fast mode of the feedback engines, fb1 and fb4 at 8 rows
+                  x 5 blocks: the compat kernel's fast render equals its
+                  exact render bit for bit, the cyclic kernel's fast
+                  render is within -60 dB of the compat exact render (the
+                  kernel phase holds the cyclic kernel in fast mode to its
+                  plain version too, on fb1's vectors)
+ 13. mesh         a mesh of two entries on the card, ["cuda:0", "cuda:0"]:
+                  stress64 and noise64 at 8 rows x 4 blocks through
+                  render_fused, the seven scripts through render_batch,
+                  each bit-equal to its render without a mesh;
+                  entry_torch.entry()'s step (one compat launch, equal to
+                  render_stacked) and entry_torch.dryrun_multichip(2)
+ 14. cli          python -m skred_tpu_torch.cli's main: render stress64
+                  (1 s) with --engine fused and --engine compat, each WAV
+                  byte for byte the library render's; batch over fb1-fb5
+                  with its wall and x realtime
+ 15. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
                   headline and, per bucket, x_rt, wall spread, set-up
                   seconds and roofline label; it fails unless there are
                   seven buckets (stress64, noise64, fb1-fb5), each
@@ -268,7 +288,8 @@ def same_bits(a, b):
     against a number differs."""
     if a is None or b is None:
         return a is None and b is None
-    a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    a, b = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x) for x in (a, b))
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.dtype == np.float32:
@@ -509,6 +530,13 @@ def kernel_phase(dev, specs, errs):
         for variant in ("fixed", "general"):
             calls.append(("cyclic", label.format(a[8]) + f", {variant}", a,
                           dict(variant=variant)))
+    # fast mode (one fma at the render._fma sites, the CZ scales and
+    # warp without their exact paths) on fb1's vectors
+    a = ci.on_device(ci.block_inputs(FEEDBACK[0].read_text().splitlines(),
+                                     ROWS, seed=20, n=n), dev)
+    for variant in ("fixed", "general"):
+        calls.append(("cyclic", f"fb1, {a[8]} voices, fast mode, {variant}",
+                      a, dict(variant=variant, exact=False)))
     a = ci.on_device(ci.out_of_range(ci.block_inputs(
         ci.ALL_FEATURES, ROWS, seed=19, n=64), seed=19), dev)
     for variant in ("fixed", "general"):
@@ -1786,6 +1814,9 @@ def cyclic_keys():
         keys.setdefault(f"{p.stem} block", ck.fixed_key(a[7], a[8]))
     a = ci.block_inputs(ci.ALL_FEATURES, 2, seed=17, n=8)
     keys["all-features"] = ck.fixed_key(a[7], a[8])
+    a = ci.block_inputs(FEEDBACK[0].read_text().splitlines(), 2, seed=20,
+                        n=8)
+    keys["fb1 block, fast"] = ck.fixed_key(a[7], a[8], exact=False)
     return keys
 
 
@@ -1876,7 +1907,7 @@ def compat_batch(rows, seconds=0.0464):
 
 
 def compat_sass():
-    """Instructions of compat_kernel<exact, no capture>'s sample loop
+    """Instructions of compat_kernel<no capture>'s sample loop
     (static: every run-time branch, the CZ curves and the envelope's
     arms included once; not what a warp issues, which depends on the
     arms its voices take): the second largest loop, inside the block
@@ -1886,7 +1917,7 @@ def compat_sass():
     from skred_tpu_torch.engine.kernels import build
 
     funcs = sass_functions(build._target("compat"))
-    name = next(nm for nm in funcs if "compat_kernelILb1ELb0E" in nm)
+    name = next(nm for nm in funcs if "compat_kernelILb0EE" in nm)
     ins = funcs[name]
     loops = []
     for a, t in ins:
@@ -2146,14 +2177,15 @@ def compat_phase(dev, card, peaks, counters, errs):
 
 def batch_phase(dev, card, counters):
     """render_batch over every in-repo script: the fused engine's two
-    buckets and five cyclic scripts in one call."""
+    buckets and five cyclic scripts in one call, then the compat engine
+    alone.  Returns (scripts, the first render, the compat render)."""
     from skred_tpu_torch.parallel.batch import render_batch
 
     scripts = [STRESS64, NOISE64] + FEEDBACK
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
-    out = render_batch(scripts, 0.25, device=dev)
+    out = auto = render_batch(scripts, BATCH_SECONDS, device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {nm: fn.launches for nm, fn in counters.items()}
@@ -2182,7 +2214,7 @@ def batch_phase(dev, card, counters):
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
-    out = render_batch(scripts, 0.25, engine="compat", device=dev)
+    out = render_batch(scripts, BATCH_SECONDS, engine="compat", device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {nm: fn.launches for nm, fn in counters.items() if fn.launches}
@@ -2196,6 +2228,241 @@ def batch_phase(dev, card, counters):
     if set(counts) != {"compat"}:
         fail(f"batch (compat): launches {counts}, not the compat kernel's "
              f"alone")
+    # the cyclic kernel (exact) against the compat kernel (whose fast and
+    # exact modes are one arithmetic) on the feedback scripts
+    fb_db = {p.stem: db_of(auto[i], out[i])
+             for i, p in enumerate(scripts) if p in FEEDBACK}
+    log("batch: cyclic vs compat on the feedback scripts, dB of the "
+        "compat peak: " + ", ".join(f"{k} {v:.1f}" for k, v in fb_db.items())
+        + f" on {card}")
+    for name in ("fb1", "fb4"):
+        if not fb_db[name] <= -60.0:
+            fail(f"batch: {name} cyclic vs compat at {fb_db[name]:.1f} dB, "
+                 f"above -60 dB")
+    return scripts, auto, out
+
+
+def db_of(a, b):
+    """max |a - b| in dB of b's peak (-inf where they are equal)."""
+    err = float(np.abs(np.asarray(a, np.float64) - b).max())
+    return 20 * np.log10(err / float(np.abs(b).max())) if err else -np.inf
+
+
+def zero_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters):
+    return {nm: fn.launches for nm, fn in counters.items() if fn.launches}
+
+
+REPAIR_BLOCKS = 5
+REPAIR_SECONDS = REPAIR_BLOCKS * 512 / 44100.0
+DRYRUN_SECONDS = 0.05              # entry_torch's default
+CLI_SECONDS = 1.0
+BATCH_SECONDS = 0.25
+
+
+def slice_builds():
+    """The keyed builds the repair, mesh and cli phases need, so that the
+    build phase makes them with the rest, in parallel: the tier and noise
+    kernels' keys of the dry run's batches (its two-row batch, stress64
+    and noise64 alone), and the cyclic kernel's keys
+    of fb1-fb5 as render_batch compiles them at the dry run's and the
+    batch's seconds, and of fb1 and fb4 in fast mode."""
+    import entry_torch
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine.fused import compute_feat
+    from skred_tpu_torch.engine.kernels import cyclic as ck
+    from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
+
+    items = []
+    batches = [entry_torch._tiny_stacked(2)]
+    for path in (STRESS64, NOISE64):
+        tl = prepare_tl(path, DRYRUN_SECONDS)
+        batches.append(pack_stacked(stack_timelines([tl])))
+    for st in batches:
+        _, r, _ = fused._prepare(st, True, "cpu")
+        items += [("tier", key) for key in fused._tier_keys(r)]
+        items += list(fused._noise_keys(r))
+    for p in FEEDBACK:
+        lines = p.read_text().splitlines()
+        runs = [(DRYRUN_SECONDS, True), (BATCH_SECONDS, True)]
+        if p.stem in ("fb1", "fb4"):
+            runs.append((REPAIR_SECONDS, False))
+        for seconds, exact in runs:
+            st = cyclic_batch(lines, seconds, 1)
+            items.append(("cyclic", ck.fixed_key(
+                compute_feat(st), st.params["amp"].shape[-1], exact)))
+    return list(dict.fromkeys(items))
+
+
+def prepare_tl(path, seconds):
+    from skred_tpu_torch.assets.bank import WaveBank
+    from skred_tpu_torch.host.timeline import compile_script
+
+    return compile_script(path.read_text().splitlines(), seconds,
+                          bank=WaveBank(), script_dir=path.parent)
+
+
+def repair_phase(dev, card, counters):
+    """Fast mode of the feedback engines: fb1 and fb4 at 8 rows x 5
+    blocks.  The compat kernel's fast render equals its exact render bit
+    for bit; the cyclic kernel's fast render is within -60 dB of the
+    compat kernel's exact render."""
+    from skred_tpu_torch.engine.cyclic import render_cyclic
+    from skred_tpu_torch.parallel.batch import (pack_stacked,
+                                                render_stacked,
+                                                stack_timelines)
+
+    for p in (FEEDBACK[0], FEEDBACK[3]):
+        st = stack_timelines([prepare_tl(p, REPAIR_SECONDS)] * 8)
+        zero_counts(counters)
+        t0 = time.time()
+        exact = render_stacked(st, exact=True, device=dev)
+        fast = render_stacked(st, exact=False, device=dev)
+        cyc = render_cyclic(pack_stacked(st, cyclic=True), exact=False,
+                            device=dev)
+        wall = time.time() - t0
+        counts = read_counts(counters)
+        d = db_of(cyc, exact)
+        log(f"repair {p.stem}: 8 rows x {st.num_blocks} blocks, compat "
+            f"fast vs exact {'bit-equal' if same_bits(fast, exact) else 'DIFFER'}"
+            f", cyclic fast vs compat exact {d:.1f} dB of the peak "
+            f"{float(np.abs(exact).max()):.3f}, launches {counts}, "
+            f"{wall:.2f} s on {card}")
+        if exact.shape != (8, REPAIR_BLOCKS * 512, 2) or \
+                not np.isfinite(exact).all() or np.abs(exact).max() <= 0.01:
+            fail(f"repair {p.stem}: bad compat render {exact.shape}")
+        if not same_bits(fast, exact):
+            fail(f"repair {p.stem}: the compat kernel's fast render is not "
+                 f"its exact render")
+        if not d <= -60.0:
+            fail(f"repair {p.stem}: cyclic fast at {d:.1f} dB, above -60")
+        if counts.get("compat") != 2 or not counts.get("cyclic_fixed"):
+            fail(f"repair {p.stem}: launches {counts}: not the compat and "
+                 f"the keyed cyclic kernel")
+
+
+def mesh_phase(dev, card, counters, batch):
+    """A mesh of two entries on the one card, ["cuda:0", "cuda:0"]:
+    stress64 and noise64 at 8 rows x 4 blocks through the fused engine,
+    the seven in-repo scripts through render_batch (the batch phase's
+    render without a mesh), each bit-equal to no mesh; entry()'s step on
+    the card and dryrun_multichip(2, device="cuda")."""
+    import entry_torch
+    from skred_tpu_torch.engine.fused import render_fused
+    from skred_tpu_torch.parallel.batch import (make_mesh, render_batch,
+                                                render_stacked)
+
+    mesh = [dev, dev]
+    if torch.cuda.device_count() == 1 and make_mesh(2) != mesh:
+        fail(f"mesh: make_mesh(2) is {make_mesh(2)}, not {mesh}")
+    for path in (STRESS64, NOISE64):
+        st = short_batch(path.read_text().splitlines())
+        want = render_fused(st, device=dev)
+        zero_counts(counters)
+        got = render_fused(st, mesh=mesh)
+        counts = read_counts(counters)
+        log(f"mesh {path.stem}: 8 rows x {st.num_blocks} blocks over "
+            f"{[str(d) for d in mesh]}: "
+            f"{'bit-equal' if same_bits(got, want) else 'DIFFERS'} to no "
+            f"mesh, launches {counts} on {card}")
+        if not same_bits(got, want) or np.abs(want).max() <= 0.01:
+            fail(f"mesh {path.stem}: the split render is not the unsplit "
+                 f"render")
+        need = ("tier_keyed",) if path == STRESS64 else \
+            ("phase_walk_warp", "lookup", "filt_smooth_noise")
+        if any(not counts.get(nm) for nm in need):
+            fail(f"mesh {path.stem}: launches {counts}, not {need}")
+    scripts, want, _ = batch
+    zero_counts(counters)
+    t0 = time.time()
+    got = render_batch(scripts, BATCH_SECONDS, mesh=mesh)
+    wall = time.time() - t0
+    counts = read_counts(counters)
+    log(f"mesh render_batch: {len(scripts)} scripts x {BATCH_SECONDS} s "
+        f"over {[str(d) for d in mesh]} in {wall:.2f} s: "
+        f"{'bit-equal' if same_bits(got, want) else 'DIFFERS'} to no mesh, "
+        f"launches {counts} on {card}")
+    if not same_bits(got, want):
+        fail("mesh: render_batch over the mesh is not its render without")
+    if any(not counts.get(nm) for nm in ("tier_keyed", "phase_walk_warp",
+                                         "cyclic_fixed")):
+        fail(f"mesh render_batch: launches {counts}")
+    # entry_torch.py's entry points
+    fn, example_args = entry_torch.entry(dev)
+    zero_counts(counters)
+    _, out, _ = fn(*example_args)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    want = render_stacked(entry_torch._tiny_stacked(2), exact=True,
+                          device=dev)
+    log(f"entry: the compat step on {out.device}, out "
+        f"{tuple(out.shape)}, launches {counts}, vs render_stacked "
+        f"{'bit-equal' if same_bits(out, want) else 'DIFFERS'}")
+    if counts != {"compat": 1} or not same_bits(out, want):
+        fail("entry: the step is not one compat launch equal to "
+             "render_stacked")
+    zero_counts(counters)
+    t0 = time.time()
+    entry_torch.dryrun_multichip(2, device="cuda")
+    counts = read_counts(counters)
+    log(f"dryrun_multichip(2) in {time.time() - t0:.2f} s, launches "
+        f"{counts} on {card}")
+    if any(not counts.get(nm) for nm in ("compat", "tier_keyed",
+                                         "cyclic_fixed")):
+        fail(f"dryrun_multichip: launches {counts}")
+
+
+def cli_phase(dev, card, counters):
+    """The command line on the card: render stress64 (1 s) with the
+    fused and the compat engine, each WAV byte for byte the library
+    render's; batch over fb1-fb5 with its wall and x realtime."""
+    from skred_tpu_torch import cli
+    from skred_tpu_torch.assets.bank import write_wav_16
+    from skred_tpu_torch.engine import render_timeline
+    from skred_tpu_torch.engine.fused import render_fused
+    from skred_tpu_torch.parallel.batch import stack_timelines
+
+    tmp = HERE / "build" / "chip_smoke_cli"
+    tmp.mkdir(parents=True, exist_ok=True)
+    tl = prepare_tl(STRESS64, CLI_SECONDS)
+    for engine, need in (("fused", "tier_keyed"), ("compat", "compat")):
+        out = tmp / f"stress64-{engine}.wav"
+        zero_counts(counters)
+        t0 = time.time()
+        rc = cli.main(["render", str(STRESS64.relative_to(HERE)),
+                       "--seconds", str(CLI_SECONDS), "--engine", engine,
+                       "--out", str(out)])
+        wall = time.time() - t0
+        counts = read_counts(counters)
+        want = render_fused(stack_timelines([tl]), device=dev)[0] \
+            if engine == "fused" else render_timeline(tl, device=dev)
+        write_wav_16(tmp / "want.wav", want)
+        same = out.read_bytes() == (tmp / "want.wav").read_bytes()
+        log(f"cli render --engine {engine}: rc {rc}, {wall:.2f} s, WAV "
+            f"{'equal to' if same else 'DIFFERS from'} the library "
+            f"render's, launches {counts} on {card}")
+        if rc != 0 or not same or not counts.get(need):
+            fail(f"cli render --engine {engine}: rc {rc}, same {same}, "
+                 f"launches {counts}")
+    zero_counts(counters)
+    t0 = time.time()
+    rc = cli.main(["batch", *(str(p.relative_to(HERE)) for p in FEEDBACK),
+                   "--seconds", str(BATCH_SECONDS), "--outdir",
+                   str(tmp / "batch")])
+    wall = time.time() - t0
+    counts = read_counts(counters)
+    audio = len(FEEDBACK) * BATCH_SECONDS
+    log(f"cli batch fb1-fb5: rc {rc}, {len(FEEDBACK)} scripts x "
+        f"{BATCH_SECONDS} s in {wall:.3f} s ({audio / wall:.1f}x realtime, "
+        f"wall clock, kernel builds done before), launches {counts} on "
+        f"{card}")
+    if rc != 0 or not counts.get("cyclic_fixed") or len(list(
+            (tmp / "batch").glob("fb*.wav"))) != len(FEEDBACK):
+        fail(f"cli batch: rc {rc}, launches {counts}")
 
 
 BENCH_SECONDS = NOISE64_SECONDS    # 344 whole blocks: 2 chunks of 172
@@ -2295,10 +2562,11 @@ def main():
     tkeys = tier_keys()
     nkeys = noise_keys()
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    skeys = slice_builds()
     secs = build.build_all(sources + [("cyclic", key)
                                       for key in keys.values()]
                            + [("tier", key) for key in tkeys.values()]
-                           + list(nkeys.values()))
+                           + list(nkeys.values()) + skeys)
     from skred_tpu_torch.host import native
 
     t1 = time.time()
@@ -2308,7 +2576,8 @@ def main():
     log(f"build: {len(secs)} build(s) ({len(sources)} sources, "
         f"{len(set(keys.values()))} keys of the cyclic kernel, "
         f"{len(set(tkeys.values()))} of the tier kernel, "
-        f"{len(set(nkeys.values()))} of the keyed noise kernels) in "
+        f"{len(set(nkeys.values()))} of the keyed noise kernels, "
+        f"{len(skeys)} keys of the repair, mesh and cli phases) in "
         f"{time.time() - t0:.1f} s")
     uses = {}
     for name, labelled in (("cyclic", keys), ("tier", tkeys)):
@@ -2427,9 +2696,17 @@ def main():
 
     # ---- 11. every in-repo script through render_batch ----
     phase("batch")
-    batch_phase(dev, card, counters)
+    batch = batch_phase(dev, card, counters)
 
-    # ---- 12. the port's bench ----
+    # ---- 12.-14. the feedback engines' fast mode, a mesh, the CLI ----
+    phase("repair")
+    repair_phase(dev, card, counters)
+    phase("mesh")
+    mesh_phase(dev, card, counters, batch)
+    phase("cli")
+    cli_phase(dev, card, counters)
+
+    # ---- 15. the port's bench ----
     phase("bench")
     b_launch = bench_phase(card, counters)
 

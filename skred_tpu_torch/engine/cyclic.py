@@ -24,6 +24,9 @@ the batch, because the kernel takes one table base per voice.  Buckets
 are built per script identity, so every batch ``render_batch`` makes
 passes.
 
+``render_cyclic_each`` renders several batches over a mesh of devices,
+their blocks in turn (``render_batch``'s cyclic scripts).
+
 Port of ``skred_tpu.engine.cyclic`` (cyclic_gate, the block scan,
 render_cyclic, render_cyclic_stream, render_cyclic_stream_device).
 Reference: synth.c:526-612 (frame loop), :217-275 (osc_next).
@@ -272,6 +275,27 @@ def render_cyclic(st, noise=None, exact: bool = True,
                                        noise=noise, exact=exact,
                                        device=device))
     return np.concatenate(chunks, axis=1)
+
+
+def render_cyclic_each(sts, mesh, noise=None,
+                       exact: bool = True) -> list:
+    """Render several cyclic batches → a numpy ``[B, T, 2]`` each:
+    batch ``i`` on ``mesh[i % len(mesh)]`` (a list of devices,
+    ``parallel.batch.make_mesh``), every batch's blocks stepped in turn,
+    so the cards of a mesh work at once.  ``render_batch`` renders its
+    cyclic scripts, one batch each, through it."""
+    preps = [_prep(st, exact, torch.device(mesh[i % len(mesh)]), noise)
+             for i, st in enumerate(sts)]
+    carries = [carry for _, _, carry in preps]
+    outs = [[] for _ in preps]
+    with torch.no_grad():
+        for kb in range(max(st.num_blocks for st, _, _ in preps)):
+            for i, (st, r, _) in enumerate(preps):
+                if kb < st.num_blocks:
+                    carries[i], o = _block_step(r, carries[i], kb)
+                    outs[i].append(o)
+    return [_rows_audio(torch.stack(o), st.batch).cpu().numpy()
+            for o, (st, _, _) in zip(outs, preps)]
 
 
 def render_cyclic_stream_device(st, chunk_blocks: int = 172,

@@ -38,11 +38,13 @@ stereo pair, before the voice sum: the mix and the fold are off, every
 tier writes its samples into the block buffer, and ``_mix_parts`` keeps
 each lane's panned samples beside the sum it takes.
 
+``render_fused(mesh=...)`` splits the batch's rows over several
+devices (see its docstring).
+
 Port of ``skred_tpu.engine.fused`` (render_fused, render_fused_device,
 render_fused_stream, render_fused_stream_device) on its Pallas paths.  A
 cyclic batch is a ValueError here, as in the JAX package:
-``engine/cyclic.py`` renders it (``render_cyclic``).  Several devices
-are not ported yet (ROADMAP).
+``engine/cyclic.py`` renders it (``render_cyclic``).
 """
 
 from __future__ import annotations
@@ -543,6 +545,23 @@ def _mix_mask(p, feat):
     return mask
 
 
+def _voice_sum(x):
+    """[N, V, B] -> [N, B]: the sum over voices in a fixed pairwise tree
+    (V zero-padded to a power of two, then halved: voice v adds voice
+    v + h).  Every step is an elementwise add, so a row's sum does not
+    depend on the batch's row count or layout, as ``torch.sum``'s order
+    does: a shard of a batch mixes as the whole batch does, and the card
+    as the CPU."""
+    v = x.shape[1]
+    w = 1 << max(v - 1, 0).bit_length()
+    if w != v:
+        x = torch.nn.functional.pad(x, (0, 0, 0, w - v))
+    while w > 1:
+        w //= 2
+        x = x[:, :w] + x[:, w:2 * w]
+    return x[:, 0]
+
+
 def _mix_parts(carry, p, parts, feat, n, b, acc=None, caps=None):
     """Stereo mix of the tiers' kernel outputs ([N, B] each channel).
 
@@ -588,7 +607,7 @@ def _mix_parts(carry, p, parts, feat, n, b, acc=None, caps=None):
             sounds = contrib_t.T[None]
             cap_l.append(torch.where(sounds, lw, 0.0))
             cap_r.append(torch.where(sounds, rw, 0.0))
-        l_t, r_t = lw.sum(dim=1), rw.sum(dim=1)
+        l_t, r_t = _voice_sum(lw), _voice_sum(rw)
         mix_l = l_t if mix_l is None else mix_l + l_t
         mix_r = r_t if mix_r is None else mix_r + r_t
     if acc is not None:
@@ -598,8 +617,8 @@ def _mix_parts(carry, p, parts, feat, n, b, acc=None, caps=None):
     if pms_lanes:
         lanes, lpm, rpm, new_pl, new_pr = _pan_mod_mix(
             carry, p, feat, b, pm_s, pm_c, pm_aa, pm_il, src_s)
-        mix_l = mix_l + lpm.sum(dim=1)
-        mix_r = mix_r + rpm.sum(dim=1)
+        mix_l = mix_l + _voice_sum(lpm)
+        mix_r = mix_r + _voice_sum(rpm)
         pan_upd = (lanes, new_pl, new_pr)
     if caps is not None:
         left, right = torch.cat(cap_l, dim=1), torch.cat(cap_r, dim=1)
@@ -966,14 +985,12 @@ def from_stacked(st, device="cuda") -> dict:
                                   device))
 
 
-def _prepare(st, exact, device, capture=False, noise_blocks=None,
-             noise=None, mix=True, fold=True):
-    """The batch on ``device`` for the block loop; the noise stream
-    (``noise``, or the engine's own), when a tier has noise voices,
-    covers ``noise_blocks`` (default: all) blocks.  ``mix`` and ``fold``
-    choose the tier kernel's in-kernel stereo mix and modulator-bank
-    fold (see the module docstring); ``capture`` turns both off, as the
-    JAX package does (``skred_tpu/engine/fused.py:1410``)."""
+def _packed(st, capture=False, mix=True, fold=True, pack=True):
+    """(packed batch, its ``Plan``): ``pack_stacked(st, pack=pack)``
+    unless ``st`` is packed.  ``mix`` and ``fold`` choose the tier
+    kernel's in-kernel stereo mix and modulator-bank fold (see the module
+    docstring); ``capture`` turns both off, as the JAX package does
+    (``skred_tpu/engine/fused.py:1410``)."""
     from skred_tpu_torch.parallel.batch import pack_stacked
 
     if st.fused_passes is None:
@@ -983,8 +1000,19 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
     if capture:
         mix = fold = False
     if "fm_delayed" not in st.params:
-        st = pack_stacked(st)
-    pl = plan(st, mix, fold)
+        st = pack_stacked(st, pack=pack)
+    return st, plan(st, mix, fold)
+
+
+def _prepare(st, exact, device, capture=False, noise_blocks=None,
+             noise=None, mix=True, fold=True, pl=None):
+    """The batch on ``device`` for the block loop; the noise stream
+    (``noise``, or the engine's own), when a tier has noise voices,
+    covers ``noise_blocks`` (default: all) blocks.  ``pl``: the plan to
+    render ``st`` (packed) by, a larger batch's when ``st`` is a shard of
+    it; else ``_packed``'s."""
+    if pl is None:
+        st, pl = _packed(st, capture, mix, fold)
     feat = pl.feat
     if exact is None:
         exact = True
@@ -1051,22 +1079,57 @@ def _render_chunk(r: _Render, carry, block0, nb, caps=None):
     return carry, torch.stack(outs)               # [nb, N, B, 2]
 
 
-def render_fused(st, exact: Optional[bool] = None, capture: bool = False,
-                 device="cuda", mix: bool = True,
-                 fold: bool = True) -> np.ndarray:
+def _shard_blocks(r: _Render, carry, nb, caps=None):
+    """Generator over the blocks of one shard's render: each block's
+    ``[N, B, 2]`` on the shard's device."""
+    for k in range(nb):
+        carry, o = _block_step(r, carry, k, caps=caps)
+        yield o
+
+
+def render_fused(st, noise: Optional[np.ndarray] = None, mesh=None,
+                 capture: bool = False, exact: Optional[bool] = None,
+                 pack: bool = True, *, device="cuda", mix: bool = True,
+                 fold: bool = True):
     """Render a StackedTimelines batch with the fused engine → numpy
     [B, T, 2]; with ``capture`` also each voice's post-pan stereo pair
     as the JAX package returns it, ``[num_blocks, B, Vp, block, 2]``
-    (packed voice order).  Runs on the card unless ``device="cpu"``.
-    ``mix`` and ``fold``: see the module docstring."""
-    st, r, carry = _prepare(st, exact, device, capture, mix=mix, fold=fold)
-    caps = [] if capture else None
+    (packed voice order).  The JAX package's arguments, in its order
+    (its ``use_pallas`` has no counterpart: the kernel route is the
+    plan's): ``noise``, the noise stream (default the engine's own);
+    ``mesh``, a list of devices (``parallel.batch.make_mesh``) that the
+    batch's rows are split over, data-parallel; ``pack=False`` packs
+    every voice (``pack_stacked(st, pack=False)``) where ``st`` is not
+    packed yet.  Runs on the card unless ``device="cpu"`` (without a
+    mesh).  ``mix`` and ``fold``: see the module docstring.
+
+    Under a mesh the batch is packed and planned once, whole, and then
+    split into runs of rows, one a mesh entry: every shard renders by
+    the whole batch's plan (its tier keys and lanes), with the same
+    noise stream and table buffer, so the audio is the unsplit render's
+    bit for bit.  The shards' blocks are stepped in turn, so the cards
+    of a mesh work at once while the host queues the next shard's
+    block."""
+    from skred_tpu_torch.parallel.batch import shard_rows, take_rows
+
+    st, pl = _packed(st, capture, mix, fold, pack)
+    shards = []
+    for dev, rows in shard_rows(st.batch, [device] if mesh is None
+                                else mesh):
+        _, r, carry = _prepare(take_rows(st, rows), exact, dev, capture,
+                               noise=noise, pl=pl)
+        shards.append((r, carry, [] if capture else None))
+    steps = zip(*(_shard_blocks(r, carry, st.num_blocks, caps)
+                  for r, carry, caps in shards))
     with torch.no_grad():
-        carry, outs = _render_chunk(r, carry, 0, st.num_blocks, caps)
-    out = outs.permute(2, 0, 1, 3).reshape(
-        st.batch, st.num_blocks * st.block, 2).cpu().numpy()
+        blocks = list(steps)
+    outs = [torch.stack(o) for o in zip(*blocks)]  # [nb, N, B_shard, 2]
+    out = torch.cat([o.cpu() for o in outs], dim=2).permute(2, 0, 1, 3) \
+        .reshape(st.batch, st.num_blocks * st.block, 2).numpy()
     if capture:
-        return out, torch.stack(caps).cpu().numpy()
+        caps = torch.cat([torch.stack(c).cpu() for _, _, c in shards],
+                         dim=1)
+        return out, caps.numpy()
     return out
 
 

@@ -290,7 +290,7 @@ class _Seg:
             pan=bool(self.pan_on.any()))
 
 
-def _voice_pass(est, prev, c, p: _Seg, whiteish, count, table, fma):
+def _voice_pass(est, prev, c, p: _Seg, whiteish, count, table):
     """render._voice_pass on [B, V] tensors: one fixed-point pass.
     Returns (sample_out, left, right, new state)."""
     active = (c["finished"] == 0) & p.amp_nz
@@ -304,7 +304,7 @@ def _voice_pass(est, prev, c, p: _Seg, whiteish, count, table, fma):
     inc = p.pinc
     if p.has["fm"]:
         g = read("fm") * p.fm_dep
-        inc = torch.where(p.use_fm, fma(p.mis, g, p.pinc), p.pinc)
+        inc = torch.where(p.use_fm, fma32(p.mis, g, p.pinc), p.pinc)
     if p.has["dir"]:
         inc = torch.where(p.dirneg, -inc, inc)
     ph = c["phase"] + inc
@@ -359,10 +359,10 @@ def _voice_pass(est, prev, c, p: _Seg, whiteish, count, table, fma):
     s3 = s2
     if p.has["flt"]:
         flt = p.b1 * c["x1"]
-        flt = fma(p.b0, s2, flt)
-        flt = fma(p.b2, c["x2"], flt)
-        flt = fma(p.na1, c["y1"], flt)
-        flt = fma(p.na2, c["y2"], flt)
+        flt = fma32(p.b0, s2, flt)
+        flt = fma32(p.b2, c["x2"], flt)
+        flt = fma32(p.na1, c["y1"], flt)
+        flt = fma32(p.na2, c["y2"], flt)
         s3 = torch.where(p.use_flt, flt, s2)
         upd = active & p.use_flt
         new["x2"] = torch.where(upd, c["x1"], c["x2"])
@@ -393,7 +393,7 @@ def _voice_pass(est, prev, c, p: _Seg, whiteish, count, table, fma):
     final = p.amp * env * ampmod
     final2 = final
     if p.has["sm"]:
-        sg = fma(p.smoothing, final - c["smoother"], c["smoother"])
+        sg = fma32(p.smoothing, final - c["smoother"], c["smoother"])
         final2 = torch.where(p.use_sm, sg, final)
         new["smoother"] = torch.where(active & p.use_sm, sg, c["smoother"])
     sample_out = torch.where(active, s3 * final2, 0.0)
@@ -402,8 +402,8 @@ def _voice_pass(est, prev, c, p: _Seg, whiteish, count, table, fma):
     pl, pr = c["pan_l"], c["pan_r"]
     if p.has["pan"]:
         pm_read = torch.where(p.pm_self, sample_out, read("pm"))
-        one_m_q = fma(-pm_read, p.pm_dep, 1.0)
-        one_p_q = fma(pm_read, p.pm_dep, 1.0)
+        one_m_q = fma32(-pm_read, p.pm_dep, 1.0)
+        one_p_q = fma32(pm_read, p.pm_dep, 1.0)
         pl = torch.where(p.pan_on, one_m_q / 2.0, c["pan_l"])
         pr = torch.where(p.pan_on, one_p_q / 2.0, c["pan_r"])
         new["pan_l"] = torch.where(active & p.pan_on, pl, c["pan_l"])
@@ -445,8 +445,8 @@ def compat_block_plain(inp: CompatInputs, carry, noise, block0: int,
                        capture: bool = False):
     """The kernel's arithmetic in torch ops on any device: blocks
     ``block0 .. block0+nb`` of the scan, sample by sample.  Returns what
-    ``compat_block`` returns."""
-    fma = fma32 if exact else (lambda a, b, c: a * b + c)
+    ``compat_block`` returns; ``exact`` selects nothing (see
+    ``compat_block``)."""
     cf, ci, vg = carry
     c = {k: cf[:, j] for j, k in enumerate(CF)}
     c.update({k: ci[:, j] for j, k in enumerate(CI)})
@@ -468,12 +468,12 @@ def compat_block_plain(inp: CompatInputs, carry, noise, block0: int,
             est = prev
             for _ in range(mod_passes):
                 sample_out, left, right, new = _voice_pass(
-                    est, prev, c, p, noise[i], count, inp.table, fma)
+                    est, prev, c, p, noise[i], count, inp.table)
                 est = sample_out
             c = new
             c["sample"] = sample_out
             # ---- master volume smoother + stereo mix (synth.c:616-624) --
-            vg = fma(0.002, p.vf - vg, vg)
+            vg = fma32(0.002, p.vf - vg, vg)
             out[:, i, 0] = voice_sum(left) * vg
             out[:, i, 1] = voice_sum(right) * vg
             if capture:
@@ -487,7 +487,7 @@ def compat_block_plain(inp: CompatInputs, carry, noise, block0: int,
 # ---- the CUDA launch: one C struct mirrors csrc/compat.cu's CompatArgs ----
 
 _INT_FIELDS = ("rows", "segs", "nb_total", "block", "block0", "nblocks",
-               "passes", "exact", "capture")
+               "passes", "capture")
 _PTR_FIELDS = ("pf", "pi", "vf", "of", "oi", "seg", "start", "table",
                "noise", "cf0", "ci0", "vg0", "cf1", "ci1", "vg1", "out",
                "cap")
@@ -516,7 +516,7 @@ def _layout_checked(lib) -> None:
 
 
 def _pack_args(inp: CompatInputs, carry, noise, block0, nb, mod_passes,
-               exact, capture):
+               capture):
     """Check the CUDA tensors and fill the kernel's argument struct.
     Returns (CompatArgs, new carry, out, cap)."""
     dev = inp.pf.device
@@ -531,7 +531,7 @@ def _pack_args(inp: CompatInputs, carry, noise, block0, nb, mod_passes,
     a = CompatArgs()
     a.rows, a.segs, a.nb_total, a.block = B, S, NB, n
     a.block0, a.nblocks, a.passes = int(block0), int(nb), int(mod_passes)
-    a.exact, a.capture = int(bool(exact)), int(bool(capture))
+    a.capture = int(bool(capture))
     a.pf = chk("pf", inp.pf, dev, F32, (B, S, len(PF), V))
     a.pi = chk("pi", inp.pi, dev, I32, (B, S, len(PI), V))
     a.vf = chk("vf", inp.vf, dev, F32, (B, S))
@@ -566,7 +566,7 @@ def _launch(inp: CompatInputs, carry, noise, block0, nb, mod_passes, exact,
     from skred_tpu_torch.engine.kernels import build
 
     args, new, out, cap = _pack_args(inp, carry, noise, block0, nb,
-                                     mod_passes, exact, capture)
+                                     mod_passes, capture)
     lib = build.load("compat")
     if not getattr(lib, "layout_checked", False):
         _layout_checked(lib)
@@ -585,8 +585,11 @@ def compat_block(inp: CompatInputs, carry, noise, block0: int, nb: int,
     inp: ``pack_inputs``' tensors; carry: ``(cf, ci, vol_gain)`` (see
     the module docstring); noise: [nb*block] f32, the stream's values of
     these blocks; mod_passes: fixed-point passes a sample; exact: the
-    reference's fmas at ``render._fma``'s sites (else separately rounded
-    products); capture: also return each voice's post-pan stereo pair.
+    engine's mode, which selects nothing: both modes take one fma at
+    each of ``render._fma``'s sites (the reference's in exact mode, and
+    in fast mode the card's plain multiply-add, which is what the JAX
+    package's fast mode gives on the CPU); capture: also return each
+    voice's post-pan stereo pair.
     Returns ``(carry, out [B, nb*block, 2], cap [B, nb*block, V, 2] or
     None)``; the carry is new tensors, the input's is left as it was."""
     dev = inp.pf.device

@@ -23,8 +23,13 @@
 // Numerics are render.py's, site by site, bit for bit with
 // kernels/compat.py:compat_block_plain:
 //   * _fma(.., exact) (FM increment, the four biquad fmas, the smoother,
-//     the pan fmas, the volume smoother): __fmaf_rn when EXACT, else a
-//     separately rounded __fmul_rn / __fadd_rn;
+//     the pan fmas, the volume smoother): __fmaf_rn in both modes.  Exact
+//     mode is the reference's fma; fast mode is "plain hardware
+//     arithmetic" (render.py:54), which is one fma on this card and on
+//     the CPU, where XLA contracts the JAX package's a * b + c.  A
+//     separately rounded product would differ in the last bit, and the
+//     feedback of fb1 and fb4 grows that to the scale of the signal, so
+//     the engine has one arithmetic and no mode;
 //   * _fma32 (always an fma: fast_pow, the CZ curves, the envelope decay,
 //     the quantizer): __fmaf_rn;
 //   * _div32 and one_m_q / 2: IEEE division (-prec-div=true);
@@ -65,8 +70,7 @@ enum { C_PHASE, C_SAMPLE, C_HOLD_VAL, C_X1, C_X2, C_Y1, C_Y2, C_SMOOTHER,
 enum { CI_FINISHED, CI_HOLD_COUNT, NCI };
 
 struct CompatArgs {
-    int rows, segs, nb_total, block, block0, nblocks, passes, exact,
-        capture;
+    int rows, segs, nb_total, block, block0, nblocks, passes, capture;
     const float* pf;      // [rows, segs, NPF, V]
     const int* pi;        // [rows, segs, NPI, V]
     const float* vf;      // [rows, segs]
@@ -81,11 +85,6 @@ struct CompatArgs {
     float* out;           // [rows, nblocks * block, 2]
     float* cap;           // [rows, nblocks * block, V, 2] or null
 };
-
-template <bool EXACT>
-COMPAT_DEV float xfma(float a, float b, float c) {
-    return EXACT ? __fmaf_rn(a, b, c) : __fadd_rn(__fmul_rn(a, b), c);
-}
 
 // f32 -> i32 as XLA's convert gives it (render.py:144, :247, :268):
 // toward zero, saturated, NaN to 0.  A plain (int) cast of NaN or of an
@@ -183,7 +182,7 @@ struct PassOut {
 // render._voice_pass for voice v: est / prev are the 64 voices'
 // current-sample estimates and previous samples (shared memory).  With
 // COMMIT, the voice's new state goes into s (the last pass).
-template <bool EXACT, bool COMMIT>
+template <bool COMMIT>
 COMPAT_DEV PassOut voice_pass(const float* est, const float* prev, State& s,
                               const Params& p, float white, int count,
                               const float* __restrict__ table, int v) {
@@ -202,7 +201,7 @@ COMPAT_DEV PassOut voice_pass(const float* est, const float* prev, State& s,
     float inc = pinc;
     if (fl & F_USE_FM) {
         const float g = __fmul_rn(read(p.i[Q_FM_OSC]), p.f[P_FM_DEP]);
-        inc = xfma<EXACT>(p.f[P_MIS], g, pinc);
+        inc = __fmaf_rn(p.f[P_MIS], g, pinc);
     }
     if (fl & F_DIRNEG) inc = -inc;
     const float ph = s.phase + inc;
@@ -249,10 +248,10 @@ COMPAT_DEV PassOut voice_pass(const float* est, const float* prev, State& s,
     float s3 = s2, flt = 0.0f;
     if (use_flt) {
         flt = __fmul_rn(p.f[P_B1], s.x1);
-        flt = xfma<EXACT>(p.f[P_B0], s2, flt);
-        flt = xfma<EXACT>(p.f[P_B2], s.x2, flt);
-        flt = xfma<EXACT>(p.f[P_NA1], s.y1, flt);
-        flt = xfma<EXACT>(p.f[P_NA2], s.y2, flt);
+        flt = __fmaf_rn(p.f[P_B0], s2, flt);
+        flt = __fmaf_rn(p.f[P_B2], s.x2, flt);
+        flt = __fmaf_rn(p.f[P_NA1], s.y1, flt);
+        flt = __fmaf_rn(p.f[P_NA2], s.y2, flt);
         s3 = flt;
     }
 
@@ -287,7 +286,7 @@ COMPAT_DEV PassOut voice_pass(const float* est, const float* prev, State& s,
     const bool use_sm = (fl & F_USE_SM) != 0;
     float final2 = fin, sg = 0.0f;
     if (use_sm) {
-        sg = xfma<EXACT>(p.f[P_SMOOTHING], fin - s.smoother, s.smoother);
+        sg = __fmaf_rn(p.f[P_SMOOTHING], fin - s.smoother, s.smoother);
         final2 = sg;
     }
     const float out = active ? __fmul_rn(s3, final2) : 0.0f;
@@ -300,8 +299,8 @@ COMPAT_DEV PassOut voice_pass(const float* est, const float* prev, State& s,
     if (pan_on) {
         const float q = pm == v ? out : read(pm);
         // gcc fuses the q product into both (1-q) and (1+q)
-        pl = xfma<EXACT>(-q, p.f[P_PM_DEP], 1.0f) / 2.0f;
-        pr = xfma<EXACT>(q, p.f[P_PM_DEP], 1.0f) / 2.0f;
+        pl = __fmaf_rn(-q, p.f[P_PM_DEP], 1.0f) / 2.0f;
+        pr = __fmaf_rn(q, p.f[P_PM_DEP], 1.0f) / 2.0f;
     }
     const bool contrib = active && !disc;
     PassOut o;
@@ -338,7 +337,7 @@ COMPAT_DEV void load_params(Params& p, const CompatArgs& a, int b, int seg,
 }
 
 // the per-row body; blockIdx.x is the row, threadIdx.x the voice
-template <bool EXACT, bool CAPTURE>
+template <bool CAPTURE>
 __global__ void __launch_bounds__(V) compat_kernel(const CompatArgs a) {
     __shared__ float s_prev[V];
     __shared__ float s_est[2][V];
@@ -414,17 +413,17 @@ __global__ void __launch_bounds__(V) compat_kernel(const CompatArgs a) {
             const float* est = s_prev;
             PassOut o;
             for (int ps = 0; ps + 1 < a.passes; ++ps) {
-                o = voice_pass<EXACT, false>(est, s_prev, s, p, white, count,
-                                             a.table, v);
+                o = voice_pass<false>(est, s_prev, s, p, white, count,
+                                      a.table, v);
                 float* w = s_est[ps & 1];
                 w[v] = o.sample;
                 __syncthreads();
                 est = w;
             }
-            o = voice_pass<EXACT, true>(est, s_prev, s, p, white, count,
-                                        a.table, v);
+            o = voice_pass<true>(est, s_prev, s, p, white, count,
+                                 a.table, v);
             // ---- master volume smoother + stereo mix (synth.c:616-624) ----
-            vg = xfma<EXACT>(0.002f, vf - vg, vg);
+            vg = __fmaf_rn(0.002f, vf - vg, vg);
             if (CAPTURE) {
                 float2* c2 = reinterpret_cast<float2*>(a.cap)
                              + ((size_t)b * T + i) * V + v;
@@ -475,14 +474,10 @@ extern "C" int compat_layout(int which) {
 extern "C" int compat_launch(const CompatArgs* a, void* stream) {
     if (a->rows <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    if (a->exact && a->capture)
-        compat_kernel<true, true><<<a->rows, V, 0, st>>>(*a);
-    else if (a->exact)
-        compat_kernel<true, false><<<a->rows, V, 0, st>>>(*a);
-    else if (a->capture)
-        compat_kernel<false, true><<<a->rows, V, 0, st>>>(*a);
+    if (a->capture)
+        compat_kernel<true><<<a->rows, V, 0, st>>>(*a);
     else
-        compat_kernel<false, false><<<a->rows, V, 0, st>>>(*a);
+        compat_kernel<false><<<a->rows, V, 0, st>>>(*a);
     return (int)cudaGetLastError();
 }
 

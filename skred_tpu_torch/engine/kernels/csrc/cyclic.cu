@@ -41,11 +41,16 @@
 // The wrapper (kernels/cyclic.py) takes the keyed variant for k up to its
 // cap and builds each key at first use; both share CyclicArgs.
 //
-// Numerics are the JAX kernel's, bit for bit: __fmaf_rn where it calls
-// _kfma whatever the mode (quantizer, envelope decay) and, in exact mode,
-// at its fma sites (FM increment, biquad, smoother, pan, volume
-// smoother); the hoisted-reciprocal Markstein divide for the CZ
-// normalisation; IEEE division in the envelope.  Build with -fmad=false
+// Numerics are the JAX kernel's, bit for bit in exact mode: __fmaf_rn
+// where it calls _kfma (quantizer, envelope decay) and at its fma sites
+// (FM increment, biquad, smoother, pan, volume smoother); the
+// hoisted-reciprocal Markstein divide for the CZ normalisation; IEEE
+// division in the envelope.  Fast mode keeps the fma at those sites too:
+// it is the card's plain multiply-add, and what the JAX package's fast
+// mode gives on the CPU, where XLA contracts its a * b + c.  A separately
+// rounded product differs in the last bit, and a feedback loop (fb1,
+// fb4) grows that to the scale of the signal.  Fast mode differs only in
+// the CZ scales and warp (cz_scales, cz_warp_k).  Build with -fmad=false
 // and without --use_fast_math; denormals are kept.
 
 #include <cuda_runtime.h>
@@ -205,7 +210,7 @@ cyclic_general_kernel(const CyclicArgs a) {
                                    __ldg(a.fm_del + vo), v, k)
                           * __ldg(a.fm_dep + vo);
                 if (__ldg(a.use_fm + vo) != 0)
-                    inc = xfma(__ldg(a.mis + vo), g, pinc, exact);
+                    inc = kfma(__ldg(a.mis + vo), g, pinc);
             }
             if (a.has_direction && __ldg(a.dirneg + vo) != 0) inc = -inc;
             const float lo = __ldg(a.lo + vo), hi = __ldg(a.hi + vo);
@@ -297,10 +302,10 @@ cyclic_general_kernel(const CyclicArgs a) {
                 const float x1 = s_x1[c], x2 = s_x2[c];
                 const float y1 = s_y1[c], y2 = s_y2[c];
                 float fv = __ldg(a.b1 + vo) * x1;
-                fv = xfma(__ldg(a.b0 + vo), s2, fv, exact);
-                fv = xfma(__ldg(a.b2 + vo), x2, fv, exact);
-                fv = xfma(__ldg(a.na1 + vo), y1, fv, exact);
-                fv = xfma(__ldg(a.na2 + vo), y2, fv, exact);
+                fv = kfma(__ldg(a.b0 + vo), s2, fv);
+                fv = kfma(__ldg(a.b2 + vo), x2, fv);
+                fv = kfma(__ldg(a.na1 + vo), y1, fv);
+                fv = kfma(__ldg(a.na2 + vo), y2, fv);
                 const bool uf = __ldg(a.use_flt + vo) != 0;
                 if (uf) s3 = fv;
                 if (active && uf) {
@@ -343,8 +348,8 @@ cyclic_general_kernel(const CyclicArgs a) {
             float final2 = final_g;
             if (a.has_sm) {
                 const float sg = s_sg[c];
-                const float sg2 = xfma(__ldg(a.smoothing + vo), final_g - sg,
-                                       sg, exact);
+                const float sg2 = kfma(__ldg(a.smoothing + vo), final_g - sg,
+                                       sg);
                 const bool u_sm = __ldg(a.use_sm + vo) != 0;
                 if (u_sm) final2 = sg2;
                 if (active && u_sm) s_sg[c] = sg2;
@@ -362,8 +367,8 @@ cyclic_general_kernel(const CyclicArgs a) {
                     pmr = sample_out;
                 const bool pan_on = pm_osc >= 0 && dc0;
                 const float dep = __ldg(a.pm_dep + vo);
-                const float one_m_q = xfma(-pmr, dep, 1.0f, exact);
-                const float one_p_q = xfma(pmr, dep, 1.0f, exact);
+                const float one_m_q = kfma(-pmr, dep, 1.0f);
+                const float one_p_q = kfma(pmr, dep, 1.0f);
                 if (pan_on) { plv = one_m_q * 0.5f; prv = one_p_q * 0.5f; }
                 if (active && pan_on) { s_pnl[c] = plv; s_pnr[c] = prv; }
             }
@@ -374,7 +379,7 @@ cyclic_general_kernel(const CyclicArgs a) {
         // every voice wrote cur: it is the next frame's prev
         float* swap = prev; prev = cur; cur = swap;
         // ---- master-volume smoother (synth.c:616-624) ----
-        vg = xfma(0.002f, vf - vg, vg, exact);
+        vg = kfma(0.002f, vf - vg, vg);
         a.out_l[(size_t)t * B + b] = mix_l * vg;
         a.out_r[(size_t)t * B + b] = mix_r * vg;
     }
@@ -618,7 +623,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             if (FM) g = read_src(as_i(p[P_FM]), cur, prev, v) * p[P_FM + 2];
             // ---- increment ----
             float inc = pinc;
-            if (FM && (fl & F_USE_FM)) inc = xfma(p[P_FM + 1], g, pinc, EXACT);
+            if (FM && (fl & F_USE_FM)) inc = kfma(p[P_FM + 1], g, pinc);
             if (DIRN && (fl & F_DIRNEG)) inc = -inc;
             // ---- wrap ----
             const float lo = p[P_LO], hi = p[P_HI];
@@ -695,10 +700,10 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             float s3 = s2;
             if (FLT) {
                 float fv = p[P_FLT + 1] * x1[v];
-                fv = xfma(p[P_FLT], s2, fv, EXACT);
-                fv = xfma(p[P_FLT + 2], x2[v], fv, EXACT);
-                fv = xfma(p[P_FLT + 3], y1[v], fv, EXACT);
-                fv = xfma(p[P_FLT + 4], y2[v], fv, EXACT);
+                fv = kfma(p[P_FLT], s2, fv);
+                fv = kfma(p[P_FLT + 2], x2[v], fv);
+                fv = kfma(p[P_FLT + 3], y1[v], fv);
+                fv = kfma(p[P_FLT + 4], y2[v], fv);
                 const bool uf = fl & F_FLT;
                 if (uf) s3 = fv;
                 if (active && uf) {
@@ -736,8 +741,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             }
             float final2 = final_g;
             if (SM) {
-                const float sg2 = xfma(p[P_SM], final_g - sg[v], sg[v],
-                                       EXACT);
+                const float sg2 = kfma(p[P_SM], final_g - sg[v], sg[v]);
                 const bool u_sm = fl & F_USE_SM;
                 if (u_sm) final2 = sg2;
                 if (active && u_sm) sg[v] = sg2;
@@ -751,8 +755,8 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
                 if (PM_SELF && (fl & F_PM_SELF)) pmr = sample_out;
                 const bool pan_on = fl & F_PAN_ON;
                 const float dep = p[P_PM + 1];
-                const float one_m_q = xfma(-pmr, dep, 1.0f, EXACT);
-                const float one_p_q = xfma(pmr, dep, 1.0f, EXACT);
+                const float one_m_q = kfma(-pmr, dep, 1.0f);
+                const float one_p_q = kfma(pmr, dep, 1.0f);
                 if (pan_on) { plv = one_m_q * 0.5f; prv = one_p_q * 0.5f; }
                 if (active && pan_on) { pnl[v] = plv; pnr[v] = prv; }
             }
@@ -763,7 +767,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
         // ---- master volume ----
 #pragma unroll
         for (int v = 0; v < K; ++v) prev[v] = cur[v];
-        vg = xfma(0.002f, vf - vg, vg, EXACT);
+        vg = kfma(0.002f, vf - vg, vg);
         a.out_l[(size_t)t * B + b] = mix_l * vg;
         a.out_r[(size_t)t * B + b] = mix_r * vg;
     }

@@ -118,7 +118,6 @@ def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
     discard what it computes.  Returns what ``cyclic_block`` returns."""
     fl = _flags(feat)
     modes = fl["cz_modes"]
-    fma = kfma if exact else (lambda a, b, c: a * b + c)
     dev = vf.device
     B = vf.shape[0]
     rng = range(k)
@@ -245,7 +244,7 @@ def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
             inc = pinc[v]
             if fl["fm"] and has_fm[v]:
                 g = read_mod(fm_plan[v], cur, prev) * fm_dep[v]
-                inc = torch.where(use_fm[v], fma(mis[v], g, pinc[v]),
+                inc = torch.where(use_fm[v], kfma(mis[v], g, pinc[v]),
                                   pinc[v])
             if fl["direction"] and has_dir[v]:
                 inc = torch.where(dirneg[v], -inc, inc)
@@ -311,10 +310,10 @@ def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
             s3 = s2
             if fl["flt"] and has_flt[v]:
                 fv = b1[v] * x1[v]
-                fv = fma(b0[v], s2, fv)
-                fv = fma(b2[v], x2[v], fv)
-                fv = fma(na1[v], y1[v], fv)
-                fv = fma(na2[v], y2[v], fv)
+                fv = kfma(b0[v], s2, fv)
+                fv = kfma(b2[v], x2[v], fv)
+                fv = kfma(na1[v], y1[v], fv)
+                fv = kfma(na2[v], y2[v], fv)
                 s3 = torch.where(use_flt[v], fv, s2)
                 upd = active & use_flt[v]
                 x1[v], x2[v] = (torch.where(upd, s2, x1[v]),
@@ -346,7 +345,7 @@ def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
                 final = final * torch.where(am_ge[v], amr * am_dep[v], 1.0)
             final2 = final
             if fl["sm"] and has_sm[v]:
-                sg2 = fma(smoothing[v], final - sg[v], sg[v])
+                sg2 = kfma(smoothing[v], final - sg[v], sg[v])
                 final2 = torch.where(use_sm[v], sg2, final)
                 sg[v] = torch.where(active & use_sm[v], sg2, sg[v])
             sample_out = torch.where(active, s3 * final2, 0.0)
@@ -357,8 +356,8 @@ def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
                 pmr = read_mod(pm_plan[v], cur, prev)
                 if fl["pm_self"]:
                     pmr = torch.where(pm_self[v], sample_out, pmr)
-                one_m_q = fma(-pmr, pm_dep[v], 1.0)
-                one_p_q = fma(pmr, pm_dep[v], 1.0)
+                one_m_q = kfma(-pmr, pm_dep[v], 1.0)
+                one_p_q = kfma(pmr, pm_dep[v], 1.0)
                 plv = torch.where(pan_on[v], one_m_q * 0.5, pnl[v])
                 prv = torch.where(pan_on[v], one_p_q * 0.5, pnr[v])
                 pnl[v] = torch.where(active & pan_on[v], plv, pnl[v])
@@ -368,7 +367,7 @@ def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
             mix_r = mix_r + torch.where(contrib, sample_out * prv, 0.0)
         prev = cur
         # ---- master-volume smoother (synth.c:616-624) ----
-        vg = fma(0.002, vf - vg, vg)
+        vg = kfma(0.002, vf - vg, vg)
         out_l[t] = mix_l * vg
         out_r[t] = mix_r * vg
 

@@ -14,10 +14,12 @@ version.
 signature, with ``device``); ``render_stream_device`` renders a script or
 a stacked batch chunk by chunk with the carry and the audio on the
 device.  ``parallel/batch.py``'s ``render_stacked`` renders a stacked
-batch, one row a script.  Numerics are float32 throughout, matching the
-C engine: the LCG noise stream, the truncating table lookup, the
-fast_pow bit trick (synth.c:140-147) and fmodf wrapping, the reference's
-fmas at ``_fma``'s sites in exact mode.
+batch, one row a script, on one device or split over a mesh.  Numerics
+are float32 throughout, matching the C engine: the LCG noise stream,
+the truncating table lookup, the fast_pow bit trick (synth.c:140-147)
+and fmodf wrapping, the reference's fmas at ``_fma``'s sites.  Fast and exact mode are one arithmetic here:
+the card's plain multiply-add is that fma, and so is the JAX package's
+fast mode on the CPU, where XLA contracts it.
 """
 
 from __future__ import annotations
@@ -45,13 +47,18 @@ def stacked_inputs(st, device="cuda"):
                        st.seg_is_start, st.table_buffer, st.block, device)
 
 
+def _stacked(batch):
+    """A Timeline as a one-row stack; a StackedTimelines as it is."""
+    from skred_tpu_torch.parallel.batch import stack_timelines
+
+    return stack_timelines([batch]) if isinstance(batch, Timeline) \
+        else batch
+
+
 def _inputs(batch, device):
     """(inputs, mod_passes) of a Timeline (a one-row stack) or a
     StackedTimelines."""
-    from skred_tpu_torch.parallel.batch import stack_timelines
-
-    if isinstance(batch, Timeline):
-        batch = stack_timelines([batch])
+    batch = _stacked(batch)
     return stacked_inputs(batch, device), batch.mod_passes
 
 
@@ -60,17 +67,17 @@ def render_chunks(inp, mod_passes: int, noise, exact: bool, capture: bool,
     """Generator over the chunks of a render: ``(out [B, nb*block, 2],
     cap [B, nb*block, V, 2] or None)`` on the inputs' device, the carry
     kept there from chunk to chunk.  ``noise``: the stream on the device,
-    at least ``blocks`` (default all) blocks long."""
+    at least ``blocks`` (default all) blocks long.  Consume it under
+    ``torch.no_grad()``."""
     n = inp.block
     blocks = inp.num_blocks if blocks is None else blocks
     carry = zero_carry(inp.rows, inp.pf.device)
-    with torch.no_grad():
-        for b0 in range(0, blocks, chunk_blocks):
-            nb = min(chunk_blocks, blocks - b0)
-            carry, out, cap = compat_block(
-                inp, carry, noise[b0 * n:(b0 + nb) * n], b0, nb,
-                mod_passes, exact, capture)
-            yield out, cap
+    for b0 in range(0, blocks, chunk_blocks):
+        nb = min(chunk_blocks, blocks - b0)
+        carry, out, cap = compat_block(
+            inp, carry, noise[b0 * n:(b0 + nb) * n], b0, nb,
+            mod_passes, exact, capture)
+        yield out, cap
 
 
 def _noise(noise, total, device):
@@ -81,18 +88,28 @@ def _noise(noise, total, device):
 
 
 def render_rows(batch, capture: bool = False, noise=None,
-                exact: bool = True, device="cuda"):
+                exact: bool = True, device="cuda", mesh=None):
     """A Timeline or StackedTimelines rendered whole -> numpy ``[B, T,
-    2]`` (and ``[B, T, V, 2]`` with capture), chunk by chunk."""
-    inp, passes = _inputs(batch, device)
-    total = inp.num_blocks * inp.block
+    2]`` (and ``[B, T, V, 2]`` with capture), chunk by chunk.  With a
+    ``mesh`` (a list of devices) the rows are split over it, every shard
+    at the whole batch's pass count, its chunks launched in turn with
+    the other shards'."""
+    from skred_tpu_torch.parallel.batch import shard_rows, take_rows
+
+    st = _stacked(batch)
+    total = st.num_blocks * st.block
+    gens = [render_chunks(stacked_inputs(take_rows(st, rows), dev),
+                          st.mod_passes, _noise(noise, total, dev), exact,
+                          capture)
+            for dev, rows in shard_rows(st.batch, [device] if mesh is None
+                                        else mesh)]
     outs, caps = [], []
-    for out, cap in render_chunks(inp, passes,
-                                  _noise(noise, total, device), exact,
-                                  capture):
-        outs.append(out.cpu().numpy())
-        if capture:
-            caps.append(cap.cpu().numpy())
+    with torch.no_grad():
+        for chunk in zip(*gens):         # every shard's chunk, launched
+            outs.append(np.concatenate([o.cpu().numpy() for o, _ in chunk]))
+            if capture:
+                caps.append(np.concatenate([c.cpu().numpy()
+                                            for _, c in chunk]))
     out = np.concatenate(outs, axis=1)
     return (out, np.concatenate(caps, axis=1)) if capture else out
 
@@ -125,11 +142,12 @@ def render_stream_device(batch, chunk_blocks: int = CHUNK, noise=None,
     inp, passes = _inputs(batch, device)
     whole = (inp.num_blocks // chunk_blocks) * chunk_blocks
     out = None
-    for out, _ in render_chunks(inp, passes,
-                                _noise(noise, whole * inp.block, device),
-                                exact, capture, chunk_blocks, whole):
-        if warmup_only:
-            break
+    with torch.no_grad():
+        for out, _ in render_chunks(inp, passes,
+                                    _noise(noise, whole * inp.block, device),
+                                    exact, capture, chunk_blocks, whole):
+            if warmup_only:
+                break
     if out is None:
         return 0.0
     return float(out.abs().sum(dtype=torch.float64))

@@ -5,7 +5,10 @@ segment) and share one packed wavetable buffer and one noise stream.
 The packing is numpy; ``render_batch`` sends each script to its engine
 (``engine/fused.py``, ``engine/cyclic.py`` for a cyclic modulation graph,
 or the compat engine, ``engine/render.py``, through ``render_stacked``),
-imported when it is called.
+imported when it is called.  A mesh (``make_mesh``: a list of devices)
+splits a batch's rows over several devices (``shard_rows``,
+``take_rows``), data-parallel: scripts are independent, so no shard
+reads another's.
 """
 
 from __future__ import annotations
@@ -144,25 +147,91 @@ def _prep_params(st: StackedTimelines):
     return params
 
 
-def render_stacked(st: StackedTimelines, noise: Optional[np.ndarray] = None,
-                   exact: bool = False, device="cuda") -> np.ndarray:
+def make_mesh(n_devices: Optional[int] = None, device="cuda") -> list:
+    """A mesh: the list of devices a batch's rows are split over,
+    data-parallel (the JAX package's one-axis ``"dp"`` mesh).  The
+    visible cards, or the CPU with ``device="cpu"``; the first
+    ``n_devices`` of them, or, where there are fewer, each again in turn:
+    a device may stand for several entries, as ``["cuda:0", "cuda:0"]``
+    shows a split on a one-card machine, and ``["cpu"] * 8`` stands for
+    the JAX package's eight virtual CPU devices.  Without a card a
+    ``"cuda"`` mesh is an error."""
+    import torch
+
+    kind = torch.device(device).type
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA card is visible; a CPU "
+                               "mesh needs device='cpu'")
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    elif kind == "cpu":
+        devs = [torch.device("cpu")]
+    else:
+        raise ValueError(f"make_mesh: no mesh of {kind} devices")
+    n = len(devs) if n_devices is None else int(n_devices)
+    if n < 1:
+        raise ValueError(f"make_mesh: {n} devices")
+    return [devs[i % len(devs)] for i in range(n)]
+
+
+def shard_rows(batch: int, mesh) -> list:
+    """``(device, rows)`` of each shard of a ``batch``-row batch over a
+    mesh: the rows in order, in ``len(mesh)`` runs as even as they go; an
+    entry that gets no row gets no shard."""
+    import torch
+
+    if not len(mesh):
+        raise ValueError("an empty mesh")
+    runs = np.array_split(np.arange(batch), len(mesh))
+    return [(torch.device(d), r) for d, r in zip(mesh, runs) if len(r)]
+
+
+def take_rows(st: StackedTimelines, rows) -> StackedTimelines:
+    """The batch's ``rows`` (a shard) as a batch of their own, with the
+    whole batch's table buffer, pass counts and packing (tiers, source
+    prefix): the engines render a shard by the whole batch's plan."""
+    rows = np.asarray(rows)
+    if np.array_equal(rows, np.arange(st.batch)):
+        return st
+    take = lambda d: {k: np.asarray(v)[rows] for k, v in d.items()}
+    return dataclasses.replace(
+        st, params=take(st.params), ops=take(st.ops),
+        seg_of_block=np.asarray(st.seg_of_block)[rows],
+        seg_is_start=np.asarray(st.seg_is_start)[rows], batch=len(rows))
+
+
+def _padded(rows: list, ndev: int) -> list:
+    """``rows`` and copies of its last to a multiple of ``ndev``, so a
+    batch splits evenly over a mesh; the copies add nothing to the
+    batch's plan, and their audio is dropped."""
+    return rows + [rows[-1]] * ((-len(rows)) % max(ndev, 1))
+
+
+def render_stacked(st: StackedTimelines, mesh=None,
+                   noise: Optional[np.ndarray] = None, exact: bool = False,
+                   *, device="cuda") -> np.ndarray:
     """Render a stacked batch with the compat engine -> numpy ``[B, T,
     2]``, one row a script; the rows share the table buffer and the
     noise stream (synth.c:508 seeds the stream once per process).
     ``exact=False`` is the JAX package's default for a batch
-    (``_render_batch_jit``).  Runs on the card unless ``device="cpu"``;
-    the rows are independent CUDA blocks (several devices: ROADMAP)."""
+    (``_render_batch_jit``); the compat engine's two modes are one
+    arithmetic (``engine/kernels/compat.py``).  With a ``mesh``
+    (``make_mesh``) the rows are split over its devices, each shard's
+    kernel chunks launched in turn.  Runs on the card unless
+    ``device="cpu"`` (without a mesh)."""
     from skred_tpu_torch.engine.render import render_rows
 
-    return render_rows(st, noise=noise, exact=exact, device=device)
+    return render_rows(st, noise=noise, exact=exact, device=device,
+                       mesh=mesh)
 
 
 def render_batch(scripts: List[pathlib.Path], seconds: float,
-                 outdir: Optional[pathlib.Path] = None,
-                 engine: str = "auto", device="cuda") -> np.ndarray:
-    """Batch-render scripts on one device → ``[scripts, T, 2]``, with
-    per-script error isolation: a script that fails to compile is skipped
-    (reported) without killing the batch, the analog of the reference's
+                 outdir: Optional[pathlib.Path] = None, mesh=None,
+                 engine: str = "auto", *, device="cuda") -> np.ndarray:
+    """Batch-render scripts → ``[scripts, T, 2]``, with per-script error
+    isolation: a script that fails to compile is skipped (reported)
+    without killing the batch, the analog of the reference's
     parse-and-survive stance.
 
     engine "auto": acyclic scripts are grouped by ``bucket_key`` (voices,
@@ -172,7 +241,12 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
     gate refuses it, with the compat engine (loudly, on stderr).
     "compat" renders every script with the compat engine
     (``render_stacked``).  ``outdir`` writes one 16-bit WAV per rendered
-    script.  Runs on the card unless ``device="cpu"``."""
+    script.  With a ``mesh`` (``make_mesh``) each fused group and the
+    compat group are padded to a multiple of its device count and split
+    over it, and the cyclic scripts take its devices in turn, their
+    blocks stepped in turn; the audio is the render without a mesh, bit
+    for bit.  Runs on the card unless ``device="cpu"`` (without a
+    mesh)."""
     from skred_tpu_torch.assets.bank import WaveBank, write_wav_16
     from skred_tpu_torch.engine import cyclic
     from skred_tpu_torch.engine.fused import render_fused
@@ -190,22 +264,30 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
             print(f"# skipping {p}: {type(ex).__name__}: {ex}")
     if not tls:
         return np.zeros((0, 0, 2), np.float32)
+    ndev = 1 if mesh is None else len(mesh)
+
+    def stacked(idxs):
+        return render_stacked(
+            stack_timelines(_padded([tls[i] for i in idxs], ndev)),
+            mesh=mesh, device=device)[:len(idxs)]
 
     if engine == "compat":
-        out = render_stacked(stack_timelines(tls), device=device)
+        out = stacked(range(len(tls)))
     else:
         out = np.zeros((len(tls), tls[0].num_blocks * tls[0].block, 2),
                        np.float32)
         buckets: dict = {}
-        cyclic_idx, scan_idx = [], []
+        cyclic_idx, scan_idx, cyc_sts = [], [], []
         for i, tl in enumerate(tls):
             if tl.fused_passes is None:
                 cyclic_idx.append(i)
             else:
                 buckets.setdefault(bucket_key(tl), []).append(i)
         for _, idxs in sorted(buckets.items()):
-            st = pack_stacked(stack_timelines([tls[i] for i in idxs]))
-            out[idxs] = render_fused(st, device=device)
+            st = pack_stacked(stack_timelines(
+                _padded([tls[i] for i in idxs], ndev)))
+            out[idxs] = render_fused(st, mesh=mesh,
+                                     device=device)[:len(idxs)]
         for i in cyclic_idx:
             # one bucket per script identity keeps the per-voice table
             # bindings row-uniform, which is all the gate asks for
@@ -221,15 +303,39 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
                       f"accelerators)", file=sys.stderr, flush=True)
                 scan_idx.append(i)
                 continue
-            out[i] = cyclic.render_cyclic(st, device=device)[0]
+            cyc_sts.append((i, st))
+        if cyc_sts:
+            outs = cyclic.render_cyclic_each(
+                [st for _, st in cyc_sts],
+                [device] if mesh is None else mesh)
+            for (i, _), o in zip(cyc_sts, outs):
+                out[i] = o[0]
         if scan_idx:
-            out[scan_idx] = render_stacked(
-                stack_timelines([tls[i] for i in scan_idx]), device=device)
+            out[scan_idx] = stacked(scan_idx)
 
     if outdir is not None:
         for p, audio in zip(ok_scripts, out):
             write_wav_16(outdir / (p.stem + ".wav"), audio)
     return out
+
+
+def fused_cost_per_device(st: StackedTimelines, mesh) -> float:
+    """The weak-scaling metric: the f32 operations of one shard's block
+    (the first mesh entry's rows) of a fused render split over ``mesh``,
+    as ``parallel/roofline.block_calls`` counts the kernel calls of the
+    whole batch's plan.  At fixed rows per device it must stay flat as
+    the mesh grows: a split that replicated work, or a plan that grew
+    with the batch, would show as a slope.  (The JAX package reads XLA's
+    cost analysis of the per-device program, which has no torch
+    counterpart.)"""
+    from skred_tpu_torch.engine.fused import plan
+    from skred_tpu_torch.parallel.roofline import block_calls
+
+    if "fm_delayed" not in st.params:
+        st = pack_stacked(st)
+    _, rows = shard_rows(st.batch, mesh)[0]
+    calls = block_calls(take_rows(st, rows), plan(st))
+    return float(sum(c.ops for c in calls))
 
 
 _MOD_TYPES = ("freq_mod_osc", "amp_mod_osc", "pan_mod_osc", "cz_mod_osc")

@@ -439,10 +439,11 @@ def _noise_calls(st, ti, ft, B, n, lo, hi, w, table):
     return [walk, look, filt]
 
 
-def block_calls(st) -> list:
+def block_calls(st, pl=None) -> list:
     """The kernel calls of a block of a packed fused batch, on average
     over its blocks, in the order the block loop makes them, each with
-    the bytes and operations of its work: the routing from
+    the bytes and operations of its work: the routing from ``pl`` (a
+    larger batch's plan where ``st`` is a shard of it) or
     ``engine.fused.plan`` (the one the renderer takes by default), the
     sizes from the pack (rows, block length, the tiers' voices and
     features, the bank columns their modulator fields name in each
@@ -450,7 +451,7 @@ def block_calls(st) -> list:
     from skred_tpu_torch.engine.fused import _kernel_feat, plan
     from skred_tpu_torch.engine.kernels import tier as tk
 
-    pl = plan(st)
+    pl = plan(st) if pl is None else pl
     B, n = st.batch, st.block
     table = 4 * np.asarray(st.table_buffer).size
     est_passes, est_v = pl.estimate()
