@@ -10,9 +10,14 @@ The counterpart of ``bench.py`` (the JAX package's TPU bench) for
 builds them (``skred_tpu_torch/parallel/buckets.py``): the acyclic
 scripts by packed voices, passes and feature set through
 ``render_fused_stream_device``, each cyclic script on its own through
-``render_cyclic_stream_device``.  Baseline 1.0× realtime: the reference
-C engine renders its 64-voice graph at exactly real time on one CPU
-thread (BASELINE.md).
+``render_cyclic_stream_device``, and the cyclic scripts the cyclic
+kernel's gate refuses together, ``replicas`` times each, through the
+compat engine's ``render_stacked`` (the compat-scan bucket, as
+``bench.py:371-397``: a warm pass, then one timed pass unless the warm
+pass took more than ``COMPAT_BUDGET_S``, when its wall is credited and
+the bucket is marked ``timed_cold``).  Baseline 1.0× realtime: the
+reference C engine renders its 64-voice graph at exactly real time on
+one CPU thread (BASELINE.md).
 
 Per bucket: one warm pass (it builds every kernel the bucket needs; a
 build inside a timed pass fails the run), ``_prepare`` timed once on its
@@ -33,23 +38,27 @@ more than 10% slower is timed three more times and listed only if the
 best of all passes still shows the drop.
 
 Runs on the card only: with no card it prints an error line and exits
-2.  Any failure (a compiler error, a gate refusal, a checksum that
-differs between passes, a build inside a timed pass) prints an error
-line and exits 1.
+2.  Any failure (a compiler error, a checksum that differs between
+passes, a build inside a timed pass) prints an error line and exits 1.
 """
 
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from skred_tpu_torch.tools.card import card_info  # noqa: E402
+
 CHUNK = 172          # ~2 s of blocks, as bench.py
+# the compat-scan bucket's time cap (bench.py:55): a warm pass longer
+# than this is credited as the bucket's wall, with no second pass
+COMPAT_BUDGET_S = 120.0
 DETAIL = HERE / "build" / "bench_detail_torch.json"
 BASELINE = HERE / "bench_baseline_torch.json"
 
@@ -74,18 +83,6 @@ def _error(msg, code):
                       "unit": "x_realtime_per_card", "vs_baseline": 0.0,
                       "error": msg}), flush=True)
     sys.exit(code)
-
-
-def card_info(device) -> dict:
-    """The card's name and power limit as nvidia-smi gives them."""
-    if torch.device(device).type != "cuda":
-        return {"name": str(device), "power_limit": None}
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    name, limit = (s.strip() for s in out.split(","))
-    return {"name": name, "power_limit": limit}
 
 
 def launch_counters() -> dict:
@@ -118,8 +115,7 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
     in-repo scripts; ``max_rows`` cuts every bucket's rows (tests)."""
     from skred_tpu_torch.engine import cyclic, fused
     from skred_tpu_torch.engine.kernels import build
-    from skred_tpu_torch.parallel.buckets import (SCRIPTS, GateRefusal,
-                                                  make_buckets)
+    from skred_tpu_torch.parallel.buckets import SCRIPTS, make_buckets
     from skred_tpu_torch.parallel.roofline import estimate_bucket
 
     on_card = torch.device(device).type == "cuda"
@@ -130,11 +126,7 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
     kind = torch.cuda.get_device_name(0) if on_card else str(device)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     scripts = list(SCRIPTS if scripts is None else scripts)
-    try:
-        buckets = make_buckets(scripts, seconds, replicas, max_rows)
-    except GateRefusal as ex:
-        _error(f"the cyclic kernel's gate refused {ex.script} ({ex.reason}); "
-               f"the bench has no compat-scan bucket for it", 1)
+    buckets = make_buckets(scripts, seconds, replicas, max_rows)
     exact = False if fast else None
     counters = launch_counters()
     baseline = _load_baseline(seconds, chunk, "fast" if fast else "exact")
@@ -194,6 +186,14 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
         return walls, sums
 
     for bk in buckets:
+        if bk.kind == "compat":
+            entry = compat_bucket(bk, device, sync, counters)
+            total["checksum"] += entry.pop("checksum")
+            total["audio"] += entry.pop("audio_s")
+            total["wall"] += entry["wall_s"]
+            detail.append(entry)
+            emit(partial=True)
+            continue
         st = bk.st
         label = f"{bk.kind} bucket {','.join(bk.scripts)}"
         whole = st.num_blocks // chunk
@@ -254,6 +254,42 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
         detail.append(entry)
         emit(partial=True)
     return emit(partial=False)
+
+
+def compat_bucket(bk, device, sync, counters) -> dict:
+    """The compat-scan bucket (``bench.py:371-397``): ``render_stacked``
+    over the refused scripts' rows, a warm pass, then one timed pass
+    unless the warm pass took more than ``COMPAT_BUDGET_S``, when its
+    wall is credited (``timed_cold``).  Returns the bucket's detail entry
+    with its ``checksum`` and credited ``audio_s`` for the totals."""
+    from skred_tpu_torch.host.timeline import noise_stream
+    from skred_tpu_torch.parallel.batch import render_stacked
+
+    st = bk.st
+    noise = noise_stream(st.num_blocks * st.block)
+
+    def run():
+        for fn in counters.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        out = render_stacked(st, noise=noise, device=device)
+        sync()
+        return out, time.perf_counter() - t0
+
+    out, wall = run()                        # builds the kernel, warms
+    timed_cold = wall > COMPAT_BUDGET_S
+    if not timed_cold:
+        out, wall = run()
+    audio = st.batch * st.num_blocks * st.block / 44100.0
+    return {"voices": "compat-scan", "rows": st.batch,
+            "scripts": bk.scripts, "distinct_scripts": len(bk.scripts),
+            "compiler": bk.compilers, "blocks": st.num_blocks,
+            "wall_s": round(wall, 3), "timed_cold": timed_cold,
+            "x_rt": round(audio / wall, 1),
+            "launches": {nm: fn.launches for nm, fn in counters.items()
+                         if fn.launches},
+            "checksum": float(np.abs(out[-1]).sum()), "audio_s": audio}
 
 
 def gate(entry, key, baseline, regressions, run_more, audio):

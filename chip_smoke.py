@@ -166,7 +166,20 @@ it:
                   (1 s) with --engine fused and --engine compat, each WAV
                   byte for byte the library render's; batch over fb1-fb5
                   with its wall and x realtime
- 15. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
+ 15. tools        the root tools on the card (skred_tpu_torch/tools/):
+                  card_parity --bucketed at 1 s over the seven scripts,
+                  exact and --fast, each script's dB against the compat
+                  engine (<= -60 dB); endurance oracle and run, stress64
+                  10 s at 1024 rows: the start, mid and end windows'
+                  dB (<= -60), host RSS and device memory (after the
+                  last full chunk within 1 MiB of after the first);
+                  one_bucket on fb2 at 4 s; gluebench on stress64 and
+                  noise64 at 2 s, best of 2 passes in turns (ms a block
+                  per kernel and glue); the
+                  bench over fb1 and fb4 at 4 s with the cyclic gate
+                  forced to refuse fb4: a compat-scan bucket, counted
+                  into the headline
+ 16. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
                   headline and, per bucket, x_rt, wall spread, set-up
                   seconds and roofline label; it fails unless there are
                   seven buckets (stress64, noise64, fb1-fb5), each
@@ -2262,15 +2275,48 @@ REPAIR_SECONDS = REPAIR_BLOCKS * 512 / 44100.0
 DRYRUN_SECONDS = 0.05              # entry_torch's default
 CLI_SECONDS = 1.0
 BATCH_SECONDS = 0.25
+PARITY_SECONDS = 1.0               # card_parity in the tools phase
+TOOL_SECONDS = 4.0                 # one_bucket, the bench
+# cut to keep the tools phase near 45 s (at 20 s and 4 s it took 54.3 s
+# on an H100 80GB HBM3, 700 W)
+ENDURANCE_SECONDS = 10.0
+GLUE_SECONDS, GLUE_PASSES = 2.0, 2
+
+
+def tool_keys(paths, seconds, exact):
+    """The keyed builds of ``paths``' bench buckets (2 rows: the keys
+    are the distinct scripts') in one arithmetic mode."""
+    from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine.fused import compute_feat
+    from skred_tpu_torch.engine.kernels import cyclic as ck
+    from skred_tpu_torch.parallel.batch import (pack_stacked,
+                                                pad_segments_pow2,
+                                                stack_timelines)
+
+    items = []
+    for path in paths:
+        tl = prepare_tl(path, seconds)
+        if tl.fused_passes is None:
+            st = pack_stacked(stack_timelines([tl] * 2), cyclic=True)
+            items.append(("cyclic", ck.fixed_key(
+                compute_feat(st), st.params["amp"].shape[-1], exact)))
+            continue
+        st = pad_segments_pow2(pack_stacked(stack_timelines([tl] * 2)))
+        _, r, _ = fused._prepare(st, exact, "cpu")
+        items += [("tier", key) for key in fused._tier_keys(r)]
+        items += list(fused._noise_keys(r))
+    return items
 
 
 def slice_builds():
-    """The keyed builds the repair, mesh and cli phases need, so that the
-    build phase makes them with the rest, in parallel: the tier and noise
-    kernels' keys of the dry run's batches (its two-row batch, stress64
-    and noise64 alone), and the cyclic kernel's keys
+    """The keyed builds the repair, mesh, cli and tools phases need, so
+    that the build phase makes them with the rest, in parallel: the tier
+    and noise kernels' keys of the dry run's batches (its two-row batch,
+    stress64 and noise64 alone), and the cyclic kernel's keys
     of fb1-fb5 as render_batch compiles them at the dry run's and the
-    batch's seconds, and of fb1 and fb4 in fast mode."""
+    batch's seconds, and of fb1 and fb4 in fast mode; the tools' buckets
+    (every script at the parity run's seconds in both modes, the timed
+    tools' at theirs, stress64 at the endurance run's)."""
     import entry_torch
     from skred_tpu_torch.engine import fused
     from skred_tpu_torch.engine.fused import compute_feat
@@ -2295,6 +2341,11 @@ def slice_builds():
             st = cyclic_batch(lines, seconds, 1)
             items.append(("cyclic", ck.fixed_key(
                 compute_feat(st), st.params["amp"].shape[-1], exact)))
+    scripts = [STRESS64, NOISE64] + FEEDBACK
+    for exact in (True, False):
+        items += tool_keys(scripts, PARITY_SECONDS, exact)
+    items += tool_keys(scripts, TOOL_SECONDS, True)
+    items += tool_keys([STRESS64], ENDURANCE_SECONDS, True)
     return list(dict.fromkeys(items))
 
 
@@ -2463,6 +2514,103 @@ def cli_phase(dev, card, counters):
     if rc != 0 or not counts.get("cyclic_fixed") or len(list(
             (tmp / "batch").glob("fb*.wav"))) != len(FEEDBACK):
         fail(f"cli batch: rc {rc}, launches {counts}")
+
+
+def tools_phase(dev, card, counters):
+    """The root tools on the card: card_parity --bucketed (exact and
+    fast), endurance (oracle and run), one_bucket, gluebench, and the
+    bench with the cyclic gate forced to refuse fb4."""
+    import bench_torch
+    from skred_tpu_torch.engine import cyclic
+    from skred_tpu_torch.tools import card_parity, endurance, gluebench
+    from skred_tpu_torch.tools import one_bucket
+
+    out = HERE / "build" / "chip_smoke_tools"
+    secs = {}
+    zero_counts(counters)
+    for fast in (False, True):
+        arith = "fast" if fast else "exact"
+        t0 = time.time()
+        rec = card_parity.card_parity(
+            PARITY_SECONDS, bucketed=True, fast=fast, device=dev,
+            record=out / f"card_parity_{arith}.json")
+        log(f"tools card_parity --bucketed {arith} {PARITY_SECONDS} s: "
+            + ", ".join(f"{n} {d:.2f} dB" for n, d in
+                        sorted(rec["scripts"].items()))
+            + f"; worst {rec['worst_db']} dB ({rec['worst_script']}), "
+            f"median {rec['median_db']}, bit-exact {rec['bit_exact']}, "
+            f"{time.time() - t0:.2f} s on {card}")
+        if rec["n_scripts"] != 7 or not rec["pass"]:
+            fail(f"tools: card_parity {arith}: {rec['scripts']}")
+        secs[f"card_parity {arith}"] = time.time() - t0
+    t0 = time.time()
+    endurance.oracle(STRESS64, ENDURANCE_SECONDS, endurance.WIN, dev,
+                     out / "endurance_oracle.npz")
+    rec = endurance.run(STRESS64, ENDURANCE_SECONDS, ROWS, endurance.WIN,
+                        dev, out / "endurance_oracle.npz",
+                        out / "endurance.json")
+    grow = rec["device_mem_mb_last"] - rec["device_mem_mb_first"]
+    log(f"tools endurance stress64 {ENDURANCE_SECONDS} s x {ROWS} rows: "
+        f"windows {rec['window_parity_db']} dB, "
+        f"{rec['x_realtime']:.1f}x realtime, RSS {rec['rss_mb_first']:.1f}"
+        f" -> {rec['rss_mb_last']:.1f} MB, device memory "
+        f"{rec['device_mem_mb_first']:.3f} -> {rec['device_mem_mb_last']:.3f}"
+        f" MB (peak {rec['device_mem_peak_mb']:.3f}), "
+        f"{time.time() - t0:.2f} s with the oracle on {card}")
+    if not rec["worst_window_db"] <= -60.0 or grow > 1.0:
+        fail(f"tools: endurance worst window {rec['worst_window_db']} dB, "
+             f"device memory grew {grow} MB")
+    secs["endurance"] = time.time() - t0
+    t0 = time.time()
+    (ob,) = one_bucket.one_bucket("fb2.sk", TOOL_SECONDS, ["exact"], dev)
+    if not ob["x_rt"] > 0:
+        fail(f"tools: one_bucket {ob}")
+    secs["one_bucket"] = time.time() - t0
+    t0 = time.time()
+    rec = gluebench.gluebench(["stress64.sk", "noise64.sk"], GLUE_SECONDS,
+                              dev, record=out / "gluebench.json",
+                              passes=GLUE_PASSES)
+    if sorted(rec["scripts"]) != ["noise64.sk", "stress64.sk"]:
+        fail(f"tools: gluebench {rec}")
+    secs["gluebench"] = time.time() - t0
+    counts = read_counts(counters)
+    log(f"tools: launches {counts}")
+    need = ("compat", "tier_keyed", "phase_walk_warp", "lookup",
+            "filt_smooth_noise", "cyclic_fixed")
+    if any(not counts.get(nm) for nm in need):
+        fail(f"tools: launches {counts}, not each of {need}")
+    # the bench zeroes the counts for each bucket's timed passes and
+    # keeps them in its detail
+    t0 = time.time()
+    # fb4 is the only in-repo cyclic script of several segments
+    real_gate = cyclic.cyclic_gate
+    cyclic.cyclic_gate = lambda st: "refused for the test" \
+        if st.params["amp"].shape[1] > 1 else real_gate(st)
+    try:
+        res = bench_torch.main(seconds=TOOL_SECONDS, device=dev,
+                               scripts=[FEEDBACK[0], FEEDBACK[3]])
+    except SystemExit as ex:
+        fail(f"tools: the bench with fb4 refused exited with {ex.code}")
+    finally:
+        cyclic.cyclic_gate = real_gate
+    compat = [b for b in res["buckets"] if b["voices"] == "compat-scan"]
+    log(f"tools bench, fb4 refused: {res['value']}x realtime over "
+        f"{len(res['buckets'])} buckets, {res['total_audio_s']} s of audio in "
+        f"{res['total_wall_s']} s; compat-scan bucket "
+        + (json.dumps(compat[0]) if compat else "MISSING") + f" on {card}")
+    audio = sum(b["rows"] * b["blocks"] * 512 / 44100.0
+                for b in res["buckets"])
+    if len(compat) != 1 or compat[0]["scripts"] != [FEEDBACK[3].name] \
+            or len(res["buckets"]) != 2 or res.get("partial") \
+            or abs(res["total_audio_s"] - audio) > 0.1 \
+            or compat[0]["launches"] != {"compat": -(-compat[0]["blocks"]
+                                                     // CHUNK)} \
+            or not res["buckets"][0]["launches"].get("cyclic_fixed"):
+        fail("tools: no compat-scan bucket of fb4 counted in the headline")
+    secs["bench, fb4 refused"] = time.time() - t0
+    log("tools: seconds " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      secs.items())
+        + f"; {sum(secs.values()):.2f} in all")
 
 
 BENCH_SECONDS = NOISE64_SECONDS    # 344 whole blocks: 2 chunks of 172
@@ -2706,7 +2854,11 @@ def main():
     phase("cli")
     cli_phase(dev, card, counters)
 
-    # ---- 15. the port's bench ----
+    # ---- 15. the root tools ----
+    phase("tools")
+    tools_phase(dev, card, counters)
+
+    # ---- 16. the port's bench ----
     phase("bench")
     b_launch = bench_phase(card, counters)
 

@@ -50,7 +50,8 @@
 // mode gives on the CPU, where XLA contracts its a * b + c.  A separately
 // rounded product differs in the last bit, and a feedback loop (fb1,
 // fb4) grows that to the scale of the signal.  Fast mode differs only in
-// the CZ scales and warp (cz_scales, cz_warp_k).  Build with -fmad=false
+// the CZ scales and the warp's phase (IEEE divides: cz_scales and
+// phase3), whose fmas it keeps as well.  Build with -fmad=false
 // and without --use_fast_math; denormals are kept.
 
 #include <cuda_runtime.h>
@@ -255,7 +256,7 @@ cyclic_general_kernel(const CyclicArgs a) {
                 const float phase3 = exact
                     ? kdiv_inv(ph2, __ldg(a.inv_ts + vo), tsz)
                     : __fdiv_rn(ph2, tsz);
-                const float warped = cz_warp_k(mode, phase3, s, tsz, exact,
+                const float warped = cz_warp_k(mode, phase3, s, tsz,
                                                a.cz_mask);
                 if (mode != 0) idx_f = warped;
             }
@@ -524,18 +525,17 @@ __device__ __forceinline__ float cz_warp_fixed(int mode, float phase,
     float out = phase;
     if (CZ_MASK & (1 << 1)) {
         const float w = phase < s.d ? phase * s.s1a
-                                    : xfma(phase - s.d, s.s1b, 0.5f, EXACT);
+                                    : kfma(phase - s.d, s.s1b, 0.5f);
         out = mode == 1 ? w : out;
     }
     if (CZ_MASK & (1 << 2)) {
         const float w = phase < 0.5f ? phase * s.sc2
-                                     : xfma(-(1.0f - phase), s.sc2, 1.0f,
-                                            EXACT);
+                                     : kfma(-(1.0f - phase), s.sc2, 1.0f);
         out = mode == 2 ? w : out;
     }
     if (CZ_MASK & (1 << 3)) {
         const float w = phase < 0.5f ? phase * s.sc2
-                                     : xfma(phase - 0.5f, s.sc2, 0.5f, EXACT);
+                                     : kfma(phase - 0.5f, s.sc2, 0.5f);
         out = mode == 3 ? w : out;
     }
     if (CZ_MASK & (1 << 4)) {
@@ -544,15 +544,15 @@ __device__ __forceinline__ float cz_warp_fixed(int mode, float phase,
     }
     if (CZ_MASK & (1 << 5)) {
         const float w = phase < 0.5f ? phase * s.sc2
-                                     : xfma(phase - 0.5f, s.sc5b, 0.5f, EXACT);
+                                     : kfma(phase - 0.5f, s.sc5b, 0.5f);
         out = mode == 5 ? w : out;
     }
     if (CZ_MASK & (1 << 6)) {
-        const float w = k_fast_pow(phase, s.p6, EXACT);
+        const float w = k_fast_pow(phase, s.p6);
         out = mode == 6 ? w : out;
     }
     if (CZ_MASK & (1 << 7)) {
-        const float w = k_fast_pow(phase, s.p7, EXACT);
+        const float w = k_fast_pow(phase, s.p7);
         out = mode == 7 ? w : out;
     }
     return out * tsz;

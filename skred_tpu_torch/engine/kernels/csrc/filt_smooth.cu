@@ -20,9 +20,10 @@
 // [N, M] read and write coalesces.
 //
 // Numerics are the JAX kernel's, bit for bit: __fmaf_rn where it calls
-// _kfma (the quantizer always; the biquad and the smoother when exact),
-// separately rounded multiply and add elsewhere.  Build with -fmad=false
-// and without --use_fast_math; denormals are kept.
+// _kfma (the quantizer; the biquad and the smoother, in fast mode too,
+// where the JAX kernel's a*b + c is the fma XLA contracts it into on the
+// CPU), separately rounded multiply and add elsewhere.  Build with
+// -fmad=false and without --use_fast_math; denormals are kept.
 //
 // One source, two variants.  Built plain, this is the general variant
 // above, with run-time flags, launched by name
@@ -34,7 +35,7 @@
 #ifndef FS_KEYED
 
 struct FiltSmoothArgs {
-    int n, m, exact;
+    int n, m, exact;        // exact: selects no arithmetic here
     int has_flt, has_sm, has_hold, has_quant, has_am_self, has_env, has_am,
         alive_arr;
     const float* x;         // [n, m]
@@ -56,17 +57,11 @@ struct FiltSmoothArgs {
     int* hc_e; float* hv_e;
 };
 
-// exact mode: fma; fast mode: separately rounded multiply and add
-__device__ __forceinline__ float xfma(float a, float b, float c, int exact) {
-    return exact ? __fmaf_rn(a, b, c) : __fadd_rn(__fmul_rn(a, b), c);
-}
-
 __global__ void __launch_bounds__(128) filt_smooth_kernel(
         const FiltSmoothArgs a) {
     const int m = blockIdx.x * blockDim.x + threadIdx.x;
     if (m >= a.m) return;
     const int M = a.m;
-    const int exact = a.exact;
     const float amp = a.amp[m];
     const bool alive_row = a.alive_arr ? false : a.alive[m] != 0;
 
@@ -124,10 +119,10 @@ __global__ void __launch_bounds__(128) filt_smooth_kernel(
         float s3 = x_t;
         if (a.has_flt) {
             float fv = b1 * x1;
-            fv = xfma(b0, x_t, fv, exact);
-            fv = xfma(b2, x2, fv, exact);
-            fv = xfma(na1, y1, fv, exact);
-            fv = xfma(na2, y2, fv, exact);
+            fv = __fmaf_rn(b0, x_t, fv);
+            fv = __fmaf_rn(b2, x2, fv);
+            fv = __fmaf_rn(na1, y1, fv);
+            fv = __fmaf_rn(na2, y2, fv);
             if (use_flt) s3 = fv;
             if (alive_t && use_flt) {
                 x2 = x1; x1 = x_t; y2 = y1; y1 = fv;
@@ -139,7 +134,7 @@ __global__ void __launch_bounds__(128) filt_smooth_kernel(
         final_t = final_t * amod;
         float final2 = final_t;
         if (a.has_sm) {
-            float sg2 = xfma(smoothing, final_t - sg, sg, exact);
+            float sg2 = __fmaf_rn(smoothing, final_t - sg, sg);
             if (use_sm) final2 = sg2;
             if (alive_t && use_sm) sg = sg2;
         }
@@ -168,7 +163,9 @@ extern "C" int filt_smooth_launch(const FiltSmoothArgs* args, void* stream) {
 // The keyed variant (filt_smooth.py: filt_smooth_noise): the noise pass's
 // serial stages with the glue that fed them.  Built with -DFS_KEYED=1
 // and -DFS_<FLAG>=<0|1> for FLT, SM, HOLD, QUANT, AM_SELF, ENV, AM and
-// EXACT.  Per lane and per sample: the lookup's sample, or the block's
+// EXACT (which selects no arithmetic: the biquad and the smoother take
+// the fma in both modes; the launch checks it against the arguments).
+// Per lane and per sample: the lookup's sample, or the block's
 // noise stream on a noise lane; the dead mask from the lane's alive count
 // (its live samples are a prefix of the block); the envelope × velocity
 // (synth.c:398-431, IEEE divides, fma32 as the noise pass has it); the am
@@ -229,7 +226,6 @@ struct FiltNoiseArgs {
 
 constexpr bool FLT = FS_FLT, SM = FS_SM, HOLD = FS_HOLD, QUANT = FS_QUANT,
     AM_SELF = FS_AM_SELF, ENV = FS_ENV, AM = FS_AM;
-constexpr int EXACT = FS_EXACT;
 // samples per chunk
 constexpr int T = 8;
 
@@ -382,10 +378,10 @@ __global__ void __launch_bounds__(32) filt_smooth_keyed_kernel(
             float s3 = x_t;
             if (FLT) {
                 float fo = b1 * x1;
-                fo = xfma(b0, x_t, fo, EXACT);
-                fo = xfma(b2, x2, fo, EXACT);
-                fo = xfma(na1, y1, fo, EXACT);
-                fo = xfma(na2, y2, fo, EXACT);
+                fo = kfma(b0, x_t, fo);
+                fo = kfma(b2, x2, fo);
+                fo = kfma(na1, y1, fo);
+                fo = kfma(na2, y2, fo);
                 if (use_flt) s3 = fo;
                 if (alive_t && use_flt) {
                     x2 = x1; x1 = x_t; y2 = y1; y1 = fo;
@@ -396,7 +392,7 @@ __global__ void __launch_bounds__(32) filt_smooth_keyed_kernel(
                 final_t = base[j] * (am_self ? s3 * am_depth : amv[j]);
             float final2 = final_t;
             if (SM) {
-                const float sg2 = xfma(smoothing, final_t - sg, sg, EXACT);
+                const float sg2 = kfma(smoothing, final_t - sg, sg);
                 if (use_sm) final2 = sg2;
                 if (alive_t && use_sm) sg = sg2;
             }

@@ -11,14 +11,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-// _kfma sites: a single correctly rounded fma
+// _kfma sites, and in fast mode the JAX kernels' a*b + c sites too: a
+// single correctly rounded fma, the card's own multiply-add (XLA
+// contracts a*b + c into it on the CPU, where the JAX package's fast
+// mode holds its parity; rounded apart, the FM increment's error
+// integrates into the phase and misses -60 dB within a second)
 __device__ __forceinline__ float kfma(float a, float b, float c) {
     return __fmaf_rn(a, b, c);
-}
-
-// exact mode: fma; fast mode: separately rounded multiply and add
-__device__ __forceinline__ float xfma(float a, float b, float c, int exact) {
-    return exact ? __fmaf_rn(a, b, c) : __fadd_rn(__fmul_rn(a, b), c);
 }
 
 // kernels._kdiv_from: Newton step on the seed, two Markstein corrections
@@ -50,9 +49,9 @@ __device__ __forceinline__ float xdiv(float a, float b, int exact) {
 }
 
 // kernels._k_fast_pow (synth.c:140-147)
-__device__ __forceinline__ float k_fast_pow(float a, float b, int exact) {
+__device__ __forceinline__ float k_fast_pow(float a, float b) {
     float g = (float)(__float_as_int(a) - 1065353216);
-    float x = xfma(b, g, 1065353216.0f, exact);
+    float x = kfma(b, g, 1065353216.0f);
     float r = __int_as_float((int)x);
     return a <= 0.0f ? 0.0f : r;
 }
@@ -122,35 +121,34 @@ struct FmodWrap {
 template <class Wrap = FmodWrap>
 __device__ __forceinline__ float cz_warp_k(int mode, float phase,
                                            const CzScales& s, float tsz,
-                                           int exact, int mask,
-                                           Wrap wrap = Wrap()) {
+                                           int mask, Wrap wrap = Wrap()) {
     float out = phase;
     if (mode >= 1 && mode <= 7 && has_mode(mask, mode)) {
         switch (mode) {
         case 1:
             out = phase < s.d ? phase * s.s1a
-                              : xfma(phase - s.d, s.s1b, 0.5f, exact);
+                              : kfma(phase - s.d, s.s1b, 0.5f);
             break;
         case 2:
             out = phase < 0.5f ? phase * s.sc2
-                               : xfma(-(1.0f - phase), s.sc2, 1.0f, exact);
+                               : kfma(-(1.0f - phase), s.sc2, 1.0f);
             break;
         case 3:
             out = phase < 0.5f ? phase * s.sc2
-                               : xfma(phase - 0.5f, s.sc2, 0.5f, exact);
+                               : kfma(phase - 0.5f, s.sc2, 0.5f);
             break;
         case 4:
             out = wrap(phase * 2.0f, 1.0f);
             break;
         case 5:
             out = phase < 0.5f ? phase * s.sc2
-                               : xfma(phase - 0.5f, s.sc5b, 0.5f, exact);
+                               : kfma(phase - 0.5f, s.sc5b, 0.5f);
             break;
         case 6:
-            out = k_fast_pow(phase, s.p6, exact);
+            out = k_fast_pow(phase, s.p6);
             break;
         default:
-            out = k_fast_pow(phase, s.p7, exact);
+            out = k_fast_pow(phase, s.p7);
             break;
         }
     }
@@ -187,15 +185,14 @@ __device__ __forceinline__ CzCoeffs cz_coeffs(int mode, const CzScales& s,
 // kernels._cz_warp_fast
 template <class Wrap = FmodWrap>
 __device__ __forceinline__ float cz_warp_fast(const CzCoeffs& k, float phase,
-                                              float tsz, int exact,
-                                              Wrap wrap = Wrap()) {
+                                              float tsz, Wrap wrap = Wrap()) {
     float out = phase;
     if (k.is_pl)
         out = phase < k.knee ? phase * k.sa
-                             : xfma(phase - k.c, k.sb, k.off, exact);
+                             : kfma(phase - k.c, k.sb, k.off);
     else if (k.is_4)
         out = wrap(phase * 2.0f, 1.0f);
     else if (k.is_pw)
-        out = k_fast_pow(phase, k.pexp, exact);
+        out = k_fast_pow(phase, k.pexp);
     return out * tsz;
 }

@@ -77,8 +77,14 @@
 // Numerics are the JAX kernel's, bit for bit: __fmaf_rn exactly where it
 // calls _kfma (the reference binary's gcc-contracted sites), the same
 // Newton/Markstein divide sequences where it calls _kdiv / _kdiv_inv
-// (correctly rounded), IEEE division elsewhere.  Build with -fmad=false
-// (no other contraction) and without --use_fast_math; denormals are kept.
+// (correctly rounded), IEEE division elsewhere.  Fast mode takes IEEE
+// division for those sequences and keeps the fmas, also at the FM
+// increment, the biquad, the smoother and the CZ warp, where the JAX
+// kernel writes a*b + c: the card's own multiply-add, and what XLA
+// contracts it into on the CPU (rounded apart, the FM increment's error
+// integrates into the phase: -48.7 dB against the compat engine over a
+// second of stress64).  Build with -fmad=false (no other contraction)
+// and without --use_fast_math; denormals are kept.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -319,7 +325,7 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
         if (a.has_fm) {
             float rdf = a.fold_fm ? rd_fm.at(t, bstride) : a.inc[tm];
             float g3 = rdf * fmdep;
-            inc_t = use_fm ? xfma(mis, g3, pinc, exact) : pinc;
+            inc_t = use_fm ? kfma(mis, g3, pinc) : pinc;
             if (dirneg) inc_t = -inc_t;
         } else {
             inc_t = inc_const;
@@ -365,9 +371,9 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
                                       : (cm_ge ? a.dm[tm] : 0.0f);
                 float dm3 = cm_ge ? rdc * czdep : 1.0f;
                 CzScales s = cz_scales(dist + dm3, exact, a.cz_mask);
-                warped = cz_warp_k(mode, phase, s, tsz, exact, a.cz_mask);
+                warped = cz_warp_k(mode, phase, s, tsz, a.cz_mask);
             } else {
-                warped = cz_warp_fast(coeffs, phase, tsz, exact);
+                warped = cz_warp_fast(coeffs, phase, tsz);
             }
             if (mode != 0) idx_f = warped;
         }
@@ -424,10 +430,10 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
         float s3 = x_t;
         if (a.has_flt) {
             float fv = b1 * x1;
-            fv = xfma(b0, x_t, fv, exact);
-            fv = xfma(b2, x2, fv, exact);
-            fv = xfma(na1, y1, fv, exact);
-            fv = xfma(na2, y2, fv, exact);
+            fv = kfma(b0, x_t, fv);
+            fv = kfma(b2, x2, fv);
+            fv = kfma(na1, y1, fv);
+            fv = kfma(na2, y2, fv);
             if (use_flt) s3 = fv;
             if (alive_t && use_flt) {
                 x2 = x1; x1 = x_t; y2 = y1; y1 = fv;
@@ -440,7 +446,7 @@ __global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
         }
         float final2 = final_t;
         if (a.has_sm) {
-            float sg2 = xfma(smoothing, final_t - sg, sg, exact);
+            float sg2 = kfma(smoothing, final_t - sg, sg);
             if (use_sm) final2 = sg2;
             if (alive_t && use_sm) sg = sg2;
         }
@@ -650,7 +656,7 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
             float inc_t;
             if (FM) {
                 const float g3 = s_fm.at(j) * fmdep;
-                inc_t = use_fm ? xfma(mis, g3, pinc, EXACT) : pinc;
+                inc_t = use_fm ? kfma(mis, g3, pinc) : pinc;
                 if (dirneg) inc_t = -inc_t;
             } else {
                 inc_t = inc_const;
@@ -694,10 +700,9 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
                 if (CZM) {
                     const float dm3 = cm_ge ? s_cz.at(j) * czdep : 1.0f;
                     CzScales s = cz_scales(dist + dm3, EXACT, CZ_MASK);
-                    warped = cz_warp_k(mode, phase, s, tsz, EXACT, CZ_MASK,
-                                       wrap1);
+                    warped = cz_warp_k(mode, phase, s, tsz, CZ_MASK, wrap1);
                 } else {
-                    warped = cz_warp_fast(coeffs, phase, tsz, EXACT, wrap1);
+                    warped = cz_warp_fast(coeffs, phase, tsz, wrap1);
                 }
                 if (mode != 0) idx_f = warped;
             }
@@ -769,10 +774,10 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
             float s3 = x_t;
             if (FLT) {
                 float fo = b1 * x1;
-                fo = xfma(b0, x_t, fo, EXACT);
-                fo = xfma(b2, x2, fo, EXACT);
-                fo = xfma(na1, y1, fo, EXACT);
-                fo = xfma(na2, y2, fo, EXACT);
+                fo = kfma(b0, x_t, fo);
+                fo = kfma(b2, x2, fo);
+                fo = kfma(na1, y1, fo);
+                fo = kfma(na2, y2, fo);
                 if (use_flt) s3 = fo;
                 if (alive_t && use_flt) {
                     x2 = x1; x1 = x_t; y2 = y1; y1 = fo;
@@ -785,7 +790,7 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
             }
             float final2 = final_t;
             if (SM) {
-                const float sg2 = xfma(smoothing, final_t - sg, sg, EXACT);
+                const float sg2 = kfma(smoothing, final_t - sg, sg);
                 if (use_sm) final2 = sg2;
                 if (alive_t && use_sm) sg = sg2;
             }

@@ -50,7 +50,6 @@ def filt_smooth_plain(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt,
     """The kernel's arithmetic in torch ops, a loop over samples.
     Returns (samples [N, M], x1, x2, y1, y2, sg, hold_count, hold_val)."""
     flt, sm, hold, quant, am_self_f, env_a, am_a, alive_a = feat
-    fma = kfma if exact else (lambda a, b, c: a * b + c)
     n, m = x.shape
     out = torch.empty((n, m), dtype=F32, device=x.device)
     if flt:
@@ -83,10 +82,10 @@ def filt_smooth_plain(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt,
             x_t = s1
         if flt:
             fv = b1 * x1
-            fv = fma(b0, x_t, fv)
-            fv = fma(b2, x2, fv)
-            fv = fma(na1, y1, fv)
-            fv = fma(na2, y2, fv)
+            fv = kfma(b0, x_t, fv)
+            fv = kfma(b2, x2, fv)
+            fv = kfma(na1, y1, fv)
+            fv = kfma(na2, y2, fv)
             s3 = torch.where(use_flt, fv, x_t)
             upd = alive_t & use_flt
             x1, x2, y1, y2 = (torch.where(upd, x_t, x1),
@@ -101,7 +100,7 @@ def filt_smooth_plain(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt,
         final_t = amp * env[t] if env_a else amp
         final_t = final_t * amod_t
         if sm:
-            sg2 = fma(smoothing, final_t - sg, sg)
+            sg2 = kfma(smoothing, final_t - sg, sg)
             final2 = torch.where(use_sm, sg2, final_t)
             sg = torch.where(alive_t & use_sm, sg2, sg)
         else:

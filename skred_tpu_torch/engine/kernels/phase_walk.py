@@ -154,11 +154,11 @@ phase_walk.launches = 0
 
 def fm_increment(read, v, exact=True, direction=False):
     """[N, M] increments from the raw fm read stream: mis·(read·depth) +
-    pinc where the lane is FM-modulated (``fma32`` when exact), pinc
-    elsewhere, negated on reversed lanes."""
-    fma = fma32 if exact else (lambda x, y, z: x * y + z)
+    pinc where the lane is FM-modulated (``fma32`` in both modes:
+    ``exact`` selects nothing, see csrc/tier.cu), pinc elsewhere, negated
+    on reversed lanes."""
     g = read * v["fm_depth"]
-    inc = torch.where(v["use_fm"] != 0, fma(v["mis"], g, v["pinc"]),
+    inc = torch.where(v["use_fm"] != 0, fma32(v["mis"], g, v["pinc"]),
                       v["pinc"])
     if direction:
         inc = torch.where(v["dirneg"] != 0, -inc, inc)

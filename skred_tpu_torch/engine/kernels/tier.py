@@ -238,7 +238,6 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
     am_a, am_self_f, finish, dirn = (fl[k] for k in ("am", "am_self",
                                                       "finish", "direction"))
     modes = fl["cz_modes"]
-    fma = kfma if exact else (lambda a, b, c: a * b + c)
     v = vecs
     dev = v["amp"].device
     m = v["amp"].shape[0]
@@ -246,7 +245,7 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
     # ---- phase 0: FM increment (vector over the block) ----
     if fm:
         g3 = inc * v["fm_depth"]
-        inc3 = torch.where(v["use_fm"] != 0, fma(v["mis"], g3, v["pinc"]),
+        inc3 = torch.where(v["use_fm"] != 0, kfma(v["mis"], g3, v["pinc"]),
                            v["pinc"])
         if dirn:
             inc3 = torch.where(v["dirneg"] != 0, -inc3, inc3)
@@ -390,10 +389,10 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
             x_t = s1
         if flt:
             fv = b1 * x1
-            fv = fma(b0, x_t, fv)
-            fv = fma(b2, x2, fv)
-            fv = fma(na1, y1, fv)
-            fv = fma(na2, y2, fv)
+            fv = kfma(b0, x_t, fv)
+            fv = kfma(b2, x2, fv)
+            fv = kfma(na1, y1, fv)
+            fv = kfma(na2, y2, fv)
             s3 = torch.where(use_flt, fv, x_t)
             upd = alive_t & use_flt
             x1, x2, y1, y2 = (torch.where(upd, x_t, x1),
@@ -414,7 +413,7 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
         else:
             final_t = base_gain
         if sm:
-            sg2 = fma(smoothing, final_t - sg, sg)
+            sg2 = kfma(smoothing, final_t - sg, sg)
             final2 = torch.where(use_sm, sg2, final_t)
             sg = torch.where(alive_t & use_sm, sg2, sg)
         else:

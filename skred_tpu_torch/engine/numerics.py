@@ -203,10 +203,11 @@ def kdiv_inv(a, y1, b):
     return torch.where(torch.isfinite(q), q, a / b)
 
 
-def k_fast_pow(a, b, exact=True):
-    """``kernels._k_fast_pow``: exact fma at gcc's one contracted site."""
+def k_fast_pow(a, b):
+    """``kernels._k_fast_pow``: an fma at gcc's one contracted site, in
+    both modes (see ``cz_warp_k``)."""
     g = (_as_i32(a) - 1065353216).to(F32)
-    x = kfma(b, g, 1065353216.0) if exact else b * g + 1065353216.0
+    x = kfma(b, g, 1065353216.0)
     r = _as_f32(x.to(I32))
     return torch.where(a <= 0.0, 0.0, r)
 
@@ -232,8 +233,12 @@ def cz_scales(d, exact=True, modes=CZ_ALL):
 
 def cz_warp_k(mode, ph, d, tsize, exact=True, scales=None, phase=None,
               modes=CZ_ALL):
-    """The per-mode CZ phasor (``kernels._cz_warp_k``)."""
-    fma = kfma if exact else (lambda a, b, c: a * b + c)
+    """The per-mode CZ phasor (``kernels._cz_warp_k``).  Fast mode
+    divides by IEEE division and keeps the fmas where the JAX kernel
+    writes ``a*b + c``: the card's own multiply-add, which XLA contracts
+    it into on the CPU, where the JAX package's fast mode holds its
+    parity (rounded apart, a PCM table's index flips on ~0.5% of
+    samples)."""
     if phase is None:
         phase = kdiv(ph, tsize) if exact else ph / tsize
     if scales is None:
@@ -243,22 +248,22 @@ def cz_warp_k(mode, ph, d, tsize, exact=True, scales=None, phase=None,
     mk = {}
     if 1 in modes:
         mk[1] = torch.where(phase < d, phase * s1a,
-                            fma(phase - d, s1b, half))
+                            kfma(phase - d, s1b, half))
     if 2 in modes:
         mk[2] = torch.where(phase < half, phase * sc2,
-                            fma(-(one - phase), sc2, one))
+                            kfma(-(one - phase), sc2, one))
     if 3 in modes:
         mk[3] = torch.where(phase < half, phase * sc2,
-                            fma(phase - half, sc2, half))
+                            kfma(phase - half, sc2, half))
     if 4 in modes:
         mk[4] = torch.fmod(phase * 2.0, one)
     if 5 in modes:
         mk[5] = torch.where(phase < half, phase * sc2,
-                            fma(phase - half, sc5b, half))
+                            kfma(phase - half, sc5b, half))
     if 6 in modes:
-        mk[6] = k_fast_pow(phase, p6, exact)
+        mk[6] = k_fast_pow(phase, p6)
     if 7 in modes:
-        mk[7] = k_fast_pow(phase, p7, exact)
+        mk[7] = k_fast_pow(phase, p7)
     out = phase
     for k in sorted(mk, reverse=True):
         out = torch.where(mode == k, mk[k], out)
@@ -268,7 +273,7 @@ def cz_warp_k(mode, ph, d, tsize, exact=True, scales=None, phase=None,
 def cz_warp_coeffs(mode, scales, modes=CZ_ALL):
     """Per-lane curve coefficients (``kernels._cz_warp_coeffs``): modes
     1/2/3/5 collapse to one knee curve ``phase < knee ? phase*sA :
-    fma(phase-c, sB, off)``, modes 6/7 to one fast_pow exponent.
+    kfma(phase-c, sB, off)``, modes 6/7 to one fast_pow exponent.
     Returns (is_pl, knee, sa, c, sb, off, is_pw, pexp)."""
     d, s1a, s1b, sc2, sc5b, p6, p7 = scales
     half, one = 0.5, 1.0
@@ -310,16 +315,17 @@ def cz_warp_coeffs(mode, scales, modes=CZ_ALL):
 
 
 def cz_warp_fast(coeffs, mode, phase, tsize, exact=True, modes=CZ_ALL):
-    """The hoisted-coefficient CZ phasor (``kernels._cz_warp_fast``)."""
-    fma = kfma if exact else (lambda a, b, c: a * b + c)
+    """The hoisted-coefficient CZ phasor (``kernels._cz_warp_fast``),
+    its fma in both modes as ``cz_warp_k``'s (``exact`` selects
+    nothing)."""
     is_pl, knee, sa, c, sb, off, is_pw, pexp = coeffs
     out = phase
     if is_pl is not None:
         pl_v = torch.where(phase < knee, phase * sa,
-                           fma(phase - c, sb, off))
+                           kfma(phase - c, sb, off))
         out = torch.where(is_pl, pl_v, out)
     if 4 in modes:
         out = torch.where(mode == 4, torch.fmod(phase * 2.0, 1.0), out)
     if is_pw is not None:
-        out = torch.where(is_pw, k_fast_pow(phase, pexp, exact), out)
+        out = torch.where(is_pw, k_fast_pow(phase, pexp), out)
     return out * tsize

@@ -10,10 +10,10 @@ Acyclic scripts group by ``bucket_key`` (packed voices, fixed-point
 passes, feature set) and fill to ``fill_bucket``'s rows; the TPU's
 lane-quantum fill (``_pad_quantum``) is not ported.  Each cyclic script
 is a bucket of its own at ``CYCLIC_ROWS`` rows, the JAX bench's count (a
-TPU grid quantum there, kept so the figures stay comparable).  A cyclic
-script the kernel's gate refuses is a ``GateRefusal``: the bench has no
-compat-scan bucket to send it to (the compat engine, ``engine/render.py``,
-renders it outside the bench).
+TPU grid quantum there, kept so the figures stay comparable).  The
+cyclic scripts the kernel's gate refuses share one compat-scan bucket,
+each ``replicas`` times, rendered by the compat engine
+(``engine/render.py``), as ``bench.py:371-376`` builds it.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import dataclasses
 import pathlib
 from typing import List, Optional
 
+from skred_tpu_torch import config as C
 from skred_tpu_torch.assets.bank import WaveBank
 from skred_tpu_torch.host.timeline import compile_script
 
@@ -31,21 +32,15 @@ SCRIPTS = sorted((ROOT / "corpus").glob("*.sk")) \
 CYCLIC_ROWS = 1024
 
 
-class GateRefusal(Exception):
-    """The cyclic kernel's gate refused a script."""
-
-    def __init__(self, script: str, reason: str):
-        super().__init__(f"{script}: {reason}")
-        self.script, self.reason = script, reason
-
-
 @dataclasses.dataclass
 class Bucket:
-    kind: str                   # "fused" or "cyclic"
-    st: object                  # the packed batch, as it renders
+    kind: str                   # "fused", "cyclic" or "compat"
+    st: object                  # the batch as it renders (packed but
+                                # for "compat": stacked)
     scripts: List[str]          # distinct script names
     compilers: dict             # script name -> "native" | "python"
     voices: int
+    row_scripts: List[str]      # the script name of each row of ``st``
     passes: Optional[int] = None
     feat: Optional[str] = None  # the fused bucket's feature set
 
@@ -78,7 +73,9 @@ def _feat_str(feat) -> str:
 def make_buckets(scripts, seconds: float, replicas: int = 4,
                  max_rows: Optional[int] = None) -> List[Bucket]:
     """The fused buckets in key order, then one cyclic bucket per cyclic
-    script.  ``max_rows`` cuts every bucket's rows (tests only)."""
+    script the kernel's gate takes, then one compat bucket of the cyclic
+    scripts it refuses.  ``max_rows`` cuts every bucket's rows (tests
+    only)."""
     from skred_tpu_torch.engine.cyclic import cyclic_gate
     from skred_tpu_torch.parallel.batch import (bucket_key, fill_bucket,
                                                 pack_stacked,
@@ -99,20 +96,29 @@ def make_buckets(scripts, seconds: float, replicas: int = 4,
     def named(tls):
         return dict(compilers[id(tl)] for tl in tls)
 
+    def row_names(tls):
+        return [compilers[id(tl)][0] for tl in tls]
+
     out = []
     for (vp, passes, feat), group in sorted(groups.items()):
         rows = fill_bucket(group, vp, replicas)[:max_rows]
         st = pad_segments_pow2(pack_stacked(stack_timelines(rows)))
         names = named(group)
         out.append(Bucket("fused", st, sorted(names), names, int(vp),
-                          int(passes), _feat_str(feat)))
+                          row_names(rows), int(passes), _feat_str(feat)))
     rows = CYCLIC_ROWS if max_rows is None else min(CYCLIC_ROWS, max_rows)
+    refused = []
     for tl in cyclic:
         st = pack_stacked(stack_timelines([tl] * rows), cyclic=True)
+        if cyclic_gate(st) is not None:
+            refused.append(tl)
+            continue
         name, how = compilers[id(tl)]
-        reason = cyclic_gate(st)
-        if reason is not None:
-            raise GateRefusal(name, reason)
         out.append(Bucket("cyclic", st, [name], {name: how},
-                          int(st.params["amp"].shape[-1])))
+                          int(st.params["amp"].shape[-1]), [name] * rows))
+    if refused:
+        rows = (refused * replicas)[:max_rows]
+        names = named(refused)
+        out.append(Bucket("compat", stack_timelines(rows), sorted(names),
+                          names, C.VOICE_MAX, row_names(rows)))
     return out

@@ -16,7 +16,8 @@ inputs over every key family, they must equal bit for bit
   ``filt_smooth_pallas`` in interpret mode, ``_cz_phasor`` and
   ``_envelope_block``.  XLA's CPU compiler contracts the fast mode's
   ``a*b + c`` sites (the FM increment, the biquad, the smoother) and the
-  interpreted kernel's ``amp*env*amod - sg`` into fmas (ROADMAP §3): the
+  interpreted kernel's ``amp*env*amod - sg`` into fmas where it chooses,
+  not at each site as the port's fast mode takes one (ROADMAP §3): the
   JAX comparison leaves out those combinations by name, the stage
   sequence covers them.
 """
@@ -120,7 +121,7 @@ def _fs_inputs(feat, seed):
 
 def _stages_walk(bank, v, phase0, fin0, feat, exact):
     fm, finish, direction, cz, czm, modes, _ = feat
-    fma = fma32 if exact else (lambda x, y, z: x * y + z)
+    fma = fma32                     # in both modes (phase_walk.fm_increment)
     on = lambda k: v[k] != 0
     read = lambda k: fold_read_plain(bank.bank, bank.prev, v[k + "_src"],
                                      v[k + "_del"], bank.w, B, N)
