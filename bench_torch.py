@@ -53,7 +53,7 @@ sys.path.insert(0, str(HERE))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from skred_tpu_torch.tools.card import card_info  # noqa: E402
+from skred_tpu_torch.tools import card  # noqa: E402
 
 CHUNK = 172          # ~2 s of blocks, as bench.py
 # the compat-scan bucket's time cap (bench.py:55): a warm pass longer
@@ -118,13 +118,11 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
     from skred_tpu_torch.parallel.buckets import SCRIPTS, make_buckets
     from skred_tpu_torch.parallel.roofline import estimate_bucket
 
+    card.require(device, "bench_torch", fail=_error)
+    info = card.card_info(device)
     on_card = torch.device(device).type == "cuda"
-    if on_card and not torch.cuda.is_available():
-        _error("torch.cuda.is_available() is false: the bench runs on the "
-               "card", 2)
-    card = card_info(device)
     kind = torch.cuda.get_device_name(0) if on_card else str(device)
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync = lambda: card.sync(device)
     scripts = list(SCRIPTS if scripts is None else scripts)
     buckets = make_buckets(scripts, seconds, replicas, max_rows)
     exact = False if fast else None
@@ -147,7 +145,7 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
             "total_audio_s": round(total["audio"], 1),
             "total_wall_s": round(total["wall"], 3),
             "arith": "fast" if fast else "exact",
-            "card": card,
+            "card": info,
         }
         if partial:
             headline["partial"] = True
@@ -187,7 +185,7 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
 
     for bk in buckets:
         if bk.kind == "compat":
-            entry = compat_bucket(bk, device, sync, counters)
+            entry = compat_bucket(bk, device, sync, timed, counters)
             total["checksum"] += entry.pop("checksum")
             total["audio"] += entry.pop("audio_s")
             total["wall"] += entry["wall_s"]
@@ -256,31 +254,41 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
     return emit(partial=False)
 
 
-def compat_bucket(bk, device, sync, counters) -> dict:
+def compat_bucket(bk, device, sync, timed, counters) -> dict:
     """The compat-scan bucket (``bench.py:371-397``): ``render_stacked``
-    over the refused scripts' rows, a warm pass, then one timed pass
-    unless the warm pass took more than ``COMPAT_BUDGET_S``, when its
-    wall is credited (``timed_cold``).  Returns the bucket's detail entry
-    with its ``checksum`` and credited ``audio_s`` for the totals."""
+    over the refused scripts' rows, a warm pass, then one pass through
+    ``timed`` (no build, and the warm pass's checksum) unless the warm
+    pass took more than ``COMPAT_BUDGET_S``, when its wall is credited
+    (``timed_cold``).  Returns the bucket's detail entry with its
+    ``checksum`` and credited ``audio_s`` for the totals."""
     from skred_tpu_torch.host.timeline import noise_stream
     from skred_tpu_torch.parallel.batch import render_stacked
 
     st = bk.st
+    label = f"compat bucket {','.join(bk.scripts)}"
     noise = noise_stream(st.num_blocks * st.block)
 
     def run():
+        out = render_stacked(st, noise=noise, device=device)
+        return float(np.abs(out[-1]).sum())
+
+    def reset():
         for fn in counters.values():
             fn.launches = 0
-        sync()
-        t0 = time.perf_counter()
-        out = render_stacked(st, noise=noise, device=device)
-        sync()
-        return out, time.perf_counter() - t0
 
-    out, wall = run()                        # builds the kernel, warms
+    reset()
+    sync()
+    t0 = time.perf_counter()
+    sums = [run()]                           # builds the kernel, warms
+    sync()
+    wall = time.perf_counter() - t0
     timed_cold = wall > COMPAT_BUDGET_S
     if not timed_cold:
-        out, wall = run()
+        reset()
+        (wall,), again = timed(run, 1, label)
+        sums += again
+        if again != sums[:1]:
+            _error(f"{label}: nondeterministic render, checksums {sums}", 1)
     audio = st.batch * st.num_blocks * st.block / 44100.0
     return {"voices": "compat-scan", "rows": st.batch,
             "scripts": bk.scripts, "distinct_scripts": len(bk.scripts),
@@ -289,7 +297,7 @@ def compat_bucket(bk, device, sync, counters) -> dict:
             "x_rt": round(audio / wall, 1),
             "launches": {nm: fn.launches for nm, fn in counters.items()
                          if fn.launches},
-            "checksum": float(np.abs(out[-1]).sum()), "audio_s": audio}
+            "checksums": sums, "checksum": sums[0], "audio_s": audio}
 
 
 def gate(entry, key, baseline, regressions, run_more, audio):

@@ -174,8 +174,9 @@ it:
                   dB (<= -60), host RSS and device memory (after the
                   last full chunk within 1 MiB of after the first);
                   one_bucket on fb2 at 4 s; gluebench on stress64 and
-                  noise64 at 2 s, best of 2 passes in turns (ms a block
-                  per kernel and glue); the
+                  noise64, one pass of one chunk at 256 rows: each
+                  stubbed run and the real kernels back after it (its
+                  ms a block are the host's noise at this cut); the
                   bench over fb1 and fb4 at 4 s with the cyclic gate
                   forced to refuse fb4: a compat-scan bucket, counted
                   into the headline
@@ -414,7 +415,7 @@ def lookup_spec(lk, peaks):
 
 def filt_smooth_spec(fs, peaks):
     def pack(a, kw):
-        args, res = fs._pack_args(a, kw.get("exact", True), kw["feat"])
+        args, res = fs._pack_args(a, kw["feat"])
         return args, list(res)
 
     return dict(name="filt_smooth", fn=fs.filt_smooth, pack=pack,
@@ -434,14 +435,13 @@ RECORD_NAME = {"phase_walk_warp": "phase_walk",
 
 def phase_walk_warp_spec(pw, peaks):
     def pack(a, kw):
-        args, outs = pw._pw_pack(*a, kw["feat"], kw.get("exact", True),
-                                 kw["n"], kw["b"])
+        args, outs = pw._pw_pack(*a, kw["feat"], kw["n"], kw["b"])
         return args, list(outs)
 
     def launch(args, kw, dev):
         from skred_tpu_torch.engine.kernels import cuda_call
 
-        key = pw.phase_walk_key(kw["feat"], kw.get("exact", True))
+        key = pw.phase_walk_key(kw["feat"])
         return lambda: cuda_call.launch("phase_walk", args, dev, key,
                                         "phase_walk_keyed_launch")
 
@@ -456,14 +456,14 @@ def phase_walk_warp_spec(pw, peaks):
 
 def filt_smooth_noise_spec(fs, peaks):
     def pack(a, kw):
-        args, out, ends = fs._fn_pack(*a, kw["feat"], kw.get("exact", True),
-                                      kw["b"], kw.get("out"))
+        args, out, ends = fs._fn_pack(*a, kw["feat"], kw["b"],
+                                      kw.get("out"))
         return args, [out] + [ends[k] for k in sorted(ends)]
 
     def launch(args, kw, dev):
         from skred_tpu_torch.engine.kernels import cuda_call
 
-        key = fs.filt_smooth_key(kw["feat"], kw.get("exact", True))
+        key = fs.filt_smooth_key(kw["feat"])
         return lambda: cuda_call.launch("filt_smooth", args, dev, key,
                                         "filt_smooth_keyed_launch")
 
@@ -1018,7 +1018,7 @@ def noise_glue(a, kw):
     from skred_tpu_torch.engine.kernels import phase_walk as pw
     from skred_tpu_torch.engine.kernels.tier import bank_read
 
-    est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat, n, b = a[:11]
+    est_vm, prev_vm, carry, p, tp, cbase, table, _, feat, n, b = a[:11]
     noise_blk = kw["noise_blk"]
     fm, finish, direction, cz, czm, modes, _ = fused._pw_feat(feat)
     stage = {}
@@ -1040,7 +1040,7 @@ def noise_glue(a, kw):
         add("fm + cz reads", lambda: {s: read(s) for s in streams}, "rd")
     if fm:
         add("fm increment", lambda: pw.fm_increment(
-            x["rd"]["fm"], v, exact, direction), "inc")
+            x["rd"]["fm"], v, direction), "inc")
     else:
         x["inc"] = v["inc"]
     add("phase walk (general kernel)", lambda: pw.phase_walk(
@@ -1069,7 +1069,7 @@ def noise_glue(a, kw):
     add("filt_smooth (general kernel)", lambda: fs.filt_smooth(
         x["sel"][0], x.get("env"), x.get("amod"), x["sel"][1],
         *(v.get(k) for k in fs._FS_ARG_VECS),
-        *(states.get(k) for k in fs._END_NAMES), exact=exact, feat=ff),
+        *(states.get(k) for k in fs._END_NAMES), feat=ff),
         "fs")
     back = lambda t: fused.from_vm_vec(t, b, p["amp"].shape[1])
     add("carry out", lambda: [back(t) for t in (*x["fs"][1:], x["walk"][2])
@@ -1169,17 +1169,16 @@ def noise_turns(caught, specs, dev, card, errs):
     for (nm, m), (a, kw) in sorted(caught.items()):
         if nm != "_noise_pass":
             continue
-        est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat, n, b = a[:11]
+        est_vm, prev_vm, carry, p, tp, cbase, table, _, feat, n, b = a[:11]
         noise_blk = kw["noise_blk"]
         bank, v, ph0, fin0, states = fused._noise_inputs(
             est_vm, prev_vm, carry, tp, feat, b)
         pf, ff = fused._pw_feat(feat), fused._fs_feat(feat)
-        pw_a, pw_kw = (bank, v, ph0, fin0), dict(feat=pf, exact=exact, n=n,
-                                                  b=b)
+        pw_a, pw_kw = (bank, v, ph0, fin0), dict(feat=pf, n=n, b=b)
         want_pw = pw.phase_walk_warp_plain(*pw_a, **pw_kw)
         f = lk.lookup(table, v["base_off"], v["limit"], want_pw[0])
         fs_a = (f, noise_blk, want_pw[1], cbase, bank, v, states)
-        fs_kw = dict(feat=ff, exact=exact, b=b)
+        fs_kw = dict(feat=ff, b=b)
         want_fs = specs["filt_smooth_noise"]["plain"](fs_a, fs_kw)
         want_pw = list(want_pw)
         stage, x = noise_glue(a, kw)
@@ -1232,7 +1231,7 @@ def noise_turns(caught, specs, dev, card, errs):
                  stage["am stream"]() if ff[6] else None, sel[1],
                  *(v.get(k) for k in fs._FS_ARG_VECS),
                  *(states.get(k) for k in fs._END_NAMES))
-        gf_args, gf_outs = fs._pack_args(fs_in, exact, ff)
+        gf_args, gf_outs = fs._pack_args(fs_in, ff)
         lk_args, lk_out = lk._pack_args(table, v["base_off"], v["limit"],
                                         want_pw[0], False)
         alone = {
@@ -1252,7 +1251,7 @@ def noise_turns(caught, specs, dev, card, errs):
                 v.get("one_shot"), v["adv"], v["act"], fm=pf[0],
                 finish=pf[1], n=n))[0],
             "filt_smooth": host_ms(lambda: fs.filt_smooth_plain(
-                *fs_in, exact=exact, feat=ff))[0]}
+                *fs_in, feat=ff))[0]}
         g_bound = {"phase_walk": specs["phase_walk"]["bound"](
             (inc, ph0, fin0, v["lo"], v["hi"], v["L"], v.get("osn"),
              v.get("one_shot"), v["adv"], v["act"]),
@@ -1264,9 +1263,9 @@ def noise_turns(caught, specs, dev, card, errs):
         per_sched = -(-warps // (4 * sms))
         floors = {}
         for kname, name, key, entry in (
-                ("phase_walk", "phase_walk", pw.phase_walk_key(pf, exact),
+                ("phase_walk", "phase_walk", pw.phase_walk_key(pf),
                  "phase_walk_keyed_launch"),
-                ("filt_smooth", "filt_smooth", fs.filt_smooth_key(ff, exact),
+                ("filt_smooth", "filt_smooth", fs.filt_smooth_key(ff),
                  "filt_smooth_keyed_launch")):
             sass = keyed_sass(name, key, f"{name}_keyed_kernel", entry)
             issue = sass["per_sample"] * n * per_sched / (mhz * 1e6) * 1e3
@@ -2280,7 +2279,9 @@ TOOL_SECONDS = 4.0                 # one_bucket, the bench
 # cut to keep the tools phase near 45 s (at 20 s and 4 s it took 54.3 s
 # on an H100 80GB HBM3, 700 W)
 ENDURANCE_SECONDS = 10.0
-GLUE_SECONDS, GLUE_PASSES = 2.0, 2
+# gluebench: one 172-block chunk, one pass, cut rows: its stubs and
+# their restore are what the phase checks
+GLUE_SECONDS, GLUE_PASSES, GLUE_ROWS = 2.0, 1, 256
 
 
 def tool_keys(paths, seconds, exact):
@@ -2521,7 +2522,7 @@ def tools_phase(dev, card, counters):
     fast), endurance (oracle and run), one_bucket, gluebench, and the
     bench with the cyclic gate forced to refuse fb4."""
     import bench_torch
-    from skred_tpu_torch.engine import cyclic
+    from skred_tpu_torch.engine import cyclic, fused
     from skred_tpu_torch.tools import card_parity, endurance, gluebench
     from skred_tpu_torch.tools import one_bucket
 
@@ -2567,11 +2568,18 @@ def tools_phase(dev, card, counters):
         fail(f"tools: one_bucket {ob}")
     secs["one_bucket"] = time.time() - t0
     t0 = time.time()
+    real = {nm: getattr(fused, nm) for nm in gluebench.KERNELS}
     rec = gluebench.gluebench(["stress64.sk", "noise64.sk"], GLUE_SECONDS,
-                              dev, record=out / "gluebench.json",
+                              dev, max_rows=GLUE_ROWS,
+                              record=out / "gluebench.json",
                               passes=GLUE_PASSES)
-    if sorted(rec["scripts"]) != ["noise64.sk", "stress64.sk"]:
-        fail(f"tools: gluebench {rec}")
+    runs = {s: sorted(r["wall_s"]) for s, r in rec["scripts"].items()}
+    if runs != {"noise64.sk": ["all stubbed", "filt_smooth_noise stubbed",
+                               "full", "lookup stubbed",
+                               "phase_walk_warp stubbed"],
+                "stress64.sk": ["all stubbed", "full", "tier stubbed"]} \
+            or {nm: getattr(fused, nm) for nm in gluebench.KERNELS} != real:
+        fail(f"tools: gluebench runs {runs}, or the real kernels not back")
     secs["gluebench"] = time.time() - t0
     counts = read_counts(counters)
     log(f"tools: launches {counts}")

@@ -382,9 +382,8 @@ def _noise_keys(r):
     for ti in range(len(r.tiers)):
         ft = r.tier_feat(ti)
         if ft.noise:
-            keys += [("phase_walk", phase_walk_key(_pw_feat(ft), r.exact)),
-                     ("filt_smooth",
-                      filt_smooth_key(_fs_feat(ft), r.exact))]
+            keys += [("phase_walk", phase_walk_key(_pw_feat(ft))),
+                     ("filt_smooth", filt_smooth_key(_fs_feat(ft)))]
     return list(dict.fromkeys(keys))
 
 
@@ -512,11 +511,10 @@ def _noise_pass(est_vm, prev_vm, carry, p, tp, cbase, table, exact, feat,
     bank, v, phase0, fin0, states = _noise_inputs(est_vm, prev_vm, carry, tp,
                                                   feat, b)
     idx, cnt, ph_end, fin_end = phase_walk_warp(
-        bank, v, phase0, fin0, feat=_pw_feat(feat), exact=exact, n=n, b=b)
+        bank, v, phase0, fin0, feat=_pw_feat(feat), n=n, b=b)
     f = lookup(table, v["base_off"], v["limit"], idx)
     out, ends = filt_smooth_noise(f, noise_blk, cnt, cbase, bank, v, states,
-                                  feat=_fs_feat(feat), exact=exact, b=b,
-                                  out=out)
+                                  feat=_fs_feat(feat), b=b, out=out)
 
     back = lambda a: from_vm_vec(a, b, v_)
     cnt = back(cnt)

@@ -35,7 +35,7 @@
 #ifndef FS_KEYED
 
 struct FiltSmoothArgs {
-    int n, m, exact;        // exact: selects no arithmetic here
+    int n, m;
     int has_flt, has_sm, has_hold, has_quant, has_am_self, has_env, has_am,
         alive_arr;
     const float* x;         // [n, m]
@@ -162,11 +162,11 @@ extern "C" int filt_smooth_launch(const FiltSmoothArgs* args, void* stream) {
 // ======================================================================
 // The keyed variant (filt_smooth.py: filt_smooth_noise): the noise pass's
 // serial stages with the glue that fed them.  Built with -DFS_KEYED=1
-// and -DFS_<FLAG>=<0|1> for FLT, SM, HOLD, QUANT, AM_SELF, ENV, AM and
-// EXACT (which selects no arithmetic: the biquad and the smoother take
-// the fma in both modes; the launch checks it against the arguments).
-// Per lane and per sample: the lookup's sample, or the block's
-// noise stream on a noise lane; the dead mask from the lane's alive count
+// and -DFS_<FLAG>=<0|1> for FLT, SM, HOLD, QUANT, AM_SELF, ENV and AM.
+// It has no arithmetic mode: the biquad and the smoother take the fma in
+// the engine's exact and fast mode alike.  Per lane and per sample: the
+// lookup's sample, or the block's noise stream on a noise lane; the dead
+// mask from the lane's alive count
 // (its live samples are a prefix of the block); the envelope × velocity
 // (synth.c:398-431, IEEE divides, fma32 as the noise pass has it); the am
 // stream read from the bank of earlier tiers; then the serial stages
@@ -195,7 +195,7 @@ extern "C" int filt_smooth_launch(const FiltSmoothArgs* args, void* stream) {
 #include <type_traits>
 
 struct FiltNoiseArgs {
-    int n, m, b, bank_w, bank_stride, out_stride, cbase, exact, has_flt,
+    int n, m, b, bank_w, bank_stride, out_stride, cbase, has_flt,
         has_sm, has_hold, has_quant, has_am_self, has_env, has_am;
     const float* f;         // [n, m] the lookup's samples
     const float* noise;     // [n] the block's noise stream
@@ -416,9 +416,9 @@ __global__ void __launch_bounds__(32) filt_smooth_keyed_kernel(
 extern "C" int filt_smooth_keyed_launch(const FiltNoiseArgs* a,
                                         void* stream) {
     const int want[] = {FS_FLT, FS_SM, FS_HOLD, FS_QUANT, FS_AM_SELF,
-                        FS_ENV, FS_AM, FS_EXACT};
+                        FS_ENV, FS_AM};
     const int got[] = {a->has_flt, a->has_sm, a->has_hold, a->has_quant,
-                       a->has_am_self, a->has_env, a->has_am, a->exact};
+                       a->has_am_self, a->has_env, a->has_am};
     for (int i = 0; i < (int)(sizeof(want) / sizeof(want[0])); ++i)
         if (got[i] != want[i]) return -1;
     const int threads = 32;

@@ -46,7 +46,7 @@ _FS_NAMES = ("flt", "sm", "hold", "quant", "am_self", "env", "am",
 def filt_smooth_plain(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt,
                       use_sm, amp, smoothing, am_self, am_depth, hold_on,
                       hold_max, quant_on, levels, inv_levels, x1, x2, y1, y2,
-                      sg, hc, hv, *, exact=True, feat):
+                      sg, hc, hv, *, feat):
     """The kernel's arithmetic in torch ops, a loop over samples.
     Returns (samples [N, M], x1, x2, y1, y2, sg, hold_count, hold_val)."""
     flt, sm, hold, quant, am_self_f, env_a, am_a, alive_a = feat
@@ -112,7 +112,7 @@ def filt_smooth_plain(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt,
 class FiltSmoothArgs(ctypes.Structure):
     """Mirrors csrc/filt_smooth.cu's FiltSmoothArgs."""
     _fields_ = ([(k, ctypes.c_int) for k in
-                 ("n", "m", "exact")
+                 ("n", "m")
                  + tuple("has_" + k for k in _FS_NAMES[:-1])
                  + ("alive_arr",)]
                 + [(k, ctypes.c_void_p) for k in (
@@ -146,7 +146,7 @@ _ARG_NAMES = ("x", "env", "amod", "alive", "b0", "b1", "b2", "na1", "na2",
               "x1_0", "x2_0", "y1_0", "y2_0", "sg_0", "hc_0", "hv_0")
 
 
-def _pack_args(args, exact, feat):
+def _pack_args(args, feat):
     """Check the CUDA tensors (``args`` in ``filt_smooth``'s order) and
     fill the argument struct.  Returns (FiltSmoothArgs, result tuple)."""
     fl = dict(zip(_FS_NAMES, (bool(f) for f in feat)))
@@ -156,8 +156,7 @@ def _pack_args(args, exact, feat):
     n, m = x.shape
     chk = lambda k, dt, shape: cuda_call.check("filt_smooth", k, named[k],
                                                dev, dt, shape)
-    a = FiltSmoothArgs(n=n, m=m, exact=int(bool(exact)),
-                       alive_arr=int(fl["alive_arr"]))
+    a = FiltSmoothArgs(n=n, m=m, alive_arr=int(fl["alive_arr"]))
     for k in _FS_NAMES[:-1]:
         setattr(a, "has_" + k, int(fl[k]))
     a.x = chk("x", F32, (n, m))
@@ -185,7 +184,7 @@ def _pack_args(args, exact, feat):
 def filt_smooth(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt, use_sm,
                 amp, smoothing, am_self, am_depth, hold_on, hold_max,
                 quant_on, levels, inv_levels, x1, x2, y1, y2, sg, hc, hv, *,
-                exact=True, feat):
+                feat):
     """One block of the serial output stages over M lanes.
 
     x: [N, M] f32 oscillator samples; env, amod: [N, M] f32 or None
@@ -198,10 +197,10 @@ def filt_smooth(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt, use_sm,
             levels, inv_levels, x1, x2, y1, y2, sg, hc, hv)
     dev = x.device
     if dev.type == "cpu":
-        return filt_smooth_plain(*args, exact=exact, feat=feat)
+        return filt_smooth_plain(*args, feat=feat)
     if dev.type != "cuda":
         raise ValueError(f"filt_smooth: no kernel for device {dev}")
-    a, res = _pack_args(args, exact, feat)
+    a, res = _pack_args(args, feat)
     cuda_call.launch("filt_smooth", a, dev)
     filt_smooth.launches += 1
     return res
@@ -286,7 +285,7 @@ def end_states(res, feat):
 
 
 def filt_smooth_noise_plain(f, noise_blk, cnt, cbase, bank, vecs, states, *,
-                            feat, exact=True, b, out=None):
+                            feat, b, out=None):
     """The keyed kernel's function in torch ops: the noise select and the
     dead mask, the envelope, the am read and stream, then
     ``filt_smooth_plain``, in the noise pass's order.  Takes and returns
@@ -303,7 +302,7 @@ def filt_smooth_noise_plain(f, noise_blk, cnt, cbase, bank, vecs, states, *,
         f, env, amod, alive, *(v.get(k) for k in _FS_ARG_VECS),
         st("x1", flt), st("x2", flt), st("y1", flt), st("y2", flt),
         st("smoother", sm), st("hold_count", hold), st("hold_val", hold),
-        exact=exact, feat=feat)
+        feat=feat)
     if out is None:
         out = res[0]
     else:
@@ -311,26 +310,25 @@ def filt_smooth_noise_plain(f, noise_blk, cnt, cbase, bank, vecs, states, *,
     return out, end_states(res, feat)
 
 
-def _fs_flags(feat, exact):
+def _fs_flags(feat):
     """The flags a build depends on (``finish`` changes nothing in the
-    kernel: a lane's alive count covers both; the mode only where a
-    biquad or a smoother rounds by it)."""
+    kernel: a lane's alive count covers both)."""
     flt, sm, hold, quant, am_self, env_a, am_a, _ = (bool(x) for x in feat)
     return dict(flt=flt, sm=sm, hold=hold, quant=quant, am_self=am_self,
-                env=env_a, am=am_a, exact=bool(exact) or not (flt or sm))
+                env=env_a, am=am_a)
 
 
 @functools.lru_cache(maxsize=None)
-def filt_smooth_key(feat, exact=True):
+def filt_smooth_key(feat):
     """The keyed variant's build key (``-D`` defines): one library per
-    stage set and, with a biquad or a smoother, arithmetic mode."""
+    stage set."""
     return ("FS_KEYED=1",) + tuple(f"FS_{k.upper()}={int(v)}"
-                                   for k, v in _fs_flags(feat, exact).items())
+                                   for k, v in _fs_flags(feat).items())
 
 
 _FN_INTS = ("n", "m", "b", "bank_w", "bank_stride", "out_stride", "cbase",
-            "exact", "has_flt", "has_sm", "has_hold", "has_quant",
-            "has_am_self", "has_env", "has_am")
+            "has_flt", "has_sm", "has_hold", "has_quant", "has_am_self",
+            "has_env", "has_am")
 _FN_PTRS = ("f", "noise", "is_noise", "cnt", "bank", "prev", "amp",
             "use_env", "env_active", "env_start", "env_rel_at", "att", "dec",
             "sus", "rel", "vel", "am_ge0", "am_depth_a", "am_src", "am_del",
@@ -358,16 +356,15 @@ def fn_vec_keys(fl):
     return keys
 
 
-def _fn_pack(f, noise_blk, cnt, cbase, bank, vecs, states, feat, exact, b,
-             out):
+def _fn_pack(f, noise_blk, cnt, cbase, bank, vecs, states, feat, b, out):
     """Check the CUDA tensors and fill the argument struct.  Returns
     (FiltNoiseArgs, out, end-state dict)."""
-    fl = _fs_flags(feat, exact)
+    fl = _fs_flags(feat)
     dev = f.device
     n, m = f.shape
     chk = lambda name, x, dt, shape: cuda_call.check(
         "filt_smooth_noise", name, x, dev, dt, shape)
-    a = FiltNoiseArgs(n=n, m=m, cbase=int(cbase), exact=int(fl["exact"]))
+    a = FiltNoiseArgs(n=n, m=m, cbase=int(cbase))
     for k in ("flt", "sm", "hold", "quant", "am_self", "env", "am"):
         setattr(a, "has_" + k, int(fl[k]))
     bank_args(a, "filt_smooth_noise", bank if fl["am"] else None, dev, n,
@@ -400,7 +397,7 @@ def _fn_pack(f, noise_blk, cnt, cbase, bank, vecs, states, feat, exact, b,
 
 
 def filt_smooth_noise(f, noise_blk, cnt, cbase, bank, vecs, states, *, feat,
-                      exact=True, b, out=None):
+                      b, out=None):
     """One block of a noise tier's serial stages with their glue, over M
     lanes (lane ``v*b + row``).
 
@@ -417,13 +414,12 @@ def filt_smooth_noise(f, noise_blk, cnt, cbase, bank, vecs, states, *, feat,
     dev = f.device
     if dev.type == "cpu":
         return filt_smooth_noise_plain(f, noise_blk, cnt, cbase, bank, vecs,
-                                       states, feat=feat, exact=exact, b=b,
-                                       out=out)
+                                       states, feat=feat, b=b, out=out)
     if dev.type != "cuda":
         raise ValueError(f"filt_smooth_noise: no kernel for device {dev}")
     args, out, ends = _fn_pack(f, noise_blk, cnt, cbase, bank, vecs, states,
-                               feat, exact, b, out)
-    cuda_call.launch("filt_smooth", args, dev, filt_smooth_key(feat, exact),
+                               feat, b, out)
+    cuda_call.launch("filt_smooth", args, dev, filt_smooth_key(feat),
                      "filt_smooth_keyed_launch")
     filt_smooth_noise.launches += 1
     return out, ends

@@ -152,11 +152,11 @@ phase_walk.launches = 0
 # PwFeat: (fm, finish, direction, cz, czm, cz_modes, ts_pow2), a noise
 # tier's flags as ``fused.Feat`` names them
 
-def fm_increment(read, v, exact=True, direction=False):
+def fm_increment(read, v, direction=False):
     """[N, M] increments from the raw fm read stream: mis·(read·depth) +
-    pinc where the lane is FM-modulated (``fma32`` in both modes:
-    ``exact`` selects nothing, see csrc/tier.cu), pinc elsewhere, negated
-    on reversed lanes."""
+    pinc where the lane is FM-modulated (``fma32``, in the engine's exact
+    and fast mode alike: csrc/tier.cu), pinc elsewhere, negated on
+    reversed lanes."""
     g = read * v["fm_depth"]
     inc = torch.where(v["use_fm"] != 0, fma32(v["mis"], g, v["pinc"]),
                       v["pinc"])
@@ -193,8 +193,7 @@ def alive_count(dead, act, n):
     return (dead == 0).sum(dim=0, dtype=I32)
 
 
-def phase_walk_warp_plain(bank, vecs, phase0, fin0, *, feat, exact=True, n,
-                          b):
+def phase_walk_warp_plain(bank, vecs, phase0, fin0, *, feat, n, b):
     """The keyed kernel's function in torch ops: the fm read, the FM
     increment, the walk (``phase_walk_plain``), the cz read, the CZ warp
     and the clip, the alive count, in the noise pass's order.  Takes and
@@ -203,7 +202,7 @@ def phase_walk_warp_plain(bank, vecs, phase0, fin0, *, feat, exact=True, n,
     v = vecs
     read = lambda s: bank_read(bank, v[s + "_src"], v[s + "_del"], n, b)
     if fm:
-        inc = fm_increment(read("fm"), v, exact, direction)
+        inc = fm_increment(read("fm"), v, direction)
     else:
         inc = v["inc"]
     ph, dead, ph_end, fin_end = phase_walk_plain(
@@ -217,32 +216,30 @@ def phase_walk_warp_plain(bank, vecs, phase0, fin0, *, feat, exact=True, n,
     return idx, alive_count(dead, v["act"], n), ph_end, fin_end
 
 
-def _pw_flags(feat, exact):
+def _pw_flags(feat):
     """The flags a build depends on: direction only with fm (a constant
     increment comes negated), czm, the mode mask and ts_pow2 only with
-    cz, the arithmetic mode only with fm (the CZ warp rounds the same in
-    both)."""
+    cz.  The engine's arithmetic mode is not one: the kernel rounds the
+    same in both."""
     fm, finish, direction, cz, czm, modes, ts_pow2 = feat
     cz = bool(cz)
     return dict(fm=bool(fm), finish=bool(finish),
                 direction=bool(fm and direction), cz=cz, czm=cz and bool(czm),
                 cz_mask=sum(1 << k for k in modes if 1 <= k <= 7) if cz
-                else 0, ts_pow2=cz and bool(ts_pow2),
-                exact=bool(exact) or not fm)
+                else 0, ts_pow2=cz and bool(ts_pow2))
 
 
 @functools.lru_cache(maxsize=None)
-def phase_walk_key(feat, exact=True):
+def phase_walk_key(feat):
     """The keyed variant's build key (``-D`` defines): one library per
-    tier feature set and, with fm, arithmetic mode."""
-    fl = _pw_flags(feat, exact)
+    tier feature set."""
+    fl = _pw_flags(feat)
     return ("PW_KEYED=1",) + tuple(f"PW_{k.upper()}={int(v)}"
                                    for k, v in fl.items())
 
 
-_PW_INTS = ("n", "m", "b", "bank_w", "bank_stride", "exact", "has_fm",
-            "has_finish", "has_direction", "has_cz", "has_czm", "cz_mask",
-            "ts_pow2")
+_PW_INTS = ("n", "m", "b", "bank_w", "bank_stride", "has_fm", "has_finish",
+            "has_direction", "has_cz", "has_czm", "cz_mask", "ts_pow2")
 _PW_PTRS = ("bank", "prev", "fm_src", "fm_del", "cz_src", "cz_del", "inc",
             "dm", "use_fm", "mis", "pinc", "fm_depth", "dirneg", "cm_ge0",
             "cz_depth", "cz_mode", "cz_dist", "tsize", "lo", "hi", "L",
@@ -278,16 +275,16 @@ def _pw_vec_keys(fl):
     return keys
 
 
-def _pw_pack(bank, vecs, phase0, fin0, feat, exact, n, b):
+def _pw_pack(bank, vecs, phase0, fin0, feat, n, b):
     """Check the CUDA tensors and fill the argument struct.  Returns
     (PhaseWarpArgs, (idx, cnt, phase_end, fin_end))."""
-    fl = _pw_flags(feat, exact)
+    fl = _pw_flags(feat)
     dev = phase0.device
     m = phase0.shape[0]
     chk = lambda name, x, dt, shape: cuda_call.check("phase_walk_warp",
                                                      name, x, dev, dt, shape)
-    a = PhaseWarpArgs(n=n, m=m, exact=int(fl["exact"]),
-                      cz_mask=fl["cz_mask"], ts_pow2=int(fl["ts_pow2"]))
+    a = PhaseWarpArgs(n=n, m=m, cz_mask=fl["cz_mask"],
+                      ts_pow2=int(fl["ts_pow2"]))
     for k in ("fm", "finish", "direction", "cz", "czm"):
         setattr(a, "has_" + k, int(fl[k]))
     bank_args(a, "phase_walk_warp", bank, dev, n, b, m)
@@ -308,7 +305,7 @@ def _pw_pack(bank, vecs, phase0, fin0, feat, exact, n, b):
     return a, (idx, cnt, ph_e, fin_e)
 
 
-def phase_walk_warp(bank, vecs, phase0, fin0, *, feat, exact=True, n, b):
+def phase_walk_warp(bank, vecs, phase0, fin0, *, feat, n, b):
     """One block of a noise tier's walk with its glue, over M lanes
     (lane ``v*b + row``).
 
@@ -324,11 +321,11 @@ def phase_walk_warp(bank, vecs, phase0, fin0, *, feat, exact=True, n, b):
     dev = phase0.device
     if dev.type == "cpu":
         return phase_walk_warp_plain(bank, vecs, phase0, fin0, feat=feat,
-                                     exact=exact, n=n, b=b)
+                                     n=n, b=b)
     if dev.type != "cuda":
         raise ValueError(f"phase_walk_warp: no kernel for device {dev}")
-    args, outs = _pw_pack(bank, vecs, phase0, fin0, feat, exact, n, b)
-    cuda_call.launch("phase_walk", args, dev, phase_walk_key(feat, exact),
+    args, outs = _pw_pack(bank, vecs, phase0, fin0, feat, n, b)
+    cuda_call.launch("phase_walk", args, dev, phase_walk_key(feat),
                      "phase_walk_keyed_launch")
     phase_walk_warp.launches += 1
     return outs

@@ -312,7 +312,7 @@ def tier_plain(table, cbase, inc, dm, amod, vecs, states, *, feat,
         else:
             scales = cz_scales(dist + dm, exact, modes)
             coeffs = cz_warp_coeffs(mode, scales, modes)
-            warped = cz_warp_fast(coeffs, mode, phase3, tsz, exact, modes)
+            warped = cz_warp_fast(coeffs, mode, phase3, tsz, modes)
         idx_f = torch.where(mode != 0, warped, ph_s)
     else:
         idx_f = ph_s

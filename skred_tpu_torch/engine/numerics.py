@@ -314,10 +314,10 @@ def cz_warp_coeffs(mode, scales, modes=CZ_ALL):
     return (is_pl, knee, sa, c, sb, off, is_pw, pexp)
 
 
-def cz_warp_fast(coeffs, mode, phase, tsize, exact=True, modes=CZ_ALL):
+def cz_warp_fast(coeffs, mode, phase, tsize, modes=CZ_ALL):
     """The hoisted-coefficient CZ phasor (``kernels._cz_warp_fast``),
-    its fma in both modes as ``cz_warp_k``'s (``exact`` selects
-    nothing)."""
+    its fma in the engine's exact and fast mode alike, as
+    ``cz_warp_k``'s."""
     is_pl, knee, sa, c, sb, off, is_pw, pexp = coeffs
     out = phase
     if is_pl is not None:

@@ -253,7 +253,7 @@ def phase_walk_warp_counts(a, kw):
     from skred_tpu_torch.engine.kernels import phase_walk as pw
 
     bank, vecs, phase0, fin0 = a
-    fl = pw._pw_flags(kw["feat"], kw.get("exact", True))
+    fl = pw._pw_flags(kw["feat"])
     n, m = kw["n"], phase0.shape[0]
     read = nbytes(phase0, fin0 if fl["finish"] else None,
                   *(vecs[k] for k, _ in pw._pw_vec_keys(fl)))
@@ -273,7 +273,7 @@ def filt_smooth_noise_counts(a, kw):
     from skred_tpu_torch.engine.kernels import filt_smooth as fs
 
     f, noise_blk, cnt, cbase, bank, vecs, states = a
-    fl = fs._fs_flags(kw["feat"], kw.get("exact", True))
+    fl = fs._fs_flags(kw["feat"])
     n, m = f.shape
     tpos = torch.arange(n, device=f.device)[:, None]
     need = (tpos < cnt[None]) & (vecs["is_noise"][None] == 0)
@@ -414,7 +414,7 @@ def _noise_calls(st, ti, ft, B, n, lo, hi, w, table):
     from skred_tpu_torch.engine.kernels import phase_walk as pw
 
     L = B * (hi - lo)
-    pfl = pw._pw_flags(_pw_feat(ft), True)
+    pfl = pw._pw_flags(_pw_feat(ft))
     walk_cols = _bank_columns(st, (["freq_mod_osc"] if pfl["fm"] else [])
                               + (["cz_mod_osc"] if pfl["czm"] else []),
                               lo, hi, w)
@@ -426,7 +426,7 @@ def _noise_calls(st, ti, ft, B, n, lo, hi, w, table):
     # the index block, base and limit, the table; the samples
     look = Call("lookup", ti, L, table + 4 * n * L + 2 * 4 * L, 4 * n * L,
                 0)
-    ffl = fs._fs_flags(_fs_feat(ft), True)
+    ffl = fs._fs_flags(_fs_feat(ft))
     n_states = sum(len(keys) for stage, keys in fs._NOISE_STATES.items()
                    if ffl[stage])
     am_cols = _bank_columns(st, ["amp_mod_osc"], lo, hi, w) \

@@ -21,13 +21,16 @@ def card_info(device) -> dict:
     return {"name": name, "power_limit": limit}
 
 
-def require(device, prog: str) -> None:
+def require(device, prog: str, fail=None) -> None:
     """Exit 2 with an error line when ``device`` is a card and there is
-    none."""
+    none: ``fail(message, 2)`` where the caller reports errors its own
+    way, else a line on stderr."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        print(f"{prog}: torch.cuda.is_available() is false: this tool runs "
-              f"on the card (pass --device cpu for the CPU)",
-              file=sys.stderr, flush=True)
+        msg = (f"{prog}: torch.cuda.is_available() is false: this runs on "
+               f"the card (pass --device cpu for the CPU)")
+        if fail is not None:
+            fail(msg, 2)
+        print(msg, file=sys.stderr, flush=True)
         raise SystemExit(2)
 
 

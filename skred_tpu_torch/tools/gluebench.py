@@ -84,8 +84,7 @@ class Stubs:
                 torch.zeros((n, b), dtype=F32, device=dev))
         return out, res
 
-    def phase_walk_warp(self, bank, vecs, phase0, fin0, *, feat,
-                        exact=True, n, b):
+    def phase_walk_warp(self, bank, vecs, phase0, fin0, *, feat, n, b):
         m, dev = phase0.shape[0], phase0.device
         return (self.const((n, m), I32, dev),
                 self.const((m,), I32, dev, n), phase0,
@@ -95,7 +94,7 @@ class Stubs:
         return self.const(idx.shape, F32, idx.device)
 
     def filt_smooth_noise(self, f, noise_blk, cnt, cbase, bank, vecs,
-                          states, *, feat, exact=True, b, out=None):
+                          states, *, feat, b, out=None):
         if out is None:
             out = self.const(f.shape, F32, f.device)
         return out, dict(states)

@@ -155,6 +155,9 @@ def test_bench_gate_refusal_takes_a_compat_bucket(capsys, monkeypatch,
     assert compat["scripts"] == ["fb1.sk"] and compat["distinct_scripts"] == 1
     assert compat["compiler"] == {"fb1.sk": "native"}
     assert compat["timed_cold"] is (budget == 0.0)
+    # the timed pass (none when cold) gave the warm pass's checksum
+    assert compat["checksums"] == compat["checksums"][:1] * (
+        1 if budget == 0.0 else 2)
     assert compat["wall_s"] > 0 and compat["launches"] == {}
     audio = 2 * compat["blocks"] * 512 / 44100.0
     assert compat["x_rt"] == round(audio / compat["wall_s"], 1)
@@ -202,6 +205,39 @@ def test_bench_fails_a_bucket_whose_timed_pass_misbehaves(capsys,
     err = _lines(capsys.readouterr().out)[-1]["error"]
     assert ("built ['tier[1]', 'tier[2]']" if fault == "a build"
             else "nondeterministic") in err
+
+
+@pytest.mark.parametrize("fault", ["a build", "a checksum"])
+def test_bench_fails_a_compat_bucket_whose_timed_pass_misbehaves(
+        capsys, monkeypatch, fault):
+    """The compat-scan bucket's timed pass goes through the same checks:
+    a build inside it, or a checksum other than the warm pass's, ends the
+    run in an error line and exit 1."""
+    from skred_tpu_torch.engine.kernels import build
+    from skred_tpu_torch.parallel import batch
+
+    passes = []
+
+    def render(st, noise=None, device="cuda"):
+        passes.append(1)
+        if fault == "a build" and len(passes) == 2:
+            build.LOG["compat"] = (1.0, "")
+        scale = 2.0 if fault == "a checksum" and len(passes) == 2 else 1.0
+        return np.full((st.batch, 4, 2), scale, np.float32)
+
+    monkeypatch.setattr(build, "LOG", {})
+    monkeypatch.setattr(batch, "render_stacked", render)
+    monkeypatch.setattr(tc, "cyclic_gate",
+                        lambda st: "per-voice table bindings differ across "
+                                   "rows")
+    with pytest.raises(SystemExit) as ex:
+        bench_torch.main(seconds=ONE_BLOCK, replicas=1, chunk=1,
+                         device="cpu", max_rows=1,
+                         scripts=[ROOT / "corpus" / "fb1.sk"])
+    assert ex.value.code == 1 and len(passes) == 2
+    err = _lines(capsys.readouterr().out)[-1]["error"]
+    assert ("compat bucket fb1.sk: a timed pass built ['compat']"
+            if fault == "a build" else "nondeterministic") in err
 
 
 def _sleepy_render(monkeypatch, sleeps):

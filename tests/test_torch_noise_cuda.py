@@ -53,13 +53,10 @@ SCRIPTS = pathlib.Path(__file__).resolve().parent.parent \
 
 def _keys():
     """Every keyed build this file launches."""
-    keys = []
-    for exact in (True, False):
-        keys += [("phase_walk", pw.phase_walk_key(f, exact))
-                 for f in WARP_CASES.values()]
-        keys += [("filt_smooth", fs.filt_smooth_key(f, exact))
-                 for f in FSN_CASES.values()]
-    return list(dict.fromkeys(keys))
+    return ([("phase_walk", pw.phase_walk_key(f))
+             for f in WARP_CASES.values()]
+            + [("filt_smooth", fs.filt_smooth_key(f))
+               for f in FSN_CASES.values()])
 
 
 @pytest.fixture(scope="session")
@@ -142,17 +139,16 @@ def test_lookup_cuda_matches_plain_on_card(slot_size, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("case", sorted(FS_CASES))
-def test_filt_smooth_cuda_matches_plain_on_card(case, exact, cuda_device):
+def test_filt_smooth_cuda_matches_plain_on_card(case, cuda_device):
     feat = FS_CASES[case]
     n, m = 512, 8192
     args = list(map(_on(cuda_device), random_fs_inputs(feat, n, m, seed=9)))
     before = fs.filt_smooth.launches
-    got = fs.filt_smooth(*args, exact=exact, feat=feat)
+    got = fs.filt_smooth(*args, feat=feat)
     torch.cuda.synchronize()
     assert fs.filt_smooth.launches == before + 1
-    want = fs.filt_smooth_plain(*args, exact=exact, feat=feat)
+    want = fs.filt_smooth_plain(*args, feat=feat)
     for k, (g, w) in enumerate(zip(got, want)):
         _same(g, w, f"output {k}")
 
@@ -174,7 +170,7 @@ def test_noise_kernels_reject_bad_inputs(cuda_device):
         fs.filt_smooth(*args, feat=NOISE64_FS0)
 
 
-def _warp_call(feat, exact, dev, n, seed, out_of_range=False):
+def _warp_call(feat, dev, n, seed, out_of_range=False):
     """phase_walk_warp on the card against its plain version, the bank a
     column slice of a wider block buffer: every output bit for bit."""
     bank, prev, vecs, ph0, fin0 = random_warp_inputs(
@@ -185,13 +181,13 @@ def _warp_call(feat, exact, dev, n, seed, out_of_range=False):
     fold = Fold(buf[:, :W * B], on(prev), W)
     tv = {k: on(x) for k, x in vecs.items()}
     before = (pw.phase_walk_warp.launches, pw.phase_walk.launches)
-    got = pw.phase_walk_warp(fold, tv, on(ph0), on(fin0), feat=feat,
-                             exact=exact, n=n, b=B)
+    got = pw.phase_walk_warp(fold, tv, on(ph0), on(fin0), feat=feat, n=n,
+                             b=B)
     torch.cuda.synchronize()
     assert (pw.phase_walk_warp.launches, pw.phase_walk.launches) \
         == (before[0] + 1, before[1])
     want = pw.phase_walk_warp_plain(fold, tv, on(ph0), on(fin0), feat=feat,
-                                    exact=exact, n=n, b=B)
+                                    n=n, b=B)
     for k, (g, w) in enumerate(zip(got, want)):
         if w is None:
             assert g is None
@@ -201,27 +197,24 @@ def _warp_call(feat, exact, dev, n, seed, out_of_range=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("case", sorted(WARP_CASES))
-def test_phase_walk_warp_matches_plain_on_card(case, exact, cuda_device):
+def test_phase_walk_warp_matches_plain_on_card(case, cuda_device):
     """The keyed walk with its reads, FM increment, CZ warp and clip:
     index, alive count, end phase and finished flag bit for bit."""
-    idx, cnt, _, _ = _warp_call(WARP_CASES[case], exact, cuda_device, 512,
-                                seed=61)
+    idx, cnt, _, _ = _warp_call(WARP_CASES[case], cuda_device, 512, seed=61)
     assert (idx > 0).float().mean() > 0.5
     assert (cnt.float().mean() > 100)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("case", sorted(WARP_CASES))
-def test_phase_walk_warp_out_of_range_matches_plain_on_card(case, exact,
+def test_phase_walk_warp_out_of_range_matches_plain_on_card(case,
                                                             cuda_device):
     """Operands outside the fast wrap's range (increments of 7.3 loop
     lengths, bank samples of +-1e30, +-inf and NaN, NaN and infinite
     start phases): the lanes that meet one render the block again through
     wrap_fmod's slow path, bit-equal to the plain version."""
-    _warp_call(WARP_CASES[case], exact, cuda_device, 512, seed=62,
+    _warp_call(WARP_CASES[case], cuda_device, 512, seed=62,
                out_of_range=True)
 
 
@@ -231,10 +224,10 @@ def test_phase_walk_warp_out_of_range_matches_plain_on_card(case, exact,
 def test_phase_walk_warp_short_blocks_match_plain_on_card(case, n,
                                                           cuda_device):
     """Blocks that end inside a chunk of the keyed walk."""
-    _warp_call(WARP_CASES[case], True, cuda_device, n, seed=n)
+    _warp_call(WARP_CASES[case], cuda_device, n, seed=n)
 
 
-def _fsn_call(feat, exact, dev, n, seed):
+def _fsn_call(feat, dev, n, seed):
     """filt_smooth_noise on the card against its plain version, writing
     into a column slice of a wider block buffer: out, the buffer around
     it and every end state bit for bit."""
@@ -248,14 +241,13 @@ def _fsn_call(feat, exact, dev, n, seed):
     cols = lambda buf: buf[:, W * B:]
     before = (fs.filt_smooth_noise.launches, fs.filt_smooth.launches)
     out, ends = fs.filt_smooth_noise(on(f), on(nz), on(cnt), cbase, fold, tv,
-                                     ts, feat=feat, exact=exact, b=B,
-                                     out=cols(bufs[0]))
+                                     ts, feat=feat, b=B, out=cols(bufs[0]))
     torch.cuda.synchronize()
     assert (fs.filt_smooth_noise.launches, fs.filt_smooth.launches) \
         == (before[0] + 1, before[1])
     want, want_ends = fs.filt_smooth_noise_plain(
-        on(f), on(nz), on(cnt), cbase, fold, tv, ts, feat=feat, exact=exact,
-        b=B, out=cols(bufs[1]))
+        on(f), on(nz), on(cnt), cbase, fold, tv, ts, feat=feat, b=B,
+        out=cols(bufs[1]))
     _same(out, want, "out")
     _same(bufs[0], bufs[1], "the block buffer")
     assert sorted(ends) == sorted(want_ends)
@@ -265,12 +257,11 @@ def _fsn_call(feat, exact, dev, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("case", sorted(FSN_CASES))
-def test_filt_smooth_noise_matches_plain_on_card(case, exact, cuda_device):
+def test_filt_smooth_noise_matches_plain_on_card(case, cuda_device):
     """The keyed serial stages with the noise select, dead mask,
     envelope and am stream: out and every end state bit for bit."""
-    out = _fsn_call(FSN_CASES[case], exact, cuda_device, 512, seed=63)
+    out = _fsn_call(FSN_CASES[case], cuda_device, 512, seed=63)
     assert (out != 0).float().mean() > 0.5
 
 
@@ -279,7 +270,7 @@ def test_filt_smooth_noise_matches_plain_on_card(case, exact, cuda_device):
 @pytest.mark.parametrize("case", ["noise64_tier1", "all"])
 def test_filt_smooth_noise_short_blocks_match_plain_on_card(case, n,
                                                             cuda_device):
-    _fsn_call(FSN_CASES[case], True, cuda_device, n, seed=n)
+    _fsn_call(FSN_CASES[case], cuda_device, n, seed=n)
 
 
 @pytest.mark.cuda
@@ -310,10 +301,10 @@ def test_keyed_noise_kernels_refuse_another_key(cuda_device):
                                                      seed=1)
     args, _ = pw._pw_pack(Fold(on(bank), on(prev), 2),
                           {k: on(x) for k, x in vecs.items()}, on(ph0),
-                          on(fin0), feat, True, 16, 8)
+                          on(fin0), feat, 16, 8)
     with pytest.raises(RuntimeError, match="not the build's key"):
         cuda_call.launch("phase_walk", args, cuda_device,
-                         pw.phase_walk_key(feat, False),
+                         pw.phase_walk_key(WARP_CASES["all"]),
                          "phase_walk_keyed_launch")
     feat = FSN_CASES["noise64_tier1"]
     f, nz, cnt, cbase, bank, prev, vecs, states = random_noise_fs_inputs(
@@ -322,10 +313,10 @@ def test_keyed_noise_kernels_refuse_another_key(cuda_device):
                              Fold(on(bank), on(prev), 2),
                              {k: on(x) for k, x in vecs.items()},
                              {k: on(x) for k, x in states.items()}, feat,
-                             True, 8, None)
+                             8, None)
     with pytest.raises(RuntimeError, match="not the build's key"):
         cuda_call.launch("filt_smooth", args, cuda_device,
-                         fs.filt_smooth_key(FSN_CASES["all"], True),
+                         fs.filt_smooth_key(FSN_CASES["all"]),
                          "filt_smooth_keyed_launch")
     torch.cuda.synchronize()
 

@@ -215,8 +215,7 @@ def test_filt_smooth_plain_matches_pallas_interpret(case):
     args = random_fs_inputs(feat, n, m, seed=7)
     want = _interpret(jk.filt_smooth_pallas, *map(_j, args), exact=True,
                       feat=feat)
-    got = _flushed(fs.filt_smooth_plain, *map(_t, args), exact=True,
-                   feat=feat)
+    got = _flushed(fs.filt_smooth_plain, *map(_t, args), feat=feat)
     assert (want[0] != 0).mean() > 0.5, "too few live samples to compare"
     for k, (g, w) in enumerate(zip(got, want)):
         _same(g.numpy(), w, f"output {k}")

@@ -171,7 +171,7 @@ def test_cz_warp_bitwise(modes, exact):
         _same_bits(got.numpy(), np.asarray(want))
     old = tn.cz_warp_k(tm, tp, None, tt, exact, scales, phase, modes)
     coeffs = tn.cz_warp_coeffs(tm, scales, modes)
-    new = tn.cz_warp_fast(coeffs, tm, phase, tt, exact, modes)
+    new = tn.cz_warp_fast(coeffs, tm, phase, tt, modes)
     _same_bits(new.numpy(), old.numpy())
     _same_bits(old.numpy(), np.asarray(jold))
     _same_bits(new.numpy(), np.asarray(jnew))

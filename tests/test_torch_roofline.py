@@ -131,7 +131,7 @@ def _former_filt_smooth(a, kw):
 
 def _former_phase_walk_warp(a, kw):
     bank, vecs, phase0, fin0 = a
-    fl = pw._pw_flags(kw["feat"], kw.get("exact", True))
+    fl = pw._pw_flags(kw["feat"])
     n, m = kw["n"], phase0.shape[0]
     read = _nb(phase0, fin0 if fl["finish"] else None,
                *(vecs[k] for k, _ in pw._pw_vec_keys(fl)))
@@ -145,7 +145,7 @@ def _former_phase_walk_warp(a, kw):
 
 def _former_filt_smooth_noise(a, kw):
     f, noise_blk, cnt, cbase, bank, vecs, states = a
-    fl = fs._fs_flags(kw["feat"], kw.get("exact", True))
+    fl = fs._fs_flags(kw["feat"])
     n, m = f.shape
     tpos = torch.arange(n)[:, None]
     need = (tpos < cnt[None]) & (vecs["is_noise"][None] == 0)

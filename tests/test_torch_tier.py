@@ -288,7 +288,7 @@ def test_render_builds_its_tier_keys_together_before_the_first_block(
 
     def keyed(name, real, key):
         def call(*a, **kw):
-            events.append(("noise", (name, key(kw["feat"], kw["exact"]))))
+            events.append(("noise", (name, key(kw["feat"]))))
             return real(*a, **kw)
         return call
 
