@@ -38,8 +38,10 @@ more than 10% slower is timed three more times and listed only if the
 best of all passes still shows the drop.
 
 Runs on the card only: with no card it prints an error line and exits
-2.  Any failure (a compiler error, a checksum that differs between
-passes, a build inside a timed pass) prints an error line and exits 1.
+2, as it does under a timing-ablation switch (``SKRED_MEGA_ABLATE``,
+``SKRED_CYC_ABLATE``: its renders would be invalid).  Any failure (a
+compiler error, a checksum that differs between passes, a build inside
+a timed pass) prints an error line and exits 1.
 """
 
 import json
@@ -109,22 +111,28 @@ def launch_counters() -> dict:
 
 def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
          chunk: int = CHUNK, device="cuda", scripts=None,
-         max_rows=None) -> dict:
+         max_rows=None, select=None, detail_file=None) -> dict:
     """Run the bench; returns the final detail record (also written to
-    ``build/bench_detail_torch.json``).  ``scripts`` defaults to the
-    in-repo scripts; ``max_rows`` cuts every bucket's rows (tests)."""
+    ``detail_file``, default ``build/bench_detail_torch.json``).  ``scripts``
+    defaults to the in-repo scripts; ``max_rows`` cuts every bucket's
+    rows (tests); ``select``, a predicate over a
+    ``parallel.buckets.Bucket``, keeps the buckets it is true of
+    (``skred_tpu_torch/tools/bench_subset.py``)."""
     from skred_tpu_torch.engine import cyclic, fused
     from skred_tpu_torch.engine.kernels import build
     from skred_tpu_torch.parallel.buckets import SCRIPTS, make_buckets
     from skred_tpu_torch.parallel.roofline import estimate_bucket
 
+    card.refuse_ablated("bench_torch", fail=_error)
     card.require(device, "bench_torch", fail=_error)
     info = card.card_info(device)
     on_card = torch.device(device).type == "cuda"
     kind = torch.cuda.get_device_name(0) if on_card else str(device)
     sync = lambda: card.sync(device)
     scripts = list(SCRIPTS if scripts is None else scripts)
-    buckets = make_buckets(scripts, seconds, replicas, max_rows)
+    buckets = [bk for bk in make_buckets(scripts, seconds, replicas,
+                                         max_rows)
+               if select is None or select(bk)]
     exact = False if fast else None
     counters = launch_counters()
     baseline = _load_baseline(seconds, chunk, "fast" if fast else "exact")
@@ -159,8 +167,10 @@ def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,
                           "alone, inside the timed window as in bench.py",
                   "buckets": detail, "regression_list": regressions,
                   "checksum": total["checksum"]}
-        DETAIL.parent.mkdir(parents=True, exist_ok=True)
-        DETAIL.write_text(json.dumps(record, indent=1))
+        path = pathlib.Path(DETAIL if detail_file is None
+                            else detail_file)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(record, indent=1))
         print(json.dumps(headline), flush=True)
         return record
 

@@ -180,7 +180,29 @@ it:
                   bench over fb1 and fb4 at 4 s with the cyclic gate
                   forced to refuse fb4: a compat-scan bucket, counted
                   into the headline
- 16. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
+ 16. ablate       the timing-ablation switches (SKRED_MEGA_ABLATE,
+                  SKRED_CYC_ABLATE; this script refuses to start under
+                  either): the main paths' keys hold no ablation define;
+                  every ablated build of stress64's two tier calls and of
+                  fb2's keyed cyclic call (1024 rows) made in one
+                  parallel build; each build alone on the first block
+                  (tools/mega_ablate.py's kernel rows: 20 calls in a CUDA
+                  graph by CUDA events, in turns with the full build),
+                  with its SASS a sample step, each stub changing the
+                  output and leaving fewer instructions than full (mix:
+                  the mix kernel launched 0 times, by the library's
+                  own count), and the single stubs of the skeleton's
+                  phases removing at most 10% more SASS together than
+                  the skeleton (no instruction in two stubs' shares); a
+                  phase the key does not compile in is reported, not
+                  built; the environment route once (one_bucket stress64
+                  2 s under SKRED_MEGA_ABLATE=phase4, every line marked
+                  ABLATED); tools/op_census.py on stress64 and noise64,
+                  one steady block at 1024 rows on the card and at 8 on
+                  the CPU; tools/fma_probe.py (NOT-CONTRACTED under the
+                  port's flags, CONTRACTED under -fmad=true, __fmaf_rn
+                  bit-equal to numerics.fma32)
+ 17. bench        bench_torch.main at 4 s (2 chunks of 172 blocks): its
                   headline and, per bucket, x_rt, wall spread, set-up
                   seconds and roofline label; it fails unless there are
                   seven buckets (stress64, noise64, fb1-fb5), each
@@ -203,6 +225,7 @@ nothing of JAX.
 
 import ctypes
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -213,6 +236,7 @@ import torch
 
 from skred_tpu_torch.parallel import roofline
 from skred_tpu_torch.parallel.roofline import nbytes
+from skred_tpu_torch.tools.sass_locals import sass_functions, sass_loop
 
 SECONDS = 10.0
 ROWS = 1024
@@ -1313,47 +1337,6 @@ TIER_CHAIN_OPS = 9
 OP_CYCLES = 4
 
 
-def sass_functions(so):
-    """{kernel name: [(address, instruction)]} of a library, by
-    cuobjdump -sass."""
-    import re
-    import shutil
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-    out = {}
-    for part in re.split(r"\n\s+Function : ", text)[1:]:
-        name = part.split("\n", 1)[0].strip()
-        out[name] = [(int(a, 16), t.strip()) for a, t in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
-    return out
-
-
-def sass_loop(so, kernel, samples):
-    """Instructions of ``kernel``'s sample loop per sample step.  With
-    ``samples`` > 1 (the keyed build's chunks) the first loop of at least
-    4 x ``samples`` instructions: the fast pass's steady chunk loop.
-    With 1 (the general build) its largest loop, counted statically,
-    every run-time branch included."""
-    import re
-
-    funcs = sass_functions(so)
-    name = next(nm for nm in funcs if kernel in nm)
-    ins = funcs[name]
-    loops = []
-    for a, t in ins:
-        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
-        if m and int(m.group(1), 16) < a:
-            lo = int(m.group(1), 16)
-            loops.append((lo, a, sum(1 for aa, _ in ins if lo <= aa <= a)))
-    big = [lp for lp in loops if lp[2] >= 4 * samples]
-    lo, hi, count = min(big) if samples > 1 and big \
-        else max(loops, key=lambda lp: lp[2])
-    return dict(kernel=name, instructions=len(ins), loop=count,
-                per_sample=count / samples)
-
-
 def tier_chunk(key):
     """T, the keyed tier kernel's samples per chunk, from its library."""
     from skred_tpu_torch.engine.kernels import build
@@ -1557,16 +1540,15 @@ def config_compare(dev, card, specs, errs):
 
 def profile_line(label, run, names):
     """Device time by kernel and by category over one profiled chunk
-    (``run`` renders it), from the profiler tool's aggregation."""
+    (``run`` renders it), from the profiler tool's aggregation.  A
+    profiler that raises, or a trace with no device events, fails the
+    run."""
     from skred_tpu_torch.tools import profile_roofline as prof
 
-    try:
-        events, pwall = prof.trace(run)
-        agg = prof.aggregate(events, CHUNK)
-    except Exception as ex:   # noqa: BLE001 - the profiler is optional
-        return f"profile ({label}): not measured ({type(ex).__name__}: {ex})"
+    events, pwall = prof.trace(run)
+    agg = prof.aggregate(events, CHUNK)
     if agg is None:
-        return f"profile ({label}): not measured (no device events)"
+        fail(f"profile ({label}): the trace holds no device events")
     busy, kernels = agg["device_busy_s"], agg["kernels"]
     parts = []
     for name in names:
@@ -2621,6 +2603,164 @@ def tools_phase(dev, card, counters):
         + f"; {sum(secs.values()):.2f} in all")
 
 
+# the ablate phase: the env route's one_bucket run, one 172-block chunk
+# (one_bucket credits whole chunks only: 1 s would be none)
+ENV_ROUTE_SECONDS = 2.0
+CENSUS_CPU_ROWS = 8
+# how far the single stubs' SASS removals together may pass the
+# skeleton's (register allocation and scheduling differ from build to
+# build); an instruction in two stubs' shares shows as more
+SASS_OVERLAP = 0.10
+
+
+def ablate_phase(dev, card, path_keys):
+    """The timing-ablation switches and the tools that read the glue:
+    the main paths' keys (``path_keys``: {label: key} of the build
+    phase's tier and cyclic builds) without an ablation define; the
+    keyed tier kernel's phases (stress64's two tier calls at 1024 rows)
+    and the keyed cyclic kernel's (fb2 at 1024 rows), each build alone
+    on the first block by CUDA events in CUDA graphs, in turns with the
+    full build, its SASS a sample step and whether it changed the output
+    (tools/mega_ablate.py's function form); the environment route once
+    (one_bucket under SKRED_MEGA_ABLATE=phase4, in a subprocess); the op
+    census of stress64 and noise64 on the card at 1024 rows and on the
+    CPU at 8 (in a subprocess, beside the builds and the timing: it
+    counts and times nothing); the fma probe."""
+    from skred_tpu_torch.engine.kernels import build
+    from skred_tpu_torch.tools import fma_probe, mega_ablate, op_census
+
+    secs = {}
+    start = t0 = time.time()
+    bad = [lab for lab, key in path_keys.items()
+           if any("ABLATE" in d for d in key)]
+    if bad:
+        fail(f"ablate: main-path keys with an ablation define: {bad}")
+    census_scripts = ("stress64.sk", "noise64.sk")
+    cpu_census = subprocess.Popen(
+        [sys.executable, "-c",
+         "import json, torch\n"
+         "torch.set_num_threads(1)\n"
+         "from skred_tpu_torch.tools import op_census as oc\n"
+         f"print(json.dumps({{s: oc.census(s, {CENSUS_CPU_ROWS}, 'cpu')\n"
+         f"                  for s in {census_scripts!r}}}))\n"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    packs = {s: mega_ablate.ablation_calls(s, 0.05, dev, ROWS)
+             for s in ("stress64.sk", "fb2.sk")}
+    items = [k for p in packs.values() for k in mega_ablate.build_keys(p)]
+    probe_keys = [("fma_probe", k) for k in fma_probe.KEYS.values()]
+    made = build.build_all(items + probe_keys)
+    log(f"ablate: {len(made)} builds ({len(items)} keys of the two "
+        f"kernels with their full keys, the probe's 2) in "
+        f"{max(made.values(), default=0.0):.1f} s")
+    secs["keys and builds"] = time.time() - t0
+    t0 = time.time()
+    # the environment route, beside the card's census (which counts, and
+    # times nothing); its keys are stress64's phase4 builds, made above
+    env = dict(os.environ, SKRED_MEGA_ABLATE="phase4")
+    route = subprocess.Popen(
+        [sys.executable, "-m", "skred_tpu_torch.tools.one_bucket",
+         "stress64.sk", str(ENV_ROUTE_SECONDS)], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cards = {}
+    for script in census_scripts:
+        cards[script] = rec = op_census.census(script, ROWS, dev)
+        op_census.print_census(rec, 10)
+        if not rec["kernel_launches_per_block"] \
+                or rec["plain_ops_per_block"]:
+            fail(f"op census {script}: no kernel launch, or plain "
+                 f"versions on the card")
+    out, err = _wait(route, "the environment route")
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    log(f"ablate env route (SKRED_MEGA_ABLATE=phase4 one_bucket stress64.sk "
+        f"{ENV_ROUTE_SECONDS}): exit {route.returncode}; "
+        + " | ".join(lines))
+    if route.returncode != 0 or not lines or any(
+            not ln.startswith("ABLATED SKRED_MEGA_ABLATE=phase4 ")
+            for ln in lines):
+        fail(f"ablate: the environment route: {err[-400:]}")
+    secs["card census and env route"] = time.time() - t0
+    t0 = time.time()
+    for script, packed in packs.items():
+        recs = mega_ablate.time_calls(packed)
+        for r in recs:
+            log(f"ablate {script} {mega_ablate.row_line(r)} on {card}")
+            if not r["built"]:
+                continue
+            if r.get("mix_launches") is not None and \
+                    r["mix_launches"] != (0 if "mix" in r["ablate"] else 1):
+                fail(f"ablate {script}: {r['config']} launched the mix "
+                     f"kernel {r['mix_launches']} times")
+            # mix alone is a skipped launch, checked by its count above:
+            # its accumulators show it only where the tier's voices are
+            # mixed (stress64's tier-0 modulators carry weight 0)
+            if r["ablate"] in ("", "mix"):
+                continue
+            if not r["changed"]:
+                fail(f"ablate {script}: the {r['config']} stub changed "
+                     f"nothing on call {r['call']}")
+            if not r["sass"] < r["sass_full"]:
+                fail(f"ablate {script}: the {r['config']} stub left "
+                     f"{r['sass']} SASS a sample step of {r['sass_full']}")
+        # no stub removes another's instructions: the skeleton's phases
+        # stubbed one at a time remove no more SASS together than the
+        # skeleton does, but for the compiler's own scheduling
+        for call in sorted({r["call"] for r in recs}):
+            (skel,) = [r for r in recs if r["call"] == call
+                       and r["config"].startswith("skeleton")]
+            parts = set(skel["ablate"].split(","))
+            one = [r for r in recs if r["call"] == call and r["built"]
+                   and r["ablate"] in parts]
+            singles = sum(r["sass_full"] - r["sass"] for r in one)
+            whole = skel["sass_full"] - skel["sass"]
+            log(f"ablate {script} call {call}: the single stubs of the "
+                f"skeleton's phases remove {singles:.2f} SASS a sample "
+                f"step and {sum(r['delta_ms'] for r in one):.4f} ms "
+                f"together, the skeleton {whole:.2f} and "
+                f"{skel['delta_ms']:.4f} ms")
+            if singles > whole * (1 + SASS_OVERLAP):
+                fail(f"ablate {script} call {call}: the single stubs remove "
+                     f"{singles:.2f} SASS, more than the skeleton's "
+                     f"{whole:.2f} by over {SASS_OVERLAP:.0%}: two stubs "
+                     f"take the same instructions")
+    secs["kernel rows"] = time.time() - t0
+    t0 = time.time()
+    out, err = _wait(cpu_census, "the CPU census")
+    if cpu_census.returncode != 0:
+        fail(f"ablate: the CPU census: {err[-400:]}")
+    cpus = json.loads(out.splitlines()[-1])
+    for script in census_scripts:
+        cpu, rec = cpus[script], cards[script]
+        log(f"op census {script}: the CPU's glue at {CENSUS_CPU_ROWS} rows "
+            f"{cpu['glue_ops_per_block']:.1f} aten ops a block "
+            f"({cpu['views_per_block']:.1f} views, "
+            f"{cpu['plain_ops_per_block']:.1f} in the plain versions), the "
+            f"card's at {ROWS} {rec['glue_ops_per_block']:.1f} "
+            f"({rec['views_per_block']:.1f} views); kernel launches a "
+            f"block {rec['per_block'][0]['launches']}")
+        if not cpu["plain_ops_per_block"] or cpu["kernel_launches_per_block"]:
+            fail(f"op census {script}: the CPU's plain versions not apart")
+    rec = fma_probe.probe(dev)
+    port, fmad = rec["builds"]["port flags"], rec["builds"]["-fmad=true"]
+    if port["verdict"] != "NOT-CONTRACTED" or fmad["verdict"] != \
+            "CONTRACTED" or not port["fused_equals_fma32"]:
+        fail(f"ablate: fma probe {rec['builds']}")
+    secs["CPU census wait and fma probe"] = time.time() - t0
+    log("ablate: seconds " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       secs.items())
+        + f"; {time.time() - start:.2f} in all")
+
+
+def _wait(proc, what, timeout=600):
+    """(stdout, stderr) of ``proc`` once it ends; killed and a failure
+    after ``timeout`` seconds."""
+    try:
+        return proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"ablate: {what} did not end in {timeout} s")
+
+
 BENCH_SECONDS = NOISE64_SECONDS    # 344 whole blocks: 2 chunks of 172
 
 
@@ -2683,6 +2823,11 @@ def bench_phase(card, counters):
 
 
 def main():
+    from skred_tpu_torch.tools import card as card_tool
+
+    # an ablated build renders invalid audio by design: every check and
+    # number below would be void
+    card_tool.refuse_ablated("chip_smoke", fail=lambda msg, code: fail(msg))
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "card")
@@ -2866,7 +3011,12 @@ def main():
     phase("tools")
     tools_phase(dev, card, counters)
 
-    # ---- 16. the port's bench ----
+    # ---- 16. the ablation switches, the op census, the fma probe ----
+    phase("ablate")
+    ablate_phase(dev, card, {f"tier {lab}": key for lab, key in tkeys.items()}
+                 | {f"cyclic {lab}": key for lab, key in keys.items()})
+
+    # ---- 17. the port's bench ----
     phase("bench")
     b_launch = bench_phase(card, counters)
 

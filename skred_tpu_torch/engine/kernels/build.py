@@ -11,7 +11,10 @@ and feature set; each key is a library of its own.  The hash covers the
 source, the shared ``csrc/*.cuh`` headers, the flags and the key.
 Importing this module compiles nothing.  The flags keep the reference
 rounding: no multiply-add contraction (``-fmad=false``), IEEE division and
-square root, denormals kept, never ``--use_fast_math``.
+square root, denormals kept, never ``--use_fast_math``.  A key element
+that starts with ``-`` is an nvcc option in place of the flag of the same
+name: ``tools/fma_probe.py``'s ``-fmad=true`` build, the one that asks
+nvcc to contract.
 """
 
 from __future__ import annotations
@@ -43,6 +46,18 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_args(key=()) -> list:
+    """nvcc's flags and defines for a build under ``key``: each element
+    that starts with ``-`` is an option in place of the ``NVCC_FLAGS``
+    entry of the same name, every other one a ``-D`` define."""
+    opts = {k.split("=")[0]: k for k in key if k.startswith("-")}
+    unknown = set(opts) - {f.split("=")[0] for f in NVCC_FLAGS}
+    if unknown:
+        raise ValueError(f"build: no flag {sorted(unknown)} to replace")
+    return ([opts.get(f.split("=")[0], f) for f in NVCC_FLAGS]
+            + ["-D" + d for d in key if not d.startswith("-")])
+
+
 def _spec(item):
     """(name, key) of a build item: a source name or (name, key)."""
     if isinstance(item, str):
@@ -63,8 +78,7 @@ def _target(name: str, key=()) -> pathlib.Path:
     # every source that may include it
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    h = hashlib.sha1(src + " ".join(NVCC_FLAGS + ["-D" + d for d in key])
-                     .encode()).hexdigest()[:12]
+    h = hashlib.sha1(src + " ".join(nvcc_args(key)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
@@ -87,8 +101,7 @@ def build_all(items=None) -> dict:
     for name, key in todo:
         tmp = _target(name, key).with_suffix(".tmp.so")
         procs[name, key] = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *("-D" + d for d in key), "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
+            [nvcc, *nvcc_args(key), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     secs = {}
     failed = []

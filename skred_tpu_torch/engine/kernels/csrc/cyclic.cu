@@ -427,8 +427,49 @@ extern "C" int cyclic_general_launch(const CyclicArgs* args, void* stream) {
 // The keyed variant: built with
 //   -DCYC_K=<voices> -DCYC_EXACT=<0|1> -DCYC_CZ_MASK=<bit m: CZ mode m>
 //   -DCYC_HAS_<FEATURE>=<0|1> for every flag of CyclicArgs (FM, CZ, CZM, AM, AM_SELF, PM, PM_SELF,
-// ENV, FLT, SM, HOLD, QUANT, NOISE, FINISH, DIRECTION, DISC).
+// ENV, FLT, SM, HOLD, QUANT, NOISE, FINISH, DIRECTION, DISC); for timing
+// only, -DCYC_ABLATE_<PHASE>=1 stubs a phase (below).
 // ======================================================================
+
+// Timing ablation (SKRED_CYC_ABLATE; cyclic.py fixed_key adds a define
+// per phase the key compiles in): each stub takes the place of the JAX
+// kernel's (skred_tpu/engine/cyclic.py:66-72), so that a phase's share
+// of the kernel's time is the difference to the full build.  A render
+// under a stub is invalid by design.
+//   READS   the fm modulator read gives +0.0 (cyclic.py:294); the
+//           other three reads belong to the phase they sit in (the
+//           cz-mod read to CZ, the am read to DSP, the pan-mod read to
+//           PAN), so that no instruction is in two stubs' shares (the
+//           JAX stub takes all four reads)
+//   LOOKUP  no table load: f = the index's bits as a float (:274; the
+//           JAX stub's (float)index * 1e-9 costs an I2F and a multiply,
+//           as much as the load: see tier.cu)
+//   CZ      no CZ warp: the index is the wrapped phase (:360)
+//   DSP     no hold, quantizer, biquad, envelope, am or smoother: the
+//           sample is f * amp (:395-461)
+//   PAN     no per-sample pan: the voice's pan as it came in (:473)
+//   ALL     no voice body: a voice's sample is its amp, and both
+//           channels sum the amps (:324)
+// Each stub keeps a data dependence on what it replaces, as the JAX
+// stubs do.
+#ifndef CYC_ABLATE_READS
+#define CYC_ABLATE_READS 0
+#endif
+#ifndef CYC_ABLATE_LOOKUP
+#define CYC_ABLATE_LOOKUP 0
+#endif
+#ifndef CYC_ABLATE_CZ
+#define CYC_ABLATE_CZ 0
+#endif
+#ifndef CYC_ABLATE_DSP
+#define CYC_ABLATE_DSP 0
+#endif
+#ifndef CYC_ABLATE_PAN
+#define CYC_ABLATE_PAN 0
+#endif
+#ifndef CYC_ABLATE_ALL
+#define CYC_ABLATE_ALL 0
+#endif
 
 constexpr int K = CYC_K;
 constexpr int EXACT = CYC_EXACT;
@@ -441,6 +482,9 @@ constexpr bool FM = CYC_HAS_FM, CZ = CYC_HAS_CZ, CZM = CYC_HAS_CZM,
     NOISE = CYC_HAS_NOISE, FINISH = CYC_HAS_FINISH, DIRN = CYC_HAS_DIRECTION,
     DISC = CYC_HAS_DISC;
 constexpr bool CZC = CZ && !CZM;          // CZ scales constant over a block
+constexpr bool A_READS = CYC_ABLATE_READS, A_LOOKUP = CYC_ABLATE_LOOKUP,
+    A_CZ = CYC_ABLATE_CZ, A_DSP = CYC_ABLATE_DSP, A_PAN = CYC_ABLATE_PAN,
+    A_ALL = CYC_ABLATE_ALL;
 
 // the per-voice booleans of one row, one bit each
 enum : int {
@@ -616,11 +660,19 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             }
             const int fl = as_i(p[P_FLAGS]);
             const float amp = p[P_AMP];
+            if (A_ALL) {                     // stub: no voice body
+                cur[v] = amp;
+                mix_l = mix_l + amp;
+                mix_r = mix_r + amp;
+                continue;
+            }
             const bool active = (fl & F_LIVE) && !(FINISH && fin[v] != 0);
             // ---- mod read ----
             const float pinc = p[P_PINC];
             float g = 0.0f;
-            if (FM) g = read_src(as_i(p[P_FM]), cur, prev, v) * p[P_FM + 2];
+            if (FM)                          // stub: no fm read
+                g = (A_READS ? 0.0f : read_src(as_i(p[P_FM]), cur, prev, v))
+                    * p[P_FM + 2];
             // ---- increment ----
             float inc = pinc;
             if (FM && (fl & F_USE_FM)) inc = kfma(p[P_FM + 1], g, pinc);
@@ -641,7 +693,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             if (bad) ph2 = 0.0f;
             // ---- cz warp ----
             float idx_f = ph2;
-            if (CZ) {
+            if (CZ && !A_CZ) {
                 const int mode = as_i(p[P_CZ]);
                 const float tsz = p[P_CZ + 1];
                 CzScales s;
@@ -668,7 +720,8 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             idx = idx < 0 ? 0 : idx;
             const int clip = as_i(p[P_CLIP]);
             idx = idx > clip ? clip : idx;
-            float f = __ldg(a.table + (as_i(p[P_TOFF]) + idx));
+            float f = A_LOOKUP ? __int_as_float(idx)    // stub: no load
+                               : __ldg(a.table + (as_i(p[P_TOFF]) + idx));
             if (bad) f = 0.0f;
             bool adv = active;
             if (NOISE && (fl & F_NOISE)) {
@@ -683,7 +736,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             }
             // ---- dsp ----
             float s1 = f;
-            if (HOLD) {
+            if (HOLD && !A_DSP) {
                 const bool h_on = fl & F_HOLD;
                 const float hv2 = (h_on && hc[v] == 0) ? f : hv[v];
                 if (h_on) s1 = hv2;
@@ -693,12 +746,12 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
                 if (active) hv[v] = hv2;
             }
             float s2 = s1;
-            if (QUANT) {
+            if (QUANT && !A_DSP) {
                 const float iv = (float)(int)kfma(s1, p[P_QUANT], 0.5f);
                 if (fl & F_QUANT) s2 = iv * p[P_QUANT + 1];
             }
             float s3 = s2;
-            if (FLT) {
+            if (FLT && !A_DSP) {
                 float fv = p[P_FLT + 1] * x1[v];
                 fv = kfma(p[P_FLT], s2, fv);
                 fv = kfma(p[P_FLT + 2], x2[v], fv);
@@ -712,7 +765,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             }
             // ---- gain and smoother ----
             float final_g = amp;
-            if (ENV) {
+            if (ENV && !A_DSP) {
                 const int count = a.cbase + t;
                 const int env_relat = as_i(p[P_ENV + 1]);
                 const float tf = (float)(count - as_i(p[P_ENV]));
@@ -732,7 +785,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
                                                    : 1.0f;
                 final_g = amp * env;
             }
-            if (AM) {
+            if (AM && !A_DSP) {
                 float amr = read_src(as_i(p[P_AM]), cur, prev, v);
                 if (AM_SELF && (fl & F_AM_SELF)) amr = s3;
                 const float ampmod = (fl & F_AM_GE) ? amr * p[P_AM + 1]
@@ -740,7 +793,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
                 final_g = final_g * ampmod;
             }
             float final2 = final_g;
-            if (SM) {
+            if (SM && !A_DSP) {
                 const float sg2 = kfma(p[P_SM], final_g - sg[v], sg[v]);
                 const bool u_sm = fl & F_USE_SM;
                 if (u_sm) final2 = sg2;
@@ -750,7 +803,7 @@ __device__ __forceinline__ bool run_block(const CyclicArgs& a,
             cur[v] = sample_out;
             // ---- pan and mix ----
             float plv = pnl[v], prv = pnr[v];
-            if (PM) {
+            if (PM && !A_PAN) {
                 float pmr = read_src(as_i(p[P_PM]), cur, prev, v + 1);
                 if (PM_SELF && (fl & F_PM_SELF)) pmr = sample_out;
                 const bool pan_on = fl & F_PAN_ON;

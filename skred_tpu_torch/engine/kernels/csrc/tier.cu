@@ -168,14 +168,23 @@ __global__ void __launch_bounds__(128) tier_mix_kernel(const TierArgs a) {
     a.acc_r[i] = sr;
 }
 
+// Launches of tier_mix_kernel by this library since it was loaded: the
+// count a timing-ablation build's skipped mix is checked by
+// (tools/mega_ablate.py).
+static long long mix_launches = 0;
+
+extern "C" long long tier_mix_launch_count() { return mix_launches; }
+
 // The mix alone (both variants' launch calls run it after the tier
 // kernel when the call has a mix; chip_smoke.py also times it alone).
 extern "C" int tier_mix_launch(const TierArgs* args, void* stream) {
     const int threads = 128;
     const size_t cells = (size_t)args->n * args->b;
     const int blocks = (int)((cells + threads - 1) / threads);
-    if (blocks > 0)
+    if (blocks > 0) {
         tier_mix_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+        ++mix_launches;
+    }
     return (int)cudaGetLastError();
 }
 
@@ -482,8 +491,52 @@ extern "C" int tier_launch(const TierArgs* args, void* stream) {
 //   -DTIER_HAS_<FLAG>=<0|1> for the 12 flags of the feature tuple (FM,
 //   CZ, CZM, ENV, FLT, SM, HOLD, QUANT, AM, AM_SELF, FINISH, DIRECTION),
 //   -DTIER_CZ_MASK=<bit k: CZ mode k>, -DTIER_TS_POW2, -DTIER_EXACT,
-//   -DTIER_MIX and -DTIER_FOLD_<FM|CZ|AM> (each 0 or 1).
+//   -DTIER_MIX and -DTIER_FOLD_<FM|CZ|AM> (each 0 or 1); for timing
+//   only, -DTIER_ABLATE_<PHASE>=1 stubs a phase (below).
 // ======================================================================
+
+// Timing ablation (SKRED_MEGA_ABLATE; tier.py tier_key adds a define per
+// phase the key compiles in): each stub takes the place of one phase of
+// the JAX kernel's, as kernels.py:1872-1924 stubs them, so that a phase's
+// share of the kernel's time is the difference to the full build.  A
+// render under a stub is invalid by design.
+//   PHASE1  the walk: the lane's start phase at every sample, a live
+//           lane alive at every sample (count n), no FM read
+//   PHASE2  no CZ warp, no index clip, no dead mask, no cz read: the
+//           index is the lane's base offset
+//   LOOKUP  no table load: f = the index's bits as a float (the JAX
+//           stub's (float)index * 1e-9 is an I2F and a multiply, which
+//           cost the card as much as the load and its address: 107.75
+//           SASS a sample step against the full 106.88, at tier 1 of
+//           stress64; the bits keep the dependence at no cost)
+//   GAIN    no envelope, no am read and product: base gain = amp
+//   PHASE4  no S&H, quantizer, biquad or smoother: out = f (the gain is
+//           kept live, f + gain * 0), the filter states as they came in
+//   MIX     tier_keyed_launch does not launch tier_mix_kernel: the
+//           accumulators stay as they are
+// Each stub keeps a data dependence on what it replaces, as the JAX
+// stubs do, and a stub whose value would be the same at every sample goes
+// through opaque(), which the compilers cannot fold: otherwise nvcc would
+// hoist the phases after it out of the sample loop, and the difference
+// would count their time as the stub's.
+#ifndef TIER_ABLATE_PHASE1
+#define TIER_ABLATE_PHASE1 0
+#endif
+#ifndef TIER_ABLATE_PHASE2
+#define TIER_ABLATE_PHASE2 0
+#endif
+#ifndef TIER_ABLATE_LOOKUP
+#define TIER_ABLATE_LOOKUP 0
+#endif
+#ifndef TIER_ABLATE_GAIN
+#define TIER_ABLATE_GAIN 0
+#endif
+#ifndef TIER_ABLATE_PHASE4
+#define TIER_ABLATE_PHASE4 0
+#endif
+#ifndef TIER_ABLATE_MIX
+#define TIER_ABLATE_MIX 0
+#endif
 
 constexpr bool FM = TIER_HAS_FM, CZ = TIER_HAS_CZ, CZM = CZ && TIER_HAS_CZM,
     ENV = TIER_HAS_ENV, FLT = TIER_HAS_FLT, SM = TIER_HAS_SM,
@@ -497,6 +550,42 @@ constexpr bool FOLD_FM = FM && TIER_FOLD_FM, FOLD_CZ = CZM && TIER_FOLD_CZ,
     FOLD_AM = AM && TIER_FOLD_AM;
 constexpr bool HOIST_AM = AM && !AM_SELF;
 constexpr bool HOIST_GAIN = ENV || HOIST_AM;
+constexpr bool A_WALK = TIER_ABLATE_PHASE1, A_WARP = TIER_ABLATE_PHASE2,
+    A_LOOKUP = TIER_ABLATE_LOOKUP, A_GAIN = TIER_ABLATE_GAIN && HOIST_GAIN,
+    A_FILT = TIER_ABLATE_PHASE4, A_MIX = TIER_ABLATE_MIX;
+// the modulator reads a build makes: the fm read belongs to the walk, the
+// cz read to the warp, the am read to the gain (or, with am self-reads,
+// to phase 4)
+constexpr bool FM_READ = FM && !A_WALK, CZM_READ = CZM && !A_WARP,
+    AM_READ = AM && !(HOIST_AM ? A_GAIN : A_FILT);
+
+// x at sample t of an n-sample block (t < n always holds), through a
+// select the compilers cannot evaluate: a stub's per-sample value
+// (a host build of this source, a test's shim, takes the plain select)
+__device__ __forceinline__ float opaque(float x, int t, int n) {
+#ifdef __CUDA_ARCH__
+    float y;
+    asm("{\n\t.reg .pred p;\n\tsetp.lt.s32 p, %2, %3;\n\t"
+        "selp.f32 %0, %1, 0f00000000, p;\n\t}"
+        : "=f"(y) : "f"(x), "r"(t), "r"(n));
+    return y;
+#else
+    return t < n ? x : 0.0f;
+#endif
+}
+
+__device__ __forceinline__ int opaque(int x, int t, int n) {
+#ifdef __CUDA_ARCH__
+    int y;
+    asm("{\n\t.reg .pred p;\n\tsetp.lt.s32 p, %2, %3;\n\t"
+        "selp.b32 %0, %1, 0, p;\n\t}"
+        : "=r"(y) : "r"(x), "r"(t), "r"(n));
+    return y;
+#else
+    return t < n ? x : 0;
+#endif
+}
+
 // Samples a thread walks per chunk.  Live across a chunk: T table
 // samples of the chunk behind, T indices of this one and T reads of
 // each modulator stream.  At 8, stress64's tier-1 key fits 128
@@ -653,41 +742,53 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
 #pragma unroll
         for (int j = 0; j < T; ++j) {
             if (!FULL && j >= rem) break;
-            float inc_t;
-            if (FM) {
-                const float g3 = s_fm.at(j) * fmdep;
-                inc_t = use_fm ? kfma(mis, g3, pinc) : pinc;
-                if (dirneg) inc_t = -inc_t;
-            } else {
-                inc_t = inc_const;
-            }
-            const float ph = ph_c + inc_t;
-            const bool bad = !isfinite(ph);
-            const bool over = ph >= hi;
-            const bool under = ph < lo;
-            const float r = wrap1(ph - lo, L);
-            const float wrap_over = lo + r;
-            const float wrap_under = hi + r;
             float ph2;
-            if (FINISH)
-                ph2 = over ? (osn ? hi_os : wrap_over)
-                           : (under ? (osn ? lo : wrap_under) : ph);
-            else
-                ph2 = over ? wrap_over : (under ? wrap_under : ph);
-            if (bad) ph2 = 0.0f;
             bool alive_t;
-            if (FINISH) {
-                const bool fin_new = (bad && one_shot)
-                                     || ((over || under) && osn);
-                const bool fin_b = fin_c != 0;
-                const bool step_on = adv && !fin_b;
-                alive_t = act && !fin_b;
-                if (step_on) ph_c = ph2;
-                if (step_on && fin_new) fin_c = 1;
-                cnt += alive_t ? 1 : 0;
-            } else {
+            if (A_WALK) {
+                // stub: a frozen phase (kernels.py:1878-1882)
+                ph2 = opaque(ph_c, t0 + j, n);
                 alive_t = act;
-                if (adv) ph_c = ph2;
+            } else {
+                float inc_t;
+                if (FM) {
+                    const float g3 = s_fm.at(j) * fmdep;
+                    inc_t = use_fm ? kfma(mis, g3, pinc) : pinc;
+                    if (dirneg) inc_t = -inc_t;
+                } else {
+                    inc_t = inc_const;
+                }
+                const float ph = ph_c + inc_t;
+                const bool bad = !isfinite(ph);
+                const bool over = ph >= hi;
+                const bool under = ph < lo;
+                const float r = wrap1(ph - lo, L);
+                const float wrap_over = lo + r;
+                const float wrap_under = hi + r;
+                if (FINISH)
+                    ph2 = over ? (osn ? hi_os : wrap_over)
+                               : (under ? (osn ? lo : wrap_under) : ph);
+                else
+                    ph2 = over ? wrap_over : (under ? wrap_under : ph);
+                if (bad) ph2 = 0.0f;
+                if (FINISH) {
+                    const bool fin_new = (bad && one_shot)
+                                         || ((over || under) && osn);
+                    const bool fin_b = fin_c != 0;
+                    const bool step_on = adv && !fin_b;
+                    alive_t = act && !fin_b;
+                    if (step_on) ph_c = ph2;
+                    if (step_on && fin_new) fin_c = 1;
+                    cnt += alive_t ? 1 : 0;
+                } else {
+                    alive_t = act;
+                    if (adv) ph_c = ph2;
+                }
+            }
+            if (A_WARP) {
+                // stub: the lane's base offset (kernels.py:1887-1888)
+                idxv[j] = opaque(base, t0 + j, n);
+                alive[j] = alive_t;
+                continue;
             }
             // ---- phase 2: CZ warp + index clip + dead masking ----
             float idx_f = ph2;
@@ -713,13 +814,15 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
             idxv[j] = base + idx;
             alive[j] = alive_t;
         }
-        if (FM) s_fm.next(t0, n);
-        if (CZM) s_cz.next(t0, n);
+        if (FM_READ) s_fm.next(t0, n);
+        if (CZM_READ) s_cz.next(t0, n);
         // ---- phase 3: the table loads ----
 #pragma unroll
         for (int j = 0; j < T; ++j) {
             if (!FULL && j >= rem) break;
-            fv[j] = __ldg(a.table + idxv[j]);
+            // stub: no table load (kernels.py:1892-1893)
+            fv[j] = A_LOOKUP ? __int_as_float(idxv[j])
+                             : __ldg(a.table + idxv[j]);
         }
     };
 
@@ -734,9 +837,10 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
             if (!FULL && j >= rem) break;
             const bool alive_t = live[j];
             float amod_t = 1.0f;
-            if (AM) amod_t = am_ge ? s_am.at(j) * amdep_a : 1.0f;
+            if (AM_READ) amod_t = am_ge ? s_am.at(j) * amdep_a : 1.0f;
             float base_gain = amp;
-            if (HOIST_GAIN) {
+            // stub: no envelope or am precompute (kernels.py:1672)
+            if (HOIST_GAIN && !A_GAIN) {
                 float g = amp;
                 if (ENV) {
                     const int tpos = a.cbase + t0 + j;
@@ -755,6 +859,14 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
                 }
                 if (HOIST_AM) g = g * amod_t;
                 base_gain = g;
+            }
+            if (A_FILT) {
+                // stub: raw f out, the states as they came in
+                // (kernels.py:1897-1899)
+                const float o = f[j] + base_gain * 0.0f;
+                out[(size_t)(t0 + j) * ostride] = o;
+                if (MIX) o_last = o;
+                continue;
             }
             const float f_t = alive_t ? f[j] : 0.0f;
             float s1 = f_t;
@@ -798,14 +910,14 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
             out[(size_t)(t0 + j) * ostride] = o;
             if (MIX) o_last = o;
         }
-        if (AM) s_am.next(t0, n);
+        if (AM_READ) s_am.next(t0, n);
     };
 
     using Full = std::true_type;
     using Part = std::false_type;
-    if (FM) s_fm.fetch(0, n);
-    if (CZM) s_cz.fetch(0, n);
-    if (AM) s_am.fetch(0, n);
+    if (FM_READ) s_fm.fetch(0, n);
+    if (CZM_READ) s_cz.fetch(0, n);
+    if (AM_READ) s_am.fetch(0, n);
     if (T <= n) walk(0, Full());
     else walk(0, Part());
     // Software-pipelined: the walk of the next chunk, then phases 3.5-4
@@ -832,7 +944,7 @@ __device__ __forceinline__ bool run_lane(const TierArgs& a, int m) {
     if (MIX) a.out_last[m] = o_last;
 
     a.phase_e[m] = ph_c;
-    a.cnt_e[m] = FINISH ? cnt : (act ? n : 0);
+    a.cnt_e[m] = FINISH && !A_WALK ? cnt : (act ? n : 0);
     if (FINISH) a.finished_e[m] = fin_c;
     if (FLT) {
         a.x1_e[m] = x1; a.x2_e[m] = x2; a.y1_e[m] = y1; a.y2_e[m] = y2;
@@ -876,7 +988,7 @@ extern "C" int tier_keyed_launch(const TierArgs* a, void* stream) {
         tier_keyed_kernel<<<blocks, TIER_THREADS, 0,
                             (cudaStream_t)stream>>>(*a);
     const int rc = (int)cudaGetLastError();
-    if (rc != 0 || !MIX) return rc;
+    if (rc != 0 || !MIX || A_MIX) return rc;
     return tier_mix_launch(a, stream);
 }
 

@@ -9,6 +9,7 @@ launches on the device's current stream.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -46,3 +47,24 @@ def launch(name: str, args: ctypes.Structure, device, key=(),
         raise RuntimeError(f"{entry} failed: "
                            + ("the arguments are not the build's key"
                               if rc == -1 else f"CUDA error {rc}"))
+
+
+def ablate_set(names, vocab, what) -> frozenset:
+    """A timing-ablation set (``SKRED_MEGA_ABLATE``, ``SKRED_CYC_ABLATE``):
+    ``names`` as a comma list or an iterable of phase names, checked
+    against ``vocab``; an unknown name raises ValueError naming the
+    vocabulary."""
+    if isinstance(names, str):
+        names = names.split(",")
+    out = frozenset(x for x in names if x)
+    bad = sorted(out - set(vocab))
+    if bad:
+        raise ValueError(f"{what}: no phase {', '.join(bad)}; the phases "
+                         f"are {', '.join(vocab)}")
+    return out
+
+
+def ablate_env(var, vocab) -> frozenset:
+    """The ablation set the environment variable ``var`` names (empty
+    when unset), read once by each kernel module at import."""
+    return ablate_set(os.environ.get(var, ""), vocab, var)

@@ -24,6 +24,15 @@ launches one of ``csrc/cyclic.cu``'s two variants or raises:
 compiled in; one library per ``fixed_key``, built at first use) for ``k``
 up to ``FIXED_K_MAX``, ``cyclic_general`` (all of them run-time
 arguments) above it.
+
+Timing ablation (``CYC_ABLATE``): the port of the JAX package's
+``SKRED_CYC_ABLATE`` (``skred_tpu/engine/cyclic.py:66-72``), a comma list
+over ``CYC_PHASES``, read once at import.  Each named phase that a key
+compiles in (``cyclic_phases``) adds one ``CYC_ABLATE_<PHASE>=1`` define
+to the keyed build, which stubs it (``csrc/cyclic.cu``); the empty set
+adds nothing.  An ablated render is invalid by design.  The plain version
+and the general variant have no stubs: ``cyclic_block`` refuses a
+nonempty set on a CPU tensor or for the general variant.
 """
 
 from __future__ import annotations
@@ -38,6 +47,10 @@ from skred_tpu_torch.engine.numerics import (cz_scales, cz_warp_k, f32,
 
 F32 = torch.float32
 I32 = torch.int32
+
+# the phases SKRED_CYC_ABLATE may name, in the order of their defines
+CYC_PHASES = ("reads", "lookup", "cz", "dsp", "pan", "all")
+CYC_ABLATE = cuda_call.ablate_env("SKRED_CYC_ABLATE", CYC_PHASES)
 
 _FLAG_NAMES = ("fm", "cz", "czm", "am", "am_self", "pm", "pm_self", "env",
                "flt", "sm", "hold", "quant", "noise", "finish", "direction",
@@ -484,16 +497,41 @@ def _pack_args(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
 FIXED_K_MAX = 8
 
 
-def fixed_key(feat, k, exact=True):
+def cyclic_phases(feat) -> tuple:
+    """The ``CYC_PHASES`` a keyed build of ``feat`` compiles in: the fm
+    modulator read with fm (the cz-mod read belongs to the CZ warp, the
+    am read to the pipeline and the pan-mod read to the pan, each stubbed
+    with its phase alone); the lookup and the voice body always; the CZ
+    warp with cz; the hold / quantizer / filter / envelope / am /
+    smoother pipeline with any of those; the per-sample pan with
+    pan-mod."""
+    fl = _flags(feat)
+    have = {"reads": fl["fm"], "lookup": True, "cz": fl["cz"],
+            "dsp": any(fl[x] for x in ("hold", "quant", "flt", "env", "am",
+                                       "sm")),
+            "pan": fl["pm"], "all": True}
+    return tuple(p for p in CYC_PHASES if have[p])
+
+
+def fixed_key(feat, k, exact=True, ablate=CYC_ABLATE):
     """The build key (``-D`` defines) of the keyed variant for ``feat``
     at ``k`` voices: one library per key, as the JAX package compiles
     one kernel per (features, CZ modes, k).  Deterministic; the CZ mode
-    mask counts only where CZ is on."""
+    mask counts only where CZ is on.  ``ablate`` (default
+    ``CYC_ABLATE``; a comma string or a collection): the phases to stub,
+    one ``CYC_ABLATE_<PHASE>=1`` define each, in ``CYC_PHASES`` order,
+    for those the build compiles in (``cyclic_phases``); none for the
+    empty set."""
     fl = _flags(feat)
-    return ((f"CYC_K={int(k)}", f"CYC_EXACT={int(bool(exact))}",
-             f"CYC_CZ_MASK={_cz_mask(fl) if fl['cz'] else 0}")
-            + tuple(f"CYC_HAS_{name.upper()}={int(fl[name])}"
-                    for name in _FLAG_NAMES))
+    key = ((f"CYC_K={int(k)}", f"CYC_EXACT={int(bool(exact))}",
+            f"CYC_CZ_MASK={_cz_mask(fl) if fl['cz'] else 0}")
+           + tuple(f"CYC_HAS_{name.upper()}={int(fl[name])}"
+                   for name in _FLAG_NAMES))
+    if not ablate:
+        return key
+    ablate = cuda_call.ablate_set(ablate, CYC_PHASES, "cyclic")
+    return key + tuple(f"CYC_ABLATE_{p.upper()}=1"
+                       for p in cyclic_phases(feat) if p in ablate)
 
 
 def variant_for(k):
@@ -530,10 +568,19 @@ def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
     inside the buffer (the cyclic renderer checks once per render, on the
     host).  ``variant``:
     None takes ``variant_for(k)``; "fixed" or "general" names one (the
-    tests and chip_smoke.py hold both to the plain version).  Returns
+    tests and chip_smoke.py hold both to the plain version).  A nonempty
+    ``CYC_ABLATE`` stubs the keyed variant's phases (timing only); the
+    plain version and the general variant refuse it.  Returns
     ``(out_l [B, n], out_r [B, n], new_states)``; new_states holds the
     states that ``feat`` lets the block change, and vol_gain."""
     dev = vf.device
+    if CYC_ABLATE and (dev.type == "cpu"
+                       or (variant or variant_for(k)) == "general"):
+        raise ValueError(
+            f"cyclic: ablation {sorted(CYC_ABLATE)} stubs phases of the "
+            f"keyed kernel only; the "
+            + ("plain version (a CPU tensor)" if dev.type == "cpu"
+               else "general variant") + " has no stubs")
     if dev.type == "cpu":
         return cyclic_block_plain(table, table_off, cbase, noise_blk, vecs,
                                   states, vf, feat, k, n, exact)
@@ -549,7 +596,7 @@ def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
         table, table_off, cbase, noise_blk, vecs, states, vf, feat, k, n,
         exact)
     if variant == "fixed":
-        cyclic_fixed(args, fixed_key(feat, k, exact), dev)
+        cyclic_fixed(args, fixed_key(feat, k, exact, CYC_ABLATE), dev)
     else:
         cyclic_general(args, dev)
     cyclic_block.launches += 1

@@ -36,6 +36,17 @@ run-time flags, runs only when asked for (``variant="general"``).
 
 ``feat`` is the JAX kernel's 14-tuple (fm, cz, czm, env, flt, sm, hold,
 quant, am, am_self, finish, direction, cz_modes, ts_pow2).
+
+Timing ablation (``MEGA_ABLATE``): the port of the JAX package's
+``SKRED_MEGA_ABLATE`` (``skred_tpu/engine/kernels.py:245``), a comma list
+over ``MEGA_PHASES``, read once at import.  Each named phase that a key
+compiles in (``tier_phases``) adds one ``TIER_ABLATE_<PHASE>=1`` define to
+the keyed build, which stubs that phase (``csrc/tier.cu``); the empty set
+adds nothing, so every key is then the same as without the switch.  An
+ablated render is invalid by design: it is for timing a phase's share
+(``tools/mega_ablate.py``).  The plain version and the general variant
+have no stubs, so ``tier`` refuses a nonempty set on a CPU tensor or with
+``variant="general"``, as the JAX package's XLA branch never reads it.
 """
 
 from __future__ import annotations
@@ -53,6 +64,10 @@ from skred_tpu_torch.engine.numerics import (cz_scales, cz_warp_coeffs,
 
 F32 = torch.float32
 I32 = torch.int32
+
+# the phases SKRED_MEGA_ABLATE may name, in the order of their defines
+MEGA_PHASES = ("phase1", "phase2", "lookup", "gain", "phase4", "mix")
+MEGA_ABLATE = cuda_call.ablate_env("SKRED_MEGA_ABLATE", MEGA_PHASES)
 
 # per-lane vectors by feature: (key, dtype)
 _VEC_BASE = [("base_off", I32), ("clip_i", I32), ("adv", I32), ("act", I32),
@@ -571,24 +586,44 @@ def _strided(name, x, dev, n):
         raise ValueError(f"tier: {name} needs unit stride along lanes")
 
 
+def tier_phases(feat, mix=False) -> tuple:
+    """The ``MEGA_PHASES`` a keyed build of ``feat`` compiles in, those a
+    stub can take out: the walk, the warp and clip, the lookup and phase
+    4 always; the gain precompute with an envelope or an am stream that
+    no lane self-reads; the mix with ``mix``."""
+    fl = _flags(feat)
+    gain = fl["env"] or (fl["am"] and not fl["am_self"])
+    return tuple(p for p in MEGA_PHASES
+                 if (p != "gain" or gain) and (p != "mix" or mix))
+
+
 @functools.lru_cache(maxsize=None)
-def tier_key(feat, exact=True, mix=False, folded=()):
+def tier_key(feat, exact=True, mix=False, folded=(), ablate=MEGA_ABLATE):
     """The build key (``-D`` defines) of the keyed variant: one library
     per (feature tuple, arithmetic mode, mix, folded streams), as the JAX
     package compiles one kernel per feature tuple.  Deterministic; the CZ
     mode mask counts only where CZ is on, and a folded stream only where
-    the feature set has it."""
+    the feature set has it.  ``ablate`` (default ``MEGA_ABLATE``; a comma
+    string or a frozenset): the phases to stub, one
+    ``TIER_ABLATE_<PHASE>=1`` define each, in ``MEGA_PHASES`` order, for
+    those the build compiles in (``tier_phases``); none for the empty
+    set."""
     fl = _flags(feat)
     folded = _folded(fl, Fold(None, None, 0, tuple(folded)))
     mask = sum(1 << k for k in fl["cz_modes"] if 1 <= k <= 7) \
         if fl["cz"] else 0
-    return (("TIER_KEYED=1", f"TIER_EXACT={int(bool(exact))}",
-             f"TIER_CZ_MASK={mask}", f"TIER_TS_POW2={int(fl['ts_pow2'])}",
-             f"TIER_MIX={int(bool(mix))}")
-            + tuple(f"TIER_FOLD_{k.upper()}={int(k in folded)}"
-                    for k in ("fm", "cz", "am"))
-            + tuple(f"TIER_HAS_{k.upper()}={int(fl[k])}"
-                    for k in _FEAT_NAMES))
+    key = (("TIER_KEYED=1", f"TIER_EXACT={int(bool(exact))}",
+            f"TIER_CZ_MASK={mask}", f"TIER_TS_POW2={int(fl['ts_pow2'])}",
+            f"TIER_MIX={int(bool(mix))}")
+           + tuple(f"TIER_FOLD_{k.upper()}={int(k in folded)}"
+                   for k in ("fm", "cz", "am"))
+           + tuple(f"TIER_HAS_{k.upper()}={int(fl[k])}"
+                   for k in _FEAT_NAMES))
+    if not ablate:
+        return key
+    ablate = cuda_call.ablate_set(ablate, MEGA_PHASES, "tier")
+    return key + tuple(f"TIER_ABLATE_{p.upper()}=1"
+                       for p in tier_phases(feat, mix) if p in ablate)
 
 
 def tier_keyed(args, key, dev):
@@ -628,11 +663,19 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
     bank of later tiers; it must not overlap the bank's read columns.
     variant: None or "keyed" launches the keyed variant, "general" the
     general one (the tests and chip_smoke.py hold both to the plain
-    version).
+    version).  A nonempty ``MEGA_ABLATE`` stubs the keyed variant's
+    phases (timing only); the other two refuse it.
 
     Returns (out [N, M], end-state dict incl. cnt)."""
     kw = dict(feat=feat, exact=exact, n=n, b=b, mixw=mixw, acc=acc,
               fold=fold, out=out)
+    if MEGA_ABLATE and (table.device.type == "cpu"
+                        or variant == "general"):
+        raise ValueError(
+            f"tier: ablation {sorted(MEGA_ABLATE)} stubs phases of the keyed "
+            f"kernel only; the "
+            + ("plain version (a CPU tensor)" if table.device.type == "cpu"
+               else "general variant") + " has no stubs")
     if table.device.type == "cpu":
         return tier_plain(table, cbase, inc, dm, amod, vecs, states, **kw)
     if table.device.type != "cuda":
@@ -645,8 +688,8 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
         tier_general(args, table.device)
     else:
         folded = _folded(_flags(feat), fold)
-        tier_keyed(args, tier_key(feat, exact, mixw is not None, folded),
-                   table.device)
+        tier_keyed(args, tier_key(feat, exact, mixw is not None, folded,
+                                  MEGA_ABLATE), table.device)
     tier.launches += 1
     return out, outs
 

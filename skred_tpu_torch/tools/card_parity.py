@@ -35,7 +35,8 @@ Prints one ``OK``/``FAIL`` line a script (max |error| in dB of full
 scale, as ``tpu_parity.py`` reports it), then the worst eight; writes
 the record (``TPU_PARITY.json``'s keys, the card's name and power limit)
 to ``build/card_parity_torch.json``.  Exits 1 when the worst script is
-above -60 dB, 2 without a card (unless ``--device cpu``).
+above -60 dB, 2 without a card (unless ``--device cpu``) or under a
+timing-ablation switch (``SKRED_MEGA_ABLATE``, ``SKRED_CYC_ABLATE``).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from skred_tpu_torch.tools.card import card_info, require
+from skred_tpu_torch.tools.card import card_info, refuse_ablated, require
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 RECORD = ROOT / "build" / "card_parity_torch.json"
@@ -156,9 +157,12 @@ def card_parity(seconds: float = 3.0, scripts=None, bucketed: bool = False,
                 max_rows=None, record=None) -> dict:
     """Render, compare with the compat engine, print, write the record
     to ``record`` (default ``RECORD``) and return it.  ``max_rows`` cuts
-    every bucket's rows (tests)."""
+    every bucket's rows (tests).  Refuses to start under a timing-ablation
+    switch (``tools/card.py``)."""
     from skred_tpu_torch.assets.bank import WaveBank
     from skred_tpu_torch.engine.render import render_timeline
+
+    refuse_ablated("card_parity")
     from skred_tpu_torch.parallel.buckets import SCRIPTS, compile_one
 
     if not scripts or list(scripts) == ["all"]:
@@ -220,6 +224,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fast", action="store_true")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
+    refuse_ablated("card_parity")
     require(a.device, "card_parity")
     seconds = float(a.args[0]) if a.args else 3.0
     rec = card_parity(seconds, a.args[1:], a.bucketed, a.replicas, a.fast,

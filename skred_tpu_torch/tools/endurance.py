@@ -26,7 +26,7 @@ smaller output.  It refuses an oracle minted for another script, length
 or window, writes ``build/endurance_torch.json`` (``ENDURANCE.json``'s
 keys, the device memory and the card's name and power limit) and exits
 1 when the worst window is above -60 dB, 2 without a card (unless
-``--device cpu``).
+``--device cpu``) or under a timing-ablation switch.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ import time
 import numpy as np
 import torch
 
-from skred_tpu_torch.tools.card import card_info, require, sync
+from skred_tpu_torch.tools.card import (card_info, refuse_ablated, require,
+                                        sync)
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 ORACLE = ROOT / "build" / "endurance_oracle_torch.npz"
@@ -90,6 +91,8 @@ def oracle(script="stress64.sk", seconds: float = 300.0, win: int = WIN,
     """The compat engine's windows of the script at one row, saved to
     ``path`` (default ``ORACLE``); returns them."""
     from skred_tpu_torch.engine.render import render_chunks, stacked_inputs
+
+    refuse_ablated("endurance")
     from skred_tpu_torch.host.timeline import noise_stream
     from skred_tpu_torch.parallel.batch import stack_timelines
 
@@ -127,6 +130,7 @@ def run(script="stress64.sk", seconds: float = 300.0, rows: int = 1024,
     from skred_tpu_torch.engine.fused import render_fused_stream
     from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
 
+    refuse_ablated("endurance")
     name = pathlib.Path(script).name
     g = np.load(ORACLE if oracle_path is None else oracle_path)
     minted = (str(g["script"]), float(g["seconds"]), int(g["window"]))
@@ -202,6 +206,7 @@ def main(argv=None) -> int:
     ap.add_argument("--window", type=int, default=WIN)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
+    refuse_ablated("endurance")
     require(a.device, "endurance")
     if a.mode == "oracle":
         oracle(a.script, a.seconds, a.window, a.device)

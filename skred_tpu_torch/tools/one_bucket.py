@@ -12,7 +12,11 @@ passes over the whole chunks, with ``torch.cuda.synchronize()`` before
 each clock read.  Prints the batch, the tiers, the build seconds, the
 wall and x realtime (audio credited per whole 172-block chunk, as the
 bench credits it), with the card's name and power limit.  Exits 2
-without a card (unless ``--device cpu``).
+without a card (unless ``--device cpu``).  Under a nonempty timing-ablation
+set (``SKRED_MEGA_ABLATE``, ``SKRED_CYC_ABLATE``; ``tools/mega_ablate.py``
+drives it so) the keyed kernels build with those phases stubbed, and
+every line it prints starts with ``ABLATED <set>``: the render is
+invalid, only its wall means something.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import argparse
 import sys
 import time
 
-from skred_tpu_torch.tools.card import card_info, require, sync
+from skred_tpu_torch.tools.card import (ablated_tag, card_info, require,
+                                        sync)
 
 CHUNK = 172                      # bench_torch.py's chunk
 
@@ -46,6 +51,8 @@ def one_bucket(script="stress64.sk", seconds: float = 10.0,
                          f"{CHUNK}-block chunk")
     audio = st.batch * whole * CHUNK * st.block / 44100.0
     card = card_info(device)
+    tag = ablated_tag()
+    tag = tag + " " if tag else ""
     out = []
     for mode in modes:
         if mode not in ("exact", "fast"):
@@ -73,8 +80,8 @@ def one_bucket(script="stress64.sk", seconds: float = 10.0,
         rec = {"script": bk.scripts[0], "mode": mode, "kind": bk.kind,
                "batch": st.batch, "tiers": list(st.tiers or ()),
                "blocks": whole * CHUNK, "build_s": build_s, "wall_s": wall,
-               "x_rt": audio / wall, "card": card}
-        print(f"{rec['script']} {mode}: {bk.kind} batch {st.batch} tiers "
+               "x_rt": audio / wall, "card": card, "ablated": tag.strip()}
+        print(f"{tag}{rec['script']} {mode}: {bk.kind} batch {st.batch} tiers "
               f"{rec['tiers']} build {build_s:.3f} s wall {wall:.4f} s "
               f"x_rt {rec['x_rt']:.1f} on {card['name']} (power limit "
               f"{card['power_limit']})", flush=True)

@@ -10,6 +10,10 @@ printed first.  A loop is a backward branch's span; each local access
 is listed with the spans (in instructions) of the loops that hold it,
 innermost first, or "outside every loop".  Needs the CUDA toolkit
 (nvcc, nvdisasm), not a card.
+
+``sass_functions`` and ``sass_loop`` read a built library's SASS
+(cuobjdump) for the instruction counts a sample step that chip_smoke.py
+and ``tools/mega_ablate.py`` print.
 """
 
 from __future__ import annotations
@@ -46,6 +50,44 @@ def compile_cubin(src: pathlib.Path, defines=()) -> tuple:
     if res.returncode:
         raise RuntimeError("nvcc failed:\n" + res.stderr)
     return cubin, res.stdout + res.stderr
+
+
+def sass_functions(so) -> dict:
+    """{kernel name: [(address, instruction)]} of a library, by
+    cuobjdump -sass."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s+Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        out[name] = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+    return out
+
+
+def sass_loop(so, kernel, samples, first=None) -> dict:
+    """Instructions of ``kernel``'s sample loop per sample step.  With
+    ``samples`` > 1 (the keyed build's chunks) the first loop of at least
+    4 x ``samples`` instructions: the fast pass's steady chunk loop;
+    ``first``: the first loop of at least that many instructions (the
+    keyed cyclic build's frame loop, a frame a pass).  Otherwise (the
+    general build) its largest loop, counted statically, every run-time
+    branch included."""
+    funcs = sass_functions(so)
+    name = next(nm for nm in funcs if kernel in nm)
+    ins = funcs[name]
+    loops = []
+    for a, t in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            lo = int(m.group(1), 16)
+            loops.append((lo, a, sum(1 for aa, _ in ins if lo <= aa <= a)))
+    least = first if first is not None \
+        else 4 * samples if samples > 1 else None
+    big = [lp for lp in loops if least is not None and lp[2] >= least]
+    lo, hi, count = min(big) if big else max(loops, key=lambda lp: lp[2])
+    return dict(kernel=name, instructions=len(ins), loop=count,
+                per_sample=count / samples)
 
 
 def local_accesses(listing: str) -> list:
