@@ -23,7 +23,10 @@ it:
                   the table does not hold fails the run: every bound
                   would be a guess)
   2. build        the native host compiler (g++, csrc/skred_host.cpp into
-                  build/host/); nvcc for every csrc/*.cu, for the cyclic kernel's keys
+                  build/host/); nvcc for every csrc/*.cu but compat.cu
+                  (built under a key only: the compat phase's, batch's and
+                  repair's renders and the stamp build), for the cyclic
+                  kernel's keys
                   (fb1-fb5 as the main path and the kernel phase render
                   them, and the all-features script), for the tier
                   kernel's keys (stress64's tiers with mix and fold on and
@@ -118,7 +121,9 @@ it:
   9. cyclic short fb2, and fb4 with its waits cut to 0.012 s (a segment
                   per block), at 8 rows x 4 blocks, as in 5
  10. compat       the compat engine (engine/render.py, one CUDA block of
-                  64 threads a row, csrc/compat.cu): the kernel against
+                  64 threads a row, csrc/compat.cu, a library per key):
+                  each key it renders under with its build seconds; the
+                  kernel against
                   its plain version on the card, bit for bit, on 8 rows x
                   2 blocks of stress64, noise64, fb2, fb4 cut to a segment
                   a block and a voice copy ('>' of a voice with sample &
@@ -130,9 +135,10 @@ it:
                   10 s through render_stream_device (172-block chunks) at
                   1 row, 1 row with capture and 1024 rows, each with its
                   launches read around it (the compat kernel alone, a
-                  launch a chunk), ms a block, x realtime and two
-                  estimates a sample step, neither a floor (static SASS
-                  issue, a chain counted from the source); the plain
+                  launch a chunk), ms a block, x realtime, a static
+                  SASS issue estimate a sample step and the stamped chain
+                  (tools/compat_stamps.py's stage cycles at 1 and 1024
+                  rows, logged stage by stage); the plain
                   version and the bound on the 1024-row run's first
                   block, the kernel held to the plain version bit for bit
                   on that block and on blocks 172-173 from its own carry;
@@ -1865,20 +1871,9 @@ VOICE_COPY = ["v0 w0 f220 a3 h5 J900 K5000 Q25", "v1 w1 f110 a2 F0,0.5",
 # tests/test_recorder.py's recording, its wait cut to 0.02 s
 RECORDER = ["v0 w0 f440 a4 r1", "v1 w4 f220 a2 r1", "v2 w2 f2 a1 m1",
             "<1", "~0.02 *"]
-# The compat kernel's serial chain a sample, an estimate counted from the
-# source (compat.cu voice_pass), not read from the SASS: a pass of a
-# stress64 voice is ~32 dependent FP32/integer operations (the modulator
-# read's product, the FM fma, the phase add, the wrap's compares and
-# select, the CZ phase divide's ~6 and its curve, the index conversion
-# and clip, the quantizer's 4, the biquad's 4 fmas, the gain, the pan) at
-# OP_CYCLES, a shared-memory read and an L1 table load (~60 cycles), and
-# its barrier (~40); a sample is the passes, the barrier before them and
-# the 10-step shuffle tree with its barrier (~230 cycles).  Divergence
-# (the warp's voices on different CZ curves or envelope branches) runs
-# paths one after another and is not in this estimate.
-COMPAT_PASS_OPS = 32
-COMPAT_PASS_WAIT = 100
-COMPAT_SAMPLE_WAIT = 230
+# the compat kernel's stamp build (tools/compat_stamps.py) renders this
+# many blocks after a warm one
+STAMP_BLOCKS = 4
 
 
 def compat_batch(rows, seconds=0.0464):
@@ -1900,18 +1895,49 @@ def compat_batch(rows, seconds=0.0464):
     return stack_timelines([tls[i % len(tls)] for i in range(rows)])
 
 
-def compat_sass():
-    """Instructions of compat_kernel<no capture>'s sample loop
-    (static: every run-time branch, the CZ curves and the envelope's
-    arms included once; not what a warp issues, which depends on the
-    arms its voices take): the second largest loop, inside the block
-    loop."""
+def compat_keys():
+    """{label: key} of the compat kernel's builds that the compat, batch
+    and repair phases launch, and the stamp build, so that the build
+    phase makes them with the rest, in parallel (a key that another
+    phase needs builds at its first use)."""
+    from skred_tpu_torch.engine import render as cr
+    from skred_tpu_torch.engine.kernels import compat as K
+    from skred_tpu_torch.parallel.batch import stack_timelines
+
+    keys = {}
+
+    def add(label, st, captures=(False, True), passes=None):
+        inp = cr.stacked_inputs(st, "cpu")
+        for cap in captures:
+            keys[label + (" capture" if cap else "")] = K.compat_key(
+                inp, passes or st.mod_passes, cap)
+        return inp
+
+    st = compat_batch(8)
+    for passes in (1, 2):
+        add(f"compat batch, {passes} pass(es)", st, passes=passes)
+    s64 = stack_timelines([prepare_tl(STRESS64, SECONDS)])
+    inp = add("stress64", s64)
+    keys["stress64 stamped"] = K.compat_key(inp, s64.mod_passes, False,
+                                            stamp=True)
+    add("batch", stack_timelines([prepare_tl(p, BATCH_SECONDS) for p in
+                                  [STRESS64, NOISE64] + FEEDBACK]), (False,))
+    for p in (FEEDBACK[0], FEEDBACK[3]):
+        add(f"repair {p.stem}",
+            stack_timelines([prepare_tl(p, REPAIR_SECONDS)]), (False,))
+    return keys
+
+
+def compat_sass(key):
+    """Instructions of the compat kernel's sample loop under ``key``
+    (static: each instruction once, the 32-sample voice sum's too): the
+    second largest loop, inside the block loop."""
     import re
 
     from skred_tpu_torch.engine.kernels import build
 
-    funcs = sass_functions(build._target("compat"))
-    name = next(nm for nm in funcs if "compat_kernelILb0EE" in nm)
+    funcs = sass_functions(build._target("compat", key))
+    name = next(nm for nm in funcs if "compat_kernel" in nm)
     ins = funcs[name]
     loops = []
     for a, t in ins:
@@ -1924,13 +1950,16 @@ def compat_sass():
                 per_sample=loops[1] if len(loops) > 1 else loops[0])
 
 
-def compat_phase(dev, card, peaks, counters, errs):
-    """The compat engine on the card (see the module docstring).
+def compat_phase(dev, card, peaks, counters, errs, ckeys, secs):
+    """The compat engine on the card (see the module docstring); ckeys:
+    compat_keys(), secs: the build phase's seconds by build label.
     Returns its record for the kernels' JSON."""
     from skred_tpu_torch.assets.bank import WaveBank
     from skred_tpu_torch.engine import fused
     from skred_tpu_torch.engine import render as cr
+    from skred_tpu_torch.engine.kernels import build
     from skred_tpu_torch.engine.kernels import compat as K
+    from skred_tpu_torch.tools import compat_stamps
     from skred_tpu_torch.host.timeline import compile_script, noise_stream
     from skred_tpu_torch.io.recorder import render_recordings
     from skred_tpu_torch.parallel.batch import pack_stacked, stack_timelines
@@ -1954,6 +1983,13 @@ def compat_phase(dev, card, peaks, counters, errs):
             fail(f"compat kernel disagrees with its plain version ({what}; "
                  f"outputs {bad})")
 
+    # ---- the builds: one library per key ----
+    for label, key in ckeys.items():
+        lab = build.label("compat", key)
+        log(f"compat key {label}: {lab} {' '.join(key)}; built in "
+            + (f"{secs[lab]:.1f} s (the build phase, in parallel)"
+               if lab in secs else "an earlier run"))
+
     # ---- the kernel against its plain version on the card ----
     st = compat_batch(8)
     if not (np.asarray(st.seg_is_start)[:, 2:].any()
@@ -1964,12 +2000,14 @@ def compat_phase(dev, card, peaks, counters, errs):
     nz = torch.as_tensor(noise_stream(4 * 512), device=dev)
     plain_t = {}
     carry2 = None
-    for exact in (True, False):
-        for passes in (1, 2):
-            zero = K.zero_carry(8, dev)
-            t_ms, want = host_ms(lambda: K.compat_block_plain(
-                inp, zero, nz[:1024], 0, 2, passes, exact, True))
-            plain_t[exact, passes] = t_ms
+    # the plain version once a pass count: its exact argument selects
+    # nothing (compat_block_plain), so both modes are held to one render
+    for passes in (1, 2):
+        zero = K.zero_carry(8, dev)
+        t_ms, want = host_ms(lambda: K.compat_block_plain(
+            inp, zero, nz[:1024], 0, 2, passes, True, True))
+        plain_t[passes] = t_ms
+        for exact in (True, False):
             for capture in (False, True):
                 got = K.compat_block(inp, zero, nz[:1024], 0, 2, passes,
                                      exact, capture)
@@ -1987,9 +2025,8 @@ def compat_phase(dev, card, peaks, counters, errs):
         f"{st.params['amp'].shape[1]} segments), exact and fast, 1 and 2 "
         f"passes, capture on and off, and on blocks 2-3 from the kernel's "
         f"carry (exact, 2 passes, capture); the plain version on the card "
-        + ", ".join(f"{t:.0f} ms ({'exact' if e else 'fast'}, {p} "
-                    f"pass{'es' if p > 1 else ''})"
-                    for (e, p), t in plain_t.items()) + f", on {card}")
+        + ", ".join(f"{t:.0f} ms ({p} pass{'es' if p > 1 else ''})"
+                    for p, t in plain_t.items()) + f", on {card}")
 
     # ---- the card's render against the port's CPU render ----
     out_d, cap_d = cr.render_rows(st, capture=True, device=dev)
@@ -2003,8 +2040,19 @@ def compat_phase(dev, card, peaks, counters, errs):
     # ---- the main path: stress64 10 s, streamed, 1 and 1024 rows ----
     tl = compile_script(STRESS64.read_text().splitlines(), SECONDS,
                         bank=WaveBank(), script_dir=STRESS64.parent)
-    sass = compat_sass()
+    sass = compat_sass(ckeys["stress64"])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the stamp build's cycles a stage at 1 and 1024 rows
+    stamps = {}
+    for rows in (1, ROWS):
+        stamps[rows] = rec = compat_stamps.stamp_cycles(STRESS64, rows, dev,
+                                                       STAMP_BLOCKS)
+        for line in compat_stamps.table(rec).splitlines():
+            log(f"compat stamps: {line}")
+        if not (rec["total"]["median"] > 0
+                and rec["key"] == list(ckeys["stress64"])):
+            fail(f"compat stamps ({rows} rows): {rec['total']}, key "
+                 f"{rec['key']}")
     nz = torch.as_tensor(noise_stream(CHUNK * 512), device=dev)
     runs = {}
     launches = 0
@@ -2040,10 +2088,8 @@ def compat_phase(dev, card, peaks, counters, errs):
         mhz = max(float(c.split()[0]) for c in (clk0, clk1))
         per_sched = -(-2 * rows // (4 * sms))
         issue_us = sass["per_sample"] * per_sched / mhz
-        chain_us = (tl.mod_passes * (COMPAT_PASS_OPS * OP_CYCLES
-                                     + COMPAT_PASS_WAIT)
-                    + COMPAT_SAMPLE_WAIT) / mhz
-        runs[rows, capture] = dict(wall=wall, ms=k_ms)
+        chain_us = stamps[1]["total"]["median"] / mhz
+        runs[rows, capture] = dict(wall=wall, ms=k_ms, issue_us=issue_us)
         audio = rows * whole * tl.block / 44100.0
         log(f"compat main stress64 {rows} row(s), capture "
             f"{'on' if capture else 'off'}: {whole} blocks "
@@ -2053,14 +2099,14 @@ def compat_phase(dev, card, peaks, counters, errs):
             f"{k_ms / tl.block * 1e3:.3f} us a sample step (CUDA events, "
             f"2 calls of {CHUNK} blocks); {audio / wall:.1f}x realtime ({rows} x "
             f"{whole * tl.block / 44100.0:.3f} s), launches {counts}, "
-            f"checksum {cs}; estimates a sample step at {mhz:.0f} MHz, "
-            f"neither measured nor a floor: static issue {issue_us:.3f} us "
-            f"(the sample loop's {sass['per_sample']} SASS instructions, "
-            f"every branch arm once, x {per_sched} warp(s) a scheduler), "
-            f"chain {chain_us:.3f} us (from the source: {tl.mod_passes} x "
-            f"({COMPAT_PASS_OPS} x {OP_CYCLES} + {COMPAT_PASS_WAIT}) + "
-            f"{COMPAT_SAMPLE_WAIT} cycles); clocks.sm {clk0} -> {clk1}, on "
-            f"{card}")
+            f"checksum {cs}; a sample step at {mhz:.0f} MHz: static "
+            f"issue estimate {issue_us:.3f} us (the sample loop's "
+            f"{sass['per_sample']} SASS instructions, each once, the "
+            f"32-sample voice sum and the slow paths too, x {per_sched} "
+            f"warp(s) a scheduler: not a floor), stamped chain "
+            f"{chain_us:.3f} us (the stamp build's stages at 1 row, "
+            f"median warp, its stamps included); clocks.sm {clk0} -> "
+            f"{clk1}, on {card}")
     # the plain version and the bound on the 1024-row run's first block
     # (inp and zero: the last run's, 1024 rows), the kernel held to it;
     # then blocks 172-173 from the kernel's carry after its first chunk
@@ -2166,7 +2212,12 @@ def compat_phase(dev, card, peaks, counters, errs):
                 ms=runs[ROWS, False]["ms"], plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 ms_1_row=runs[1, False]["ms"],
-                ms_1_row_capture=runs[1, True]["ms"])
+                ms_1_row_capture=runs[1, True]["ms"],
+                stamped_chain_ms_1_row=(stamps[1]["total"]["median"] * 512
+                                        / 1e3 / mhz),
+                sass_per_sample=sass["per_sample"],
+                key_build_s=secs.get(build.label("compat",
+                                                 ckeys["stress64"])))
 
 
 def batch_phase(dev, card, counters):
@@ -2862,12 +2913,15 @@ def main():
     keys = cyclic_keys()
     tkeys = tier_keys()
     nkeys = noise_keys()
-    sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    ckeys = compat_keys()
+    sources = sorted(p.stem for p in build.CSRC.glob("*.cu")
+                     if p.stem not in build.KEY_ONLY)
     skeys = slice_builds()
     secs = build.build_all(sources + [("cyclic", key)
                                       for key in keys.values()]
                            + [("tier", key) for key in tkeys.values()]
-                           + list(nkeys.values()) + skeys)
+                           + list(nkeys.values()) + skeys
+                           + [("compat", key) for key in ckeys.values()])
     from skred_tpu_torch.host import native
 
     t1 = time.time()
@@ -2878,10 +2932,12 @@ def main():
         f"{len(set(keys.values()))} keys of the cyclic kernel, "
         f"{len(set(tkeys.values()))} of the tier kernel, "
         f"{len(set(nkeys.values()))} of the keyed noise kernels, "
+        f"{len(set(ckeys.values()))} of the compat kernel, "
         f"{len(skeys)} keys of the repair, mesh and cli phases) in "
         f"{time.time() - t0:.1f} s")
     uses = {}
-    for name, labelled in (("cyclic", keys), ("tier", tkeys)):
+    for name, labelled in (("cyclic", keys), ("tier", tkeys),
+                           ("compat", ckeys)):
         for label, key in labelled.items():
             uses.setdefault((name, key), []).append(label)
     for label, (name, key) in nkeys.items():
@@ -2901,8 +2957,10 @@ def main():
                                                 "bytes spill stores, 0 "
                                                 "bytes spill loads"):
                     fail(f"{name}.cu spills under {lab}: {line}")
-    for name in ("tier", "phase_walk", "lookup", "filt_smooth", "compat"):
+    for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
         build.load(name)
+    for key in ckeys.values():
+        build.load("compat", key)
     build.load("cyclic", (), "cyclic_general_launch")
     for key in keys.values():
         build.load("cyclic", key, "cyclic_fixed_launch")
@@ -2993,7 +3051,7 @@ def main():
 
     # ---- 10. the compat engine ----
     phase("compat")
-    compat_rec = compat_phase(dev, card, peaks, counters, errs)
+    compat_rec = compat_phase(dev, card, peaks, counters, errs, ckeys, secs)
 
     # ---- 11. every in-repo script through render_batch ----
     phase("batch")

@@ -32,6 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# sources that build under a key only (their defines select every
+# feature): build_all() with no items leaves them out
+KEY_ONLY = ("compat",)
+
 _LIBS: dict = {}
 LOG: dict = {}          # label -> (seconds, compiler output) of this process
 
@@ -84,10 +88,12 @@ def _target(name: str, key=()) -> pathlib.Path:
 
 def build_all(items=None) -> dict:
     """Compile every (or each named) kernel source or key that has no
-    current library, one nvcc process each, all started together.
+    current library, one nvcc process each, all started together
+    (``items`` None: every source but ``KEY_ONLY``).
     ``items``: source names or (name, key) pairs.  Returns {label:
     seconds} for the builds made by this call; raises if any failed."""
-    specs = [(p.stem, ()) for p in sorted(CSRC.glob("*.cu"))] \
+    specs = [(p.stem, ()) for p in sorted(CSRC.glob("*.cu"))
+             if p.stem not in KEY_ONLY] \
         if items is None else [_spec(i) for i in items]
     todo = list(dict.fromkeys(
         s for s in specs if not (_target(*s).exists()

@@ -28,6 +28,19 @@ out [B, n*block, 2], cap [B, n*block, V, 2] or None)``, and both sum the
 64 voices in the same fixed tree (``voice_sum``), so the card's render
 equals the CPU's bit for bit.  The JAX package's ``jnp.sum`` takes
 another order, which tests hold to a stated tolerance.
+
+The kernel is built once per key (``compat_key``: the pass count,
+capture, and what the batch takes over every row and segment: the union
+of the flag bits, the CZ curves, the modulator reads, power-of-two CZ
+tables), at the key's first use, into ``build/kernels/``; the library
+refuses arguments that need what its key lacks (``compat_key_ok``), and
+the launch raises.  ``pack_inputs`` marks per segment the voices whose
+estimate a higher voice reads (the ``read`` flag): only they run the
+non-committing passes.
+
+The measurement build (``_launch(..., stamps=)`` only; no render path
+takes it) adds clock reads per stage of the sample step (``STAMPS``;
+``tools/compat_stamps.py``).
 """
 
 from __future__ import annotations
@@ -56,7 +69,14 @@ PI = ("flags", "fm_osc", "cz_mode", "cm_osc", "clip_hi", "table_off",
 # bits of PI "flags", in order (csrc/compat.cu's F_*)
 FLAGS = ("use_fm", "dirneg", "osn", "one_shot", "is_noise", "hold_on",
          "quant", "use_flt", "use_env", "env_act", "no_rel", "use_sm",
-         "disc")
+         "disc", "read")
+# "read": a higher voice reads this voice's estimate in this segment, so
+# its non-committing passes run (the kernel's F_READ; no feature of the
+# key).  The modulator reads a key compiles (csrc/compat.cu's M_*):
+# "cz" a CZ voice reads a modulator, "czd" its d varies (a nonzero depth)
+MODS = ("fm", "cz", "czd", "am", "pan")
+READ = 1 << FLAGS.index("read")
+KEY_FLAGS = READ - 1
 # segment ops: f32 values, i32 flags / finished / copy source
 OF = ("phase", "sample", "smoother", "pan_left", "pan_right")
 OI = ("flags", "finished", "copy_hold_from")
@@ -84,6 +104,7 @@ class CompatInputs:
     start: torch.Tensor     # [B, NB] i32
     table: torch.Tensor     # [R] f32
     block: int
+    need: tuple             # (flags, cz curves, mods, ts_pow2): _needs
 
     @property
     def rows(self) -> int:
@@ -142,6 +163,20 @@ def pack_inputs(params: dict, ops: dict, seg_of_block, seg_is_start,
         use_flt=i("filter_mode") != 0, use_env=i("use_amp_envelope") != 0,
         env_act=i("env_active") != 0, no_rel=i("env_rel_at") == 0,
         use_sm=i("smoother_enable") != 0, disc=i("disconnect") != 0)
+    mode, cm = i("cz_mode"), i("cz_mod_osc")
+    am, pm = i("amp_mod_osc"), i("pan_mod_osc")
+    cz_on = mode != 0
+    pan_on = (pm >= 0) & ~on["disc"]
+    # the reads a pass makes (read(osc) in csrc/compat.cu): a voice
+    # whose estimate a higher voice reads is marked "read"
+    edges = [(fm, on["use_fm"]), (cm, cz_on & (cm >= 0)),
+             (am, (am >= 0) & (am != n_idx)), (pm, pan_on & (pm != n_idx))]
+    read = np.zeros((B, S, V), bool)
+    for osc, takes in edges:
+        src = takes & (osc >= 0) & (osc < n_idx)
+        bs, ss, _ = np.nonzero(src)
+        read[bs, ss, osc[src]] = True
+    on["read"] = read
     flags = np.zeros((B, S, V), np.int32)
     for bit, name in enumerate(FLAGS):
         flags |= np.where(on[name], 1 << bit, 0).astype(np.int32)
@@ -181,12 +216,55 @@ def pack_inputs(params: dict, ops: dict, seg_of_block, seg_is_start,
         device=device)
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt),
                                       device=device)
+    need = _needs(flags, mode, cm, f("cz_distortion"), f("cz_mod_depth"),
+                  am, pan_on, on["use_fm"], tsize_i)
     return CompatInputs(
+        need=need,
         pf=st(pf, PF, np.float32), pi=st(pi, PI, np.int32),
         vf=t(np.asarray(params["volume_final"]).reshape(B, S), np.float32),
         of=st(of, OF, np.float32), oi=st(oi, OI, np.int32),
         seg=t(seg_of_block, np.int32), start=t(seg_is_start, np.int32),
         table=t(table, np.float32), block=int(block))
+
+
+def _needs(flags, mode, cm, dist, dep, am, pan_on, use_fm, tsize):
+    """What a batch takes of the kernel, over every row, segment and
+    voice: (the union of the flag bits but "read", the CZ curves as a
+    mask (bit m for curve m in 1..7, bit 0 any other nonzero mode), the
+    MODS bits, whether every CZ voice's table size is a power of two).
+    A CZ voice's d is constant over its segment unless it reads a
+    modulator at a nonzero depth (or its distortion is -0, which a zero
+    product would turn +0): then "czd"."""
+    fl = int(np.bitwise_or.reduce(flags.ravel(), initial=0)) & KEY_FLAGS
+    cz_on = mode != 0
+    curves = 0
+    for m in np.unique(mode[cz_on]).tolist():
+        curves |= 1 << (m if 1 <= m <= 7 else 0)
+    neg0 = (dist == 0) & np.signbit(dist)
+    varies = cz_on & (cm >= 0) & ((dep != 0) | neg0)
+    mods = 0
+    for name, any_ in (("fm", use_fm.any()), ("cz", (cz_on & (cm >= 0)).any()),
+                       ("czd", varies.any()), ("am", (am >= 0).any()),
+                       ("pan", pan_on.any())):
+        mods |= (1 << MODS.index(name)) if any_ else 0
+    ts = tsize[cz_on]
+    pow2 = bool(((ts > 0) & ((ts & (ts - 1)) == 0)).all())
+    return (fl, curves, mods, int(pow2))
+
+
+def compat_key(inp: CompatInputs, mod_passes: int, capture: bool,
+               stamp: bool = False) -> tuple:
+    """The build key (``-D`` defines) of ``csrc/compat.cu`` for a launch
+    on ``inp``: its pass count, capture, the union of its voices' flags,
+    CZ curves and modulator reads over every row and segment, and whether
+    every CZ table is a power of two; ``stamp``: the measurement build
+    (timing only).  One library per key, built at its first use."""
+    fl, curves, mods, pow2 = inp.need
+    key = (f"COMPAT_PASSES={int(mod_passes)}",
+           f"COMPAT_CAPTURE={int(bool(capture))}",
+           f"COMPAT_FLAGS={fl:#x}", f"COMPAT_CZ_MASK={curves:#x}",
+           f"COMPAT_MODS={mods:#x}", f"COMPAT_TS_POW2={pow2}")
+    return key + (("COMPAT_STAMP=1",) if stamp else ())
 
 
 def zero_carry(B: int, device="cuda"):
@@ -487,10 +565,11 @@ def compat_block_plain(inp: CompatInputs, carry, noise, block0: int,
 # ---- the CUDA launch: one C struct mirrors csrc/compat.cu's CompatArgs ----
 
 _INT_FIELDS = ("rows", "segs", "nb_total", "block", "block0", "nblocks",
-               "passes", "capture")
+               "passes", "capture", "need_flags", "need_cz", "need_mods",
+               "ts_pow2")
 _PTR_FIELDS = ("pf", "pi", "vf", "of", "oi", "seg", "start", "table",
                "noise", "cf0", "ci0", "vg0", "cf1", "ci1", "vg1", "out",
-               "cap")
+               "cap", "stamp")
 
 
 class CompatArgs(ctypes.Structure):
@@ -508,7 +587,8 @@ def _layout_checked(lib) -> None:
     fn = lib.compat_layout
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    want = (len(PF), len(PI), len(OF), len(OI), len(CF), len(CI), V)
+    want = (len(PF), len(PI), len(OF), len(OI), len(CF), len(CI), V,
+            len(STAMPS))
     got = tuple(fn(j) for j in range(len(want)))
     if got != want:
         raise RuntimeError(f"compat.cu's layout {got} is not the "
@@ -532,6 +612,7 @@ def _pack_args(inp: CompatInputs, carry, noise, block0, nb, mod_passes,
     a.rows, a.segs, a.nb_total, a.block = B, S, NB, n
     a.block0, a.nblocks, a.passes = int(block0), int(nb), int(mod_passes)
     a.capture = int(bool(capture))
+    a.need_flags, a.need_cz, a.need_mods, a.ts_pow2 = inp.need
     a.pf = chk("pf", inp.pf, dev, F32, (B, S, len(PF), V))
     a.pi = chk("pi", inp.pi, dev, I32, (B, S, len(PI), V))
     a.vf = chk("vf", inp.vf, dev, F32, (B, S))
@@ -558,20 +639,42 @@ def _pack_args(inp: CompatInputs, carry, noise, block0, nb, mod_passes,
     return a, new, out, cap
 
 
+# the measurement build's stages (csrc/compat.cu's S_*): clock cycles a
+# sample step, per warp; "r_" the non-committing passes, "c_" the last
+STAMPS = ("noise", "bar_prev", "r_reads", "r_wrap", "r_cz", "r_table",
+          "r_hqb", "r_env", "r_pan", "bar_est", "c_reads", "c_wrap", "c_cz",
+          "c_table", "c_hqb", "c_env", "c_pan", "reduce", "store")
+
+
+def stamp_buffer(inp: CompatInputs) -> torch.Tensor:
+    """The measurement build's output for a launch on ``inp``: uint32
+    cycles (as int32) ``[rows, 2 warps, len(STAMPS)]``, zero."""
+    return torch.zeros((inp.rows, V // 32, len(STAMPS)), dtype=I32,
+                       device=inp.pf.device)
+
+
 def _launch(inp: CompatInputs, carry, noise, block0, nb, mod_passes, exact,
-            capture):
-    """Pack the arguments, launch ``csrc/compat.cu`` on the inputs'
-    device (built at first use; its field counts held to this module's
-    once) and count the launch."""
+            capture, stamps=None):
+    """Pack the arguments, launch ``csrc/compat.cu`` under ``compat_key``
+    of the batch on the inputs' device (built at first use; its field
+    counts held to this module's once) and count the launch.  The library
+    refuses arguments its key does not take (``cuda_call.launch``
+    raises).  ``stamps`` (``stamp_buffer``): launch the measurement
+    build, which writes each warp's cycles a stage there."""
     from skred_tpu_torch.engine.kernels import build
 
     args, new, out, cap = _pack_args(inp, carry, noise, block0, nb,
                                      mod_passes, capture)
-    lib = build.load("compat")
+    key = compat_key(inp, mod_passes, capture, stamps is not None)
+    if stamps is not None:
+        args.stamp = cuda_call.check("compat", "stamps", stamps,
+                                     inp.pf.device, I32,
+                                     (inp.rows, V // 32, len(STAMPS)))
+    lib = build.load("compat", key)
     if not getattr(lib, "layout_checked", False):
         _layout_checked(lib)
         lib.layout_checked = True
-    cuda_call.launch("compat", args, inp.pf.device)
+    cuda_call.launch("compat", args, inp.pf.device, key)
     compat_block.launches += 1
     return new, out, cap
 
@@ -580,7 +683,7 @@ def compat_block(inp: CompatInputs, carry, noise, block0: int, nb: int,
                  mod_passes: int, exact: bool = True,
                  capture: bool = False):
     """Blocks ``block0 .. block0+nb`` of the compat engine over every
-    row: one CUDA block (64 threads, a voice each) a row.
+    row: one CUDA block a row, built under ``compat_key`` of the batch.
 
     inp: ``pack_inputs``' tensors; carry: ``(cf, ci, vol_gain)`` (see
     the module docstring); noise: [nb*block] f32, the stream's values of

@@ -2,11 +2,12 @@
 the CPU.
 
 Its oracle, the compat engine, runs here as ``csrc/compat.cu`` itself,
-built for the CPU by g++ (``compat_on_cpu``: a fiber a voice in one
-thread, ``__syncthreads`` and the warp shuffle a switch through them)
-behind the launch wrapper: ``compat_block_plain`` repeats its per-sample
-ops and would take minutes for a quarter of a second of stress64.  The
-build is first held bit for bit to the plain version.
+built for the CPU by g++ under each render's key (``compat_on_cpu``: a
+fiber a voice in one thread, ``__syncthreads`` and the warp vote a
+switch through them) behind the launch wrapper: ``compat_block_plain``
+repeats its per-sample ops and would take minutes for a quarter of a
+second of stress64.  The build is first held bit for bit to the plain
+version.
 
 The tool's dB on stress64 and noise64 at 0.25 s must be within 0.5 dB of
 the JAX package's own fused-against-compat comparison (``render_fused``
@@ -22,10 +23,8 @@ exact and fast mode (the reference numbers PERF.md sets beside the
 card's).
 """
 
-import ctypes
 import json
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -39,151 +38,34 @@ sys.path.insert(0, str(ROOT))
 from skred_tpu_torch.assets import WaveBank  # noqa: E402
 from skred_tpu_torch.engine import fused as tf  # noqa: E402
 from skred_tpu_torch.engine import render as tr  # noqa: E402
-from skred_tpu_torch.engine.kernels import build, cuda_call  # noqa: E402
 from skred_tpu_torch.engine.kernels import compat as K  # noqa: E402
 from skred_tpu_torch.host.timeline import compile_script  # noqa: E402
 from skred_tpu_torch.tools import card_parity as cp  # noqa: E402
+from tests.test_torch_compat_keyed import CpuCompat  # noqa: E402
 
 torch.set_num_threads(1)
 
 STRESS64 = ROOT / "corpus" / "stress64.sk"
 NOISE64 = ROOT / "skred_tpu_torch" / "scripts" / "noise64.sk"
 
-FIBERS = r"""
-// csrc/compat.cu on the CPU in one thread: a fiber (ucontext) a voice;
-// __syncthreads and the warp shuffle switch to the next fiber, so every
-// fiber reaches a barrier before the first passes it
-#include <cmath>
-#include <cstring>
-#include <ucontext.h>
-#include <vector>
-using std::isfinite;
-struct Idx { int x; };
-static Idx threadIdx, blockIdx;
-static void sync_fibers();
-#define COMPAT_SHIM
-#define COMPAT_DEV static inline
-#define __device__
-#define __forceinline__ inline
-#define __global__
-#define __launch_bounds__(x)
-#define __restrict__
-#define __shared__ static
-#define __syncthreads() sync_fibers()
-struct float2 { float x, y; };
-static inline float2 make_float2(float a, float b) { return {a, b}; }
-static inline float __fmaf_rn(float a, float b, float c) {
-    return std::fmaf(a, b, c);
-}
-static inline float __fmul_rn(float a, float b) { return a * b; }
-static inline float __fadd_rn(float a, float b) { return a + b; }
-template <class T> static inline T __ldg(const T* p) { return *p; }
-static inline int __float_as_int(float x) {
-    int i; std::memcpy(&i, &x, 4); return i;
-}
-static inline float __int_as_float(int i) {
-    float x; std::memcpy(&x, &i, 4); return x;
-}
-static inline int __float2int_rz(float x) { return (int)x; }
-// two exchange arrays in turn, as the threaded shim of
-// test_torch_render_batch.py
-static float g_xch[2][64];
-static int g_turn[64];
-static inline float __shfl_down_sync(unsigned, float v, int d) {
-    const int t = threadIdx.x;
-    float* x = g_xch[g_turn[t] ^= 1];
-    x[t] = v;
-    sync_fibers();
-    return (t & 31) + d < 32 ? x[t + d] : v;
-}
-#include "compat.cu"
-
-static ucontext_t g_ctx[V], g_main;
-static const CompatArgs* g_args;
-static void sync_fibers() {
-    const int from = threadIdx.x, to = (from + 1) % V;
-    threadIdx.x = to;
-    swapcontext(&g_ctx[from], &g_ctx[to]);
-}
-
-template <bool C>
-static void fiber() {
-    compat_kernel<C>(*g_args);
-    const int t = threadIdx.x;
-    threadIdx.x = t + 1;
-    setcontext(t + 1 < V ? &g_ctx[t + 1] : &g_main);
-}
-
-template <bool C>
-static void run(const CompatArgs& a) {
-    const size_t stack = 1 << 18;
-    std::vector<char> mem(V * stack);
-    g_args = &a;
-    for (int b = 0; b < a.rows; ++b) {
-        blockIdx.x = b;
-        for (int v = 0; v < V; ++v) {
-            getcontext(&g_ctx[v]);
-            g_ctx[v].uc_stack.ss_sp = mem.data() + v * stack;
-            g_ctx[v].uc_stack.ss_size = stack;
-            g_ctx[v].uc_link = nullptr;
-            makecontext(&g_ctx[v], (void (*)())fiber<C>, 0);
-        }
-        threadIdx.x = 0;
-        swapcontext(&g_main, &g_ctx[0]);
-    }
-}
-
-extern "C" int compat_layout(int which) {
-    const int n[] = {NPF, NPI, NOF, NOI, NCF, NCI, V};
-    return which >= 0 && which < 7 ? n[which] : -1;
-}
-
-extern "C" int compat_launch(const CompatArgs* a, void*) {
-    if (a->capture) run<true>(*a);
-    else run<false>(*a);
-    return 0;
-}
-"""
-
 
 @pytest.fixture(scope="module")
 def compat_on_cpu(tmp_path_factory):
     """The compat engine's renders on the CPU through ``csrc/compat.cu``
-    built by g++ (-ffp-contract=off) behind the launch wrapper, held bit
-    for bit to ``compat_block_plain`` on 2 blocks of stress64 first."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.fail("g++ not found: the port's native compiler needs it too")
-    d = tmp_path_factory.mktemp("compat_fibers")
-    (d / "inc").mkdir()
-    (d / "inc" / "cuda_runtime.h").write_text("")
-    (d / "fibers.cpp").write_text(FIBERS)
-    so = d / "libcompat_fibers.so"
-    res = subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
-         f"-I{d / 'inc'}", f"-I{build.CSRC}", "-o", str(so),
-         str(d / "fibers.cpp")], capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    lib = ctypes.CDLL(str(so))
-
-    def load(name):
-        assert name == "compat", name
-        return lib
-
-    def launch(name, args, device, key=(), entry=None):
-        assert (name, device.type, key, entry) == ("compat", "cpu", (), None)
-        assert lib.compat_launch(ctypes.byref(args), None) == 0
-
+    built by g++ (-ffp-contract=off, a library per key:
+    ``tests/test_torch_compat_keyed.py``'s ``CpuCompat``) behind the
+    launch wrapper, held bit for bit to ``compat_block_plain`` on 2
+    blocks of stress64 first."""
+    cpu = CpuCompat(tmp_path_factory.mktemp("compat_fibers"))
     tl = compile_script(STRESS64.read_text().splitlines(), 2 * 512 / 44100.0,
                         bank=WaveBank(), script_dir=STRESS64.parent)
     want = tr.render_timeline(tl, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(build, "load", load)
-        mp.setattr(cuda_call, "launch", launch)
+        cpu.patch(mp)
         mp.setattr(tr, "compat_block", K._launch)
         got = tr.render_timeline(tl, device="cpu")
         assert np.array_equal(got.view(np.int32), want.view(np.int32))
-        yield lib
+        yield cpu
 
 
 def jax_db(path: pathlib.Path, seconds: float, exact=None) -> float:

@@ -8,19 +8,17 @@ is ``render_stacked``; a cyclic script that the cyclic kernel's gate
 refuses falls back to the compat engine with a warning on stderr.
 
 The kernel: its argument struct and field layout against compat.py's,
-its build through a stand-in for nvcc, and its launch wrapper with
-``csrc/compat.cu`` itself built for the CPU by g++ (a thread a voice, a
-``std::barrier`` for ``__syncthreads``) standing in for the card's
-library: the wrapper's pointers and counts reach the kernel, it never
-runs the plain version, and the kernel's arithmetic equals the plain
-version's bit for bit.
+its build under a key through a stand-in for nvcc, and its launch
+wrapper with ``csrc/compat.cu`` itself built for the CPU by g++ under
+the batch's key (a thread a voice, a ``std::barrier`` for
+``__syncthreads``: ``tests/test_torch_compat_keyed.py``'s ``THREADS``)
+standing in for the card's library: the wrapper's pointers and counts
+reach the kernel, it never runs the plain version, and the kernel's
+arithmetic equals the plain version's bit for bit.
 """
 
 import ctypes
-import pathlib
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -31,10 +29,11 @@ from skred_tpu.parallel import batch as jb
 from skred_tpu_torch.assets import WaveBank
 from skred_tpu_torch.engine import cyclic, render_timeline
 from skred_tpu_torch.engine import render as tr
-from skred_tpu_torch.engine.kernels import build, cuda_call
+from skred_tpu_torch.engine.kernels import build
 from skred_tpu_torch.engine.kernels import compat as K
 from skred_tpu_torch.host.timeline import compile_script, noise_stream
 from skred_tpu_torch.parallel import batch as tb
+from tests.test_torch_compat_keyed import CpuCompat
 from tests.test_torch_render import CORPUS, db, lines_of
 from tests.test_torch_render_feedback import FB4_CUT, VOICE_COPY
 
@@ -174,8 +173,8 @@ def test_field_layout_matches_the_kernel():
 
 
 def test_build_with_a_stand_in_nvcc(tmp_path, monkeypatch):
-    """compat.cu builds with the repository's flags, no key, and keeps
-    nvcc's report beside the library."""
+    """compat.cu builds under a key with the repository's flags and the
+    key's defines, and keeps nvcc's report beside the library."""
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(
         "#!/bin/sh\n"
@@ -187,112 +186,27 @@ def test_build_with_a_stand_in_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
     monkeypatch.setattr(build, "LOG", {})
-    assert list(build.build_all(["compat"])) == ["compat"]
-    lib = build._target("compat")
+    st = tb.stack_timelines(_tls([lines_of("fb1")], ONE_BLOCK))
+    key = K.compat_key(tr.stacked_inputs(st, "cpu"), st.mod_passes, False)
+    item = ("compat", key)
+    assert list(build.build_all([item])) == [build.label(*item)]
+    lib = build._target(*item)
     args = lib.with_suffix(".tmp.so.args").read_text().split()
     for flag in ("-fmad=false", "-prec-div=true", "-ftz=false",
                  "arch=compute_90a,code=sm_90a"):
         assert flag in args
+    assert [a for a in args if a.startswith("-DCOMPAT_")] == [
+        "-D" + d for d in key]
     assert args[-1].endswith("csrc/compat.cu")
-    assert "Used 72 registers" in build.report("compat")
-    assert build.build_all(["compat"]) == {}
-
-
-SHIM = r"""
-// csrc/compat.cu on the CPU: a std::thread a voice, a std::barrier for
-// __syncthreads, the warp shuffle through a shared array
-#include <barrier>
-#include <cmath>
-#include <cstring>
-#include <thread>
-#include <vector>
-using std::isfinite;
-struct Idx { int x; };
-static thread_local Idx threadIdx, blockIdx;
-static std::barrier<>* g_bar;
-#define COMPAT_SHIM
-#define COMPAT_DEV static inline
-#define __device__
-#define __forceinline__ inline
-#define __global__
-#define __launch_bounds__(x)
-#define __restrict__
-#define __shared__ static
-#define __syncthreads() g_bar->arrive_and_wait()
-struct float2 { float x, y; };
-static inline float2 make_float2(float a, float b) { return {a, b}; }
-static inline float __fmaf_rn(float a, float b, float c) {
-    return std::fmaf(a, b, c);
-}
-static inline float __fmul_rn(float a, float b) { return a * b; }
-static inline float __fadd_rn(float a, float b) { return a + b; }
-template <class T> static inline T __ldg(const T* p) { return *p; }
-static inline int __float_as_int(float x) {
-    int i; std::memcpy(&i, &x, 4); return i;
-}
-static inline float __int_as_float(int i) {
-    float x; std::memcpy(&x, &i, 4); return x;
-}
-static inline int __float2int_rz(float x) { return (int)x; }
-// two exchange arrays in turn: a thread writes one only after the
-// barrier of the shuffle between, when every read of it is done
-static float g_xch[2][64];
-static thread_local int g_turn;
-static inline float __shfl_down_sync(unsigned, float v, int d) {
-    const int t = threadIdx.x;
-    float* x = g_xch[g_turn ^= 1];
-    x[t] = v;
-    g_bar->arrive_and_wait();
-    return (t & 31) + d < 32 ? x[t + d] : v;
-}
-#include "compat.cu"
-
-template <bool C>
-static void run(const CompatArgs& a) {
-    std::barrier<> bar(V);
-    g_bar = &bar;
-    for (int b = 0; b < a.rows; ++b) {
-        std::vector<std::thread> th;
-        for (int v = 0; v < V; ++v)
-            th.emplace_back([&a, b, v] {
-                blockIdx.x = b;
-                threadIdx.x = v;
-                compat_kernel<C>(a);
-            });
-        for (auto& t : th) t.join();
-    }
-}
-
-extern "C" int compat_layout(int which) {
-    const int n[] = {NPF, NPI, NOF, NOI, NCF, NCI, V};
-    return which >= 0 && which < 7 ? n[which] : -1;
-}
-
-extern "C" int compat_launch(const CompatArgs* a, void*) {
-    if (a->capture) run<true>(*a);
-    else run<false>(*a);
-    return 0;
-}
-"""
+    assert "Used 72 registers" in build.report(*item)
+    assert build.build_all([item]) == {}
 
 
 @pytest.fixture(scope="module")
 def cpu_kernel(tmp_path_factory):
-    """csrc/compat.cu built for the CPU by g++ with -ffp-contract=off."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.fail("g++ not found: the port's native compiler needs it too")
-    d = tmp_path_factory.mktemp("compat_cpu")
-    (d / "inc").mkdir()
-    (d / "inc" / "cuda_runtime.h").write_text("")
-    (d / "shim.cpp").write_text(SHIM)
-    lib = d / "libcompat_cpu.so"
-    res = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", f"-I{d / 'inc'}", f"-I{build.CSRC}", "-o", str(lib),
-         str(d / "shim.cpp")], capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    return ctypes.CDLL(str(lib))
+    """csrc/compat.cu built for the CPU by g++ with -ffp-contract=off,
+    a thread a voice, a library per key."""
+    return CpuCompat(tmp_path_factory.mktemp("compat_cpu"), "threads")
 
 
 @pytest.mark.parametrize("script,exact,capture", [
@@ -311,15 +225,10 @@ def test_launch_wrapper_runs_the_kernel(cpu_kernel, monkeypatch, script,
     carry = K.zero_carry(1, "cpu")
     want = K.compat_block_plain(inp, carry, noise, 0, 2, 2, exact, capture)
 
-    def launch(name, args, device, key=(), entry=None):
-        assert (name, device.type, key, entry) == ("compat", "cpu", (), None)
-        assert cpu_kernel.compat_launch(ctypes.byref(args), None) == 0
-
     def plain(*a, **kw):
         raise AssertionError("the kernel path ran the plain version")
 
-    monkeypatch.setattr(build, "load", lambda name: cpu_kernel)
-    monkeypatch.setattr(cuda_call, "launch", launch)
+    cpu_kernel.patch(monkeypatch)
     monkeypatch.setattr(K, "compat_block_plain", plain)
     before = K.compat_block.launches
     got = K._launch(inp, carry, noise, 0, 2, 2, exact, capture)
