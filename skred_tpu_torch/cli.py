@@ -18,7 +18,6 @@ from __future__ import annotations
 import argparse
 import pathlib
 import sys
-import time
 
 
 def _card_missing(device: str) -> bool:
@@ -36,6 +35,7 @@ def _card_missing(device: str) -> bool:
 def cmd_render(args) -> int:
     import numpy as np
 
+    from skred_tpu_torch import spans
     from skred_tpu_torch.assets import WaveBank, bank as bank_mod
     from skred_tpu_torch.engine import render_timeline
     from skred_tpu_torch.host.timeline import compile_script
@@ -49,20 +49,21 @@ def cmd_render(args) -> int:
     lines = script.read_text().splitlines()
     for e in args.execute or []:
         lines.append(e)
-    t0 = time.time()
-    tl = compile_script(lines, args.seconds, bank=bank, script_dir=script_dir)
-    t_compile = time.time() - t0
-    t0 = time.time()
-    if args.engine == "fused" and tl.fused_passes is not None:
-        from skred_tpu_torch.engine.fused import render_fused
-        from skred_tpu_torch.parallel.batch import stack_timelines
+    with spans.span("cli.compile") as comp:
+        tl = compile_script(lines, args.seconds, bank=bank,
+                            script_dir=script_dir)
+        comp.n = tl.num_segments
+    with spans.span("cli.render") as rend:
+        if args.engine == "fused" and tl.fused_passes is not None:
+            from skred_tpu_torch.engine.fused import render_fused
+            from skred_tpu_torch.parallel.batch import stack_timelines
 
-        out = render_fused(stack_timelines([tl]), device=args.device)[0]
-    else:
-        out = render_timeline(tl, device=args.device)
-    t_render = time.time() - t0
+            out = render_fused(stack_timelines([tl]), device=args.device)[0]
+        else:
+            out = render_timeline(tl, device=args.device)
+    t_compile, t_render = comp.dur_ns / 1e9, rend.dur_ns / 1e9
     dur = len(out) / 44100.0
-    print(f"# compiled {tl.num_segments} segments in {t_compile:.2f}s; "
+    print(f"# compiled {comp.n} segments in {t_compile:.2f}s; "
           f"rendered {dur:.2f}s in {t_render:.2f}s "
           f"({dur / max(t_render, 1e-9):.1f}x realtime)")
     out_path = pathlib.Path(args.out or script.with_suffix(".rendered.wav").name)
@@ -75,15 +76,16 @@ def cmd_render(args) -> int:
 
 
 def cmd_batch(args) -> int:
+    from skred_tpu_torch import spans
     from skred_tpu_torch.parallel.batch import render_batch
 
     scripts = [pathlib.Path(s) for s in args.scripts]
     outdir = pathlib.Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
-    t0 = time.time()
-    out = render_batch(scripts, args.seconds, outdir, engine=args.engine,
-                       device=args.device)
-    wall = time.time() - t0
+    with spans.span("cli.batch") as whole:
+        out = render_batch(scripts, args.seconds, outdir,
+                           engine=args.engine, device=args.device)
+    wall = whole.dur_ns / 1e9
     audio = out.shape[0] * out.shape[1] / 44100.0
     print(f"# rendered {out.shape[0]} scripts x {out.shape[1] / 44100.0:.2f}s "
           f"in {wall:.2f}s ({audio / max(wall, 1e-9):.1f}x realtime) "

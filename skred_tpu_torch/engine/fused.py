@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from skred_tpu_torch import config as C
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels.filt_smooth import (filt_smooth_key,
                                                         filt_smooth_noise)
 from skred_tpu_torch.engine.kernels.lookup import lookup
@@ -885,82 +886,88 @@ def _block_step(r: _Render, carry, k_glob, caps=None):
     and the volume smoother.  With ``caps`` (a list; the render's mix and
     fold off) the block's per-voice stereo pairs are appended to it.
     Returns (carry, out [N, B, 2])."""
-    B, n = r.B, r.block
-    if r.single_seg:
-        p, o = r.p_const, r.o_const
-    else:
-        seg = r.seg_of_block[:, k_glob]
-        p = _gather_seg(r.groups[0], r.params, seg, B)
-        o = _gather_seg(r.groups[1], r.ops, seg, B)
-    carry = _apply_ops_b(carry, o, r.seg_is_start[:, k_glob][:, None],
-                         r.feat)
-    cbase = k_glob * n + 1               # 1-based global sample count
-    feat = r.feat
-    bounds = np.cumsum((0,) + tuple(r.tiers))
-    layered = len(r.tiers) > 1
-    # taken after the segment-start ops: a delayed read at t = 0 sees a
-    # sample the segment has just set
-    prev_vm = to_vm_vec(carry["sample"])
-    full_inc = p["phase_inc"]
-    nblk = None if r.noise is None else r.noise[k_glob * n:(k_glob + 1) * n]
-    if r.mix:
-        mask = r.mix_mask if r.single_seg else _mix_mask(p, feat)
-        wl_vm = to_vm_vec(torch.where(mask, carry["pan_l"], 0.0))
-        wr_vm = to_vm_vec(torch.where(mask, carry["pan_r"], 0.0))
-    parts, nc_parts = [], []
-    acc = None                           # the kernel-mixed tiers' sums
-    for ti in range(len(r.tiers)):
-        ts, te = int(bounds[ti]), int(bounds[ti + 1])
-        p_t = _tier_slice(p, ts, te, r.Vp)
-        c_t = _tier_slice(carry, ts, te, r.Vp)
-        ft = r.tier_feat(ti)
-        fold = r.folds(ti)
-        if ft.noise:
-            run = functools.partial(_noise_pass, noise_blk=nblk)
-        else:
-            run = _voice_block_pass
-        if r.single_seg:
-            tp = r.tier_params[ti]
-        else:
-            tp = _pass_params(p_t, full_inc, ft, fold)
-        if not r.streams_in(ti):
-            est = None
-        elif layered:
-            # earlier tiers' columns of the block buffer are the bank
-            est = r.buf[:, :ts * B]
-        else:
-            # fixed-point passes read columns that have not converged
-            est = _estimate(r, run, c_t, p_t, tp, prev_vm, cbase)
-        out_cols = r.buf[:, ts * B:te * B]
-        kw = dict(out=out_cols)
-        if not ft.noise:
-            kw["fold"] = fold
-            if r.mix:
-                kw.update(mixw=(wl_vm[ts * B:te * B], wr_vm[ts * B:te * B]),
-                          acc=acc)
-        out_t, contrib_t, (aa_t, il_t), nc_t, macc = run(
-            est, prev_vm[:ts * B] if layered else prev_vm, c_t, p_t, tp,
-            cbase, r.table, r.exact, ft, n, B, **kw)
-        if macc is not None:
-            acc = macc
-        nc_parts.append(nc_t)
-        parts.append((out_t, contrib_t, aa_t, il_t, (ts, te),
-                      macc is not None))
-    new_carry = {kk: torch.cat([nc[kk] for nc in nc_parts], dim=1)
-                 for kk in _CK}
-    mix_l, mix_r, pan_upd = _mix_parts(carry, p, parts, feat, n, B, acc,
-                                       caps)
-    if pan_upd is not None:
-        lanes, new_pl, new_pr = pan_upd
-        new_carry["pan_l"][:, lanes] = new_pl
-        new_carry["pan_r"][:, lanes] = new_pr
-    vf = p["volume_final"]                          # [B]
-    a = f32(np.float32(1.0) - np.float32(0.002))
-    vg = _affine_scan(torch.full_like(vf, a)[None],
-                      (f32(0.002) * vf)[None].expand(n, B),
-                      carry["vol_gain"])            # [N, B]
-    new_carry["vol_gain"] = vg[-1]
-    return new_carry, torch.stack([mix_l * vg, mix_r * vg], dim=-1)
+    with spans.span("fused.block"):
+        B, n = r.B, r.block
+        with spans.span("fused.ops"):
+            if r.single_seg:
+                p, o = r.p_const, r.o_const
+            else:
+                seg = r.seg_of_block[:, k_glob]
+                p = _gather_seg(r.groups[0], r.params, seg, B)
+                o = _gather_seg(r.groups[1], r.ops, seg, B)
+            carry = _apply_ops_b(carry, o,
+                                 r.seg_is_start[:, k_glob][:, None], r.feat)
+        cbase = k_glob * n + 1           # 1-based global sample count
+        feat = r.feat
+        bounds = np.cumsum((0,) + tuple(r.tiers))
+        layered = len(r.tiers) > 1
+        # taken after the segment-start ops: a delayed read at t = 0 sees a
+        # sample the segment has just set
+        prev_vm = to_vm_vec(carry["sample"])
+        full_inc = p["phase_inc"]
+        nblk = None if r.noise is None \
+            else r.noise[k_glob * n:(k_glob + 1) * n]
+        if r.mix:
+            mask = r.mix_mask if r.single_seg else _mix_mask(p, feat)
+            wl_vm = to_vm_vec(torch.where(mask, carry["pan_l"], 0.0))
+            wr_vm = to_vm_vec(torch.where(mask, carry["pan_r"], 0.0))
+        parts, nc_parts = [], []
+        acc = None                       # the kernel-mixed tiers' sums
+        for ti in range(len(r.tiers)):
+            with spans.span("fused.tier"):
+                ts, te = int(bounds[ti]), int(bounds[ti + 1])
+                p_t = _tier_slice(p, ts, te, r.Vp)
+                c_t = _tier_slice(carry, ts, te, r.Vp)
+                ft = r.tier_feat(ti)
+                fold = r.folds(ti)
+                if ft.noise:
+                    run = functools.partial(_noise_pass, noise_blk=nblk)
+                else:
+                    run = _voice_block_pass
+                if r.single_seg:
+                    tp = r.tier_params[ti]
+                else:
+                    tp = _pass_params(p_t, full_inc, ft, fold)
+                if not r.streams_in(ti):
+                    est = None
+                elif layered:
+                    # earlier tiers' columns of the block buffer are the bank
+                    est = r.buf[:, :ts * B]
+                else:
+                    # fixed-point passes read columns that have not converged
+                    est = _estimate(r, run, c_t, p_t, tp, prev_vm, cbase)
+                out_cols = r.buf[:, ts * B:te * B]
+                kw = dict(out=out_cols)
+                if not ft.noise:
+                    kw["fold"] = fold
+                    if r.mix:
+                        kw.update(mixw=(wl_vm[ts * B:te * B],
+                                        wr_vm[ts * B:te * B]), acc=acc)
+                out_t, contrib_t, (aa_t, il_t), nc_t, macc = run(
+                    est, prev_vm[:ts * B] if layered else prev_vm, c_t, p_t,
+                    tp, cbase, r.table, r.exact, ft, n, B, **kw)
+                if macc is not None:
+                    acc = macc
+                nc_parts.append(nc_t)
+                parts.append((out_t, contrib_t, aa_t, il_t, (ts, te),
+                              macc is not None))
+        with spans.span("fused.mix"):
+            new_carry = {kk: torch.cat([nc[kk] for nc in nc_parts], dim=1)
+                         for kk in _CK}
+            mix_l, mix_r, pan_upd = _mix_parts(carry, p, parts, feat, n, B,
+                                               acc, caps)
+            if pan_upd is not None:
+                lanes, new_pl, new_pr = pan_upd
+                new_carry["pan_l"][:, lanes] = new_pl
+                new_carry["pan_r"][:, lanes] = new_pr
+        with spans.span("fused.volume"):
+            vf = p["volume_final"]                  # [B]
+            a = f32(np.float32(1.0) - np.float32(0.002))
+            vg = _affine_scan(torch.full_like(vf, a)[None],
+                              (f32(0.002) * vf)[None].expand(n, B),
+                              carry["vol_gain"])    # [N, B]
+            new_carry["vol_gain"] = vg[-1]
+            return new_carry, torch.stack([mix_l * vg, mix_r * vg], dim=-1)
 
 
 def from_stacked(st, device="cuda") -> dict:
@@ -997,9 +1004,10 @@ def _packed(st, capture=False, mix=True, fold=True, pack=True):
             "engine cannot render it; use engine.cyclic.render_cyclic")
     if capture:
         mix = fold = False
-    if "fm_delayed" not in st.params:
-        st = pack_stacked(st, pack=pack)
-    return st, plan(st, mix, fold)
+    with spans.span("fused.pack"):
+        if "fm_delayed" not in st.params:
+            st = pack_stacked(st, pack=pack)
+        return st, plan(st, mix, fold)
 
 
 def _prepare(st, exact, device, capture=False, noise_blocks=None,
@@ -1009,64 +1017,65 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
     covers ``noise_blocks`` (default: all) blocks.  ``pl``: the plan to
     render ``st`` (packed) by, a larger batch's when ``st`` is a shard of
     it; else ``_packed``'s."""
-    if pl is None:
-        st, pl = _packed(st, capture, mix, fold)
-    feat = pl.feat
-    if exact is None:
-        exact = True
-    # the kernel reads table_off + [0, table_size) unchecked: hold every
-    # lane's table inside the buffer here, on the host
-    end = (np.asarray(st.params["table_off"], np.int64)
-           + np.maximum(np.asarray(st.params["table_size"], np.int64), 1))
-    if end.size and int(end.max()) > np.asarray(st.table_buffer).size:
-        raise ValueError("a lane's table runs past the table buffer")
-    d = from_stacked(st, device)
-    params, ops = d["params"], d["ops"]
-    Vp = pl.Vp
-    single_seg = all(v.shape[1] == 1 for v in params.values()) \
-        and all(v.shape[1] == 1 for v in ops.values())
-    r = _Render(**{f.name: getattr(pl, f.name)
-                   for f in dataclasses.fields(Plan)},
-                params=params, ops=ops,
-                seg_of_block=torch.as_tensor(d["seg_of_block"],
-                                             device=device).long(),
-                seg_is_start=torch.as_tensor(d["seg_is_start"],
-                                             device=device),
-                table=d["table_buffer"], B=st.batch, block=st.block,
-                exact=bool(exact), single_seg=single_seg,
-                buf=torch.empty((st.block, Vp * st.batch), dtype=F32,
-                                device=device))
-    if feat.noise:
-        nb = st.num_blocks if noise_blocks is None else noise_blocks
-        stream = noise_stream(nb * st.block) if noise is None \
-            else np.asarray(noise, np.float32)[:nb * st.block]
-        r.noise = torch.as_tensor(stream, device=device)
-    if single_seg:
-        r.p_const = {k: v[:, 0] for k, v in params.items()}
-        r.o_const = {k: v[:, 0] for k, v in ops.items()}
-        bounds = np.cumsum((0,) + r.tiers)
-        r.tier_params = []
-        for ti in range(len(r.tiers)):
-            ts, te = int(bounds[ti]), int(bounds[ti + 1])
-            p_t = _tier_slice(r.p_const, ts, te, Vp)
-            r.tier_params.append(_pass_params(
-                p_t, r.p_const["phase_inc"], r.tier_feat(ti), r.folds(ti)))
-        passes, ns = r.estimate()
-        if passes and ns < Vp:
-            r.src_params = _pass_params(
-                _tier_slice(r.p_const, 0, r.n_src, Vp),
-                r.p_const["phase_inc"], feat)
-        r.mix_mask = _mix_mask(r.p_const, feat)
-    else:
-        r.groups = (_pack_by_dtype(params, Vp), _pack_by_dtype(ops, Vp))
-    if _builds_kernels(device):
-        from skred_tpu_torch.engine.kernels import build
+    with spans.span("fused.prepare"):
+        if pl is None:
+            st, pl = _packed(st, capture, mix, fold)
+        feat = pl.feat
+        if exact is None:
+            exact = True
+        # the kernel reads table_off + [0, table_size) unchecked: hold every
+        # lane's table inside the buffer here, on the host
+        end = (np.asarray(st.params["table_off"], np.int64)
+               + np.maximum(np.asarray(st.params["table_size"], np.int64), 1))
+        if end.size and int(end.max()) > np.asarray(st.table_buffer).size:
+            raise ValueError("a lane's table runs past the table buffer")
+        d = from_stacked(st, device)
+        params, ops = d["params"], d["ops"]
+        Vp = pl.Vp
+        single_seg = all(v.shape[1] == 1 for v in params.values()) \
+            and all(v.shape[1] == 1 for v in ops.values())
+        r = _Render(**{f.name: getattr(pl, f.name)
+                       for f in dataclasses.fields(Plan)},
+                    params=params, ops=ops,
+                    seg_of_block=torch.as_tensor(d["seg_of_block"],
+                                                 device=device).long(),
+                    seg_is_start=torch.as_tensor(d["seg_is_start"],
+                                                 device=device),
+                    table=d["table_buffer"], B=st.batch, block=st.block,
+                    exact=bool(exact), single_seg=single_seg,
+                    buf=torch.empty((st.block, Vp * st.batch), dtype=F32,
+                                    device=device))
+        if feat.noise:
+            nb = st.num_blocks if noise_blocks is None else noise_blocks
+            stream = noise_stream(nb * st.block) if noise is None \
+                else np.asarray(noise, np.float32)[:nb * st.block]
+            r.noise = torch.as_tensor(stream, device=device)
+        if single_seg:
+            r.p_const = {k: v[:, 0] for k, v in params.items()}
+            r.o_const = {k: v[:, 0] for k, v in ops.items()}
+            bounds = np.cumsum((0,) + r.tiers)
+            r.tier_params = []
+            for ti in range(len(r.tiers)):
+                ts, te = int(bounds[ti]), int(bounds[ti + 1])
+                p_t = _tier_slice(r.p_const, ts, te, Vp)
+                r.tier_params.append(_pass_params(
+                    p_t, r.p_const["phase_inc"], r.tier_feat(ti), r.folds(ti)))
+            passes, ns = r.estimate()
+            if passes and ns < Vp:
+                r.src_params = _pass_params(
+                    _tier_slice(r.p_const, 0, r.n_src, Vp),
+                    r.p_const["phase_inc"], feat)
+            r.mix_mask = _mix_mask(r.p_const, feat)
+        else:
+            r.groups = (_pack_by_dtype(params, Vp), _pack_by_dtype(ops, Vp))
+        if _builds_kernels(device):
+            from skred_tpu_torch.engine.kernels import build
 
-        # every tier and noise key at once, in parallel, before the first
-        # block (a failed build raises)
-        build.build_all([("tier", key) for key in _tier_keys(r)]
-                        + _noise_keys(r))
-    return st, r, d["carry"]
+            # every tier and noise key at once, in parallel, before the first
+            # block (a failed build raises)
+            build.build_all([("tier", key) for key in _tier_keys(r)]
+                            + _noise_keys(r))
+        return st, r, d["carry"]
 
 
 def _render_chunk(r: _Render, carry, block0, nb, caps=None):
@@ -1110,25 +1119,27 @@ def render_fused(st, noise: Optional[np.ndarray] = None, mesh=None,
     block."""
     from skred_tpu_torch.parallel.batch import shard_rows, take_rows
 
-    st, pl = _packed(st, capture, mix, fold, pack)
-    shards = []
-    for dev, rows in shard_rows(st.batch, [device] if mesh is None
-                                else mesh):
-        _, r, carry = _prepare(take_rows(st, rows), exact, dev, capture,
-                               noise=noise, pl=pl)
-        shards.append((r, carry, [] if capture else None))
-    steps = zip(*(_shard_blocks(r, carry, st.num_blocks, caps)
-                  for r, carry, caps in shards))
-    with torch.no_grad():
-        blocks = list(steps)
-    outs = [torch.stack(o) for o in zip(*blocks)]  # [nb, N, B_shard, 2]
-    out = torch.cat([o.cpu() for o in outs], dim=2).permute(2, 0, 1, 3) \
-        .reshape(st.batch, st.num_blocks * st.block, 2).numpy()
-    if capture:
-        caps = torch.cat([torch.stack(c).cpu() for _, _, c in shards],
-                         dim=1)
-        return out, caps.numpy()
-    return out
+    with spans.span("fused.render"):
+        st, pl = _packed(st, capture, mix, fold, pack)
+        shards = []
+        for dev, rows in shard_rows(st.batch, [device] if mesh is None
+                                    else mesh):
+            _, r, carry = _prepare(take_rows(st, rows), exact, dev, capture,
+                                   noise=noise, pl=pl)
+            shards.append((r, carry, [] if capture else None))
+        steps = zip(*(_shard_blocks(r, carry, st.num_blocks, caps)
+                      for r, carry, caps in shards))
+        with spans.span("fused.block_loop", st.num_blocks), torch.no_grad():
+            blocks = list(steps)
+        with spans.span("fused.download"):
+            outs = [torch.stack(o) for o in zip(*blocks)]  # [nb, N, B_s, 2]
+            out = torch.cat([o.cpu() for o in outs], dim=2) \
+                .permute(2, 0, 1, 3) \
+                .reshape(st.batch, st.num_blocks * st.block, 2).numpy()
+            if capture:
+                caps = torch.cat([torch.stack(c).cpu() for _, _, c in shards],
+                                 dim=1).numpy()
+    return (out, caps) if capture else out
 
 
 def render_fused_device(st, noise=None, exact: Optional[bool] = None,

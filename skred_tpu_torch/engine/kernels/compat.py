@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from skred_tpu_torch import config as C
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels import cuda_call
 from skred_tpu_torch.engine.numerics import div32, f2i, f32, fma32
 
@@ -695,14 +696,15 @@ def compat_block(inp: CompatInputs, carry, noise, block0: int, nb: int,
     voice's post-pan stereo pair.
     Returns ``(carry, out [B, nb*block, 2], cap [B, nb*block, V, 2] or
     None)``; the carry is new tensors, the input's is left as it was."""
-    dev = inp.pf.device
-    if dev.type == "cpu":
-        return compat_block_plain(inp, carry, noise, block0, nb, mod_passes,
-                                  exact, capture)
-    if dev.type != "cuda":
-        raise ValueError(f"compat: no kernel for device {dev}")
-    return _launch(inp, carry, noise, block0, nb, mod_passes, exact,
-                   capture)
+    with spans.span("kernel.compat"):
+        dev = inp.pf.device
+        if dev.type == "cpu":
+            return compat_block_plain(inp, carry, noise, block0, nb,
+                                      mod_passes, exact, capture)
+        if dev.type != "cuda":
+            raise ValueError(f"compat: no kernel for device {dev}")
+        return _launch(inp, carry, noise, block0, nb, mod_passes, exact,
+                       capture)
 
 
 compat_block.launches = 0

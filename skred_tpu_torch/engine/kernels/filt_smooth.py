@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels import cuda_call
 from skred_tpu_torch.engine.kernels.tier import bank_args, bank_read
 from skred_tpu_torch.engine.numerics import div32, fma32, kfma
@@ -411,18 +412,20 @@ def filt_smooth_noise(f, noise_blk, cnt, cbase, bank, vecs, states, *, feat,
     hold_count, hold_val).  feat: (flt, sm, hold, quant, am_self, env,
     am, finish).  out: an [N, M] view to write into (e.g. the tier's
     columns of the block buffer).  Returns (out, end-state dict)."""
-    dev = f.device
-    if dev.type == "cpu":
-        return filt_smooth_noise_plain(f, noise_blk, cnt, cbase, bank, vecs,
-                                       states, feat=feat, b=b, out=out)
-    if dev.type != "cuda":
-        raise ValueError(f"filt_smooth_noise: no kernel for device {dev}")
-    args, out, ends = _fn_pack(f, noise_blk, cnt, cbase, bank, vecs, states,
-                               feat, b, out)
-    cuda_call.launch("filt_smooth", args, dev, filt_smooth_key(feat),
-                     "filt_smooth_keyed_launch")
-    filt_smooth_noise.launches += 1
-    return out, ends
+    with spans.span("kernel.filt_smooth"):
+        dev = f.device
+        if dev.type == "cpu":
+            return filt_smooth_noise_plain(f, noise_blk, cnt, cbase, bank,
+                                           vecs, states, feat=feat, b=b,
+                                           out=out)
+        if dev.type != "cuda":
+            raise ValueError(f"filt_smooth_noise: no kernel for device {dev}")
+        args, out, ends = _fn_pack(f, noise_blk, cnt, cbase, bank, vecs,
+                                   states, feat, b, out)
+        cuda_call.launch("filt_smooth", args, dev, filt_smooth_key(feat),
+                         "filt_smooth_keyed_launch")
+        filt_smooth_noise.launches += 1
+        return out, ends
 
 
 filt_smooth_noise.launches = 0

@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels import cuda_call
 
 F32 = torch.float32
@@ -88,9 +89,10 @@ def _run(table, base, limit, idx, lane_major):
 def lookup(table, base, limit, idx):
     """table: [R] f32 flat buffer; base, limit: [M] i32; idx: [N, M] i32.
     Returns [N, M] f32 (see the module docstring)."""
-    out, launched = _run(table, base, limit, idx, False)
-    lookup.launches += launched
-    return out
+    with spans.span("kernel.lookup"):
+        out, launched = _run(table, base, limit, idx, False)
+        lookup.launches += launched
+        return out
 
 
 def _slot_args(table3, slot, slot_size):

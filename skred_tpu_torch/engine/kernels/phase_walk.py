@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels import cuda_call
 from skred_tpu_torch.engine.kernels.tier import bank_args, bank_read
 from skred_tpu_torch.engine.numerics import cz_phasor, f32, fma32
@@ -318,17 +319,18 @@ def phase_walk_warp(bank, vecs, phase0, fin0, *, feat, n, b):
     i32 (with finish).  feat: (fm, finish, direction, cz, czm, cz_modes,
     ts_pow2).  Returns (idx [N, M] i32, cnt [M] i32, phase_end [M],
     fin_end [M] or None)."""
-    dev = phase0.device
-    if dev.type == "cpu":
-        return phase_walk_warp_plain(bank, vecs, phase0, fin0, feat=feat,
-                                     n=n, b=b)
-    if dev.type != "cuda":
-        raise ValueError(f"phase_walk_warp: no kernel for device {dev}")
-    args, outs = _pw_pack(bank, vecs, phase0, fin0, feat, n, b)
-    cuda_call.launch("phase_walk", args, dev, phase_walk_key(feat),
-                     "phase_walk_keyed_launch")
-    phase_walk_warp.launches += 1
-    return outs
+    with spans.span("kernel.phase_walk"):
+        dev = phase0.device
+        if dev.type == "cpu":
+            return phase_walk_warp_plain(bank, vecs, phase0, fin0, feat=feat,
+                                         n=n, b=b)
+        if dev.type != "cuda":
+            raise ValueError(f"phase_walk_warp: no kernel for device {dev}")
+        args, outs = _pw_pack(bank, vecs, phase0, fin0, feat, n, b)
+        cuda_call.launch("phase_walk", args, dev, phase_walk_key(feat),
+                         "phase_walk_keyed_launch")
+        phase_walk_warp.launches += 1
+        return outs
 
 
 phase_walk_warp.launches = 0

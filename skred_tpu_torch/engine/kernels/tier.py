@@ -57,6 +57,7 @@ from typing import NamedTuple
 
 import torch
 
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels import cuda_call
 from skred_tpu_torch.engine.numerics import (cz_scales, cz_warp_coeffs,
                                              cz_warp_fast, cz_warp_k, f32,
@@ -667,31 +668,32 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
     phases (timing only); the other two refuse it.
 
     Returns (out [N, M], end-state dict incl. cnt)."""
-    kw = dict(feat=feat, exact=exact, n=n, b=b, mixw=mixw, acc=acc,
-              fold=fold, out=out)
-    if MEGA_ABLATE and (table.device.type == "cpu"
-                        or variant == "general"):
-        raise ValueError(
-            f"tier: ablation {sorted(MEGA_ABLATE)} stubs phases of the keyed "
-            f"kernel only; the "
-            + ("plain version (a CPU tensor)" if table.device.type == "cpu"
-               else "general variant") + " has no stubs")
-    if table.device.type == "cpu":
-        return tier_plain(table, cbase, inc, dm, amod, vecs, states, **kw)
-    if table.device.type != "cuda":
-        raise ValueError(f"tier: no kernel for device {table.device}")
-    if variant not in (None, "keyed", "general"):
-        raise ValueError(f"tier: no variant {variant!r}")
-    args, out, outs = _pack_args(table, cbase, inc, dm, amod, vecs, states,
-                                 **kw)
-    if variant == "general":
-        tier_general(args, table.device)
-    else:
-        folded = _folded(_flags(feat), fold)
-        tier_keyed(args, tier_key(feat, exact, mixw is not None, folded,
-                                  MEGA_ABLATE), table.device)
-    tier.launches += 1
-    return out, outs
+    with spans.span("kernel.tier"):
+        kw = dict(feat=feat, exact=exact, n=n, b=b, mixw=mixw, acc=acc,
+                  fold=fold, out=out)
+        if MEGA_ABLATE and (table.device.type == "cpu"
+                            or variant == "general"):
+            raise ValueError(
+                f"tier: ablation {sorted(MEGA_ABLATE)} stubs phases of the "
+                f"keyed kernel only; the "
+                + ("plain version (a CPU tensor)" if table.device.type == "cpu"
+                   else "general variant") + " has no stubs")
+        if table.device.type == "cpu":
+            return tier_plain(table, cbase, inc, dm, amod, vecs, states, **kw)
+        if table.device.type != "cuda":
+            raise ValueError(f"tier: no kernel for device {table.device}")
+        if variant not in (None, "keyed", "general"):
+            raise ValueError(f"tier: no variant {variant!r}")
+        args, out, outs = _pack_args(table, cbase, inc, dm, amod, vecs, states,
+                                     **kw)
+        if variant == "general":
+            tier_general(args, table.device)
+        else:
+            folded = _folded(_flags(feat), fold)
+            tier_keyed(args, tier_key(feat, exact, mixw is not None, folded,
+                                      MEGA_ABLATE), table.device)
+        tier.launches += 1
+        return out, outs
 
 
 tier.launches = 0

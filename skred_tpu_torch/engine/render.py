@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from skred_tpu_torch import config as C
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels.compat import (compat_block,
                                                    pack_inputs, zero_carry)
 from skred_tpu_torch.host.timeline import Timeline, noise_stream
@@ -74,17 +75,19 @@ def render_chunks(inp, mod_passes: int, noise, exact: bool, capture: bool,
     carry = zero_carry(inp.rows, inp.pf.device)
     for b0 in range(0, blocks, chunk_blocks):
         nb = min(chunk_blocks, blocks - b0)
-        carry, out, cap = compat_block(
-            inp, carry, noise[b0 * n:(b0 + nb) * n], b0, nb,
-            mod_passes, exact, capture)
+        with spans.span("render.chunk"):
+            carry, out, cap = compat_block(
+                inp, carry, noise[b0 * n:(b0 + nb) * n], b0, nb,
+                mod_passes, exact, capture)
         yield out, cap
 
 
 def _noise(noise, total, device):
-    stream = noise_stream(total) if noise is None \
-        else np.asarray(noise, np.float32)[:total]
-    return torch.as_tensor(np.ascontiguousarray(stream, np.float32),
-                           device=device)
+    with spans.span("render.noise"):
+        stream = noise_stream(total) if noise is None \
+            else np.asarray(noise, np.float32)[:total]
+        return torch.as_tensor(np.ascontiguousarray(stream, np.float32),
+                               device=device)
 
 
 def render_rows(batch, capture: bool = False, noise=None,
@@ -98,20 +101,25 @@ def render_rows(batch, capture: bool = False, noise=None,
 
     st = _stacked(batch)
     total = st.num_blocks * st.block
-    gens = [render_chunks(stacked_inputs(take_rows(st, rows), dev),
-                          st.mod_passes, _noise(noise, total, dev), exact,
-                          capture)
-            for dev, rows in shard_rows(st.batch, [device] if mesh is None
-                                        else mesh)]
-    outs, caps = [], []
-    with torch.no_grad():
-        for chunk in zip(*gens):         # every shard's chunk, launched
-            outs.append(np.concatenate([o.cpu().numpy() for o, _ in chunk]))
-            if capture:
-                caps.append(np.concatenate([c.cpu().numpy()
-                                            for _, c in chunk]))
-    out = np.concatenate(outs, axis=1)
-    return (out, np.concatenate(caps, axis=1)) if capture else out
+    with spans.span("render.timeline"):
+        with spans.span("render.inputs"):
+            shards = [(stacked_inputs(take_rows(st, rows), dev),
+                       _noise(noise, total, dev))
+                      for dev, rows in shard_rows(
+                          st.batch, [device] if mesh is None else mesh)]
+        gens = [render_chunks(inp, st.mod_passes, nz, exact, capture)
+                for inp, nz in shards]
+        outs, caps = [], []
+        with torch.no_grad():
+            for chunk in zip(*gens):     # every shard's chunk, launched
+                with spans.span("render.download"):
+                    outs.append(np.concatenate([o.cpu().numpy()
+                                                for o, _ in chunk]))
+                    if capture:
+                        caps.append(np.concatenate([c.cpu().numpy()
+                                                    for _, c in chunk]))
+        out = np.concatenate(outs, axis=1)
+        return (out, np.concatenate(caps, axis=1)) if capture else out
 
 
 def render_timeline(tl: Timeline, capture: bool = False,

@@ -97,16 +97,18 @@ def main(seconds: float = 4.0, device="cuda") -> int:
 
 def _render(history: list[str], sec: float, out: str, bank,
             device="cuda") -> None:
-    import time
-
+    from skred_tpu_torch import spans
     from skred_tpu_torch.assets.bank import write_wav_16
     from skred_tpu_torch.engine import render_timeline
     from skred_tpu_torch.host.timeline import compile_script
 
-    t0 = time.time()
-    tl = compile_script(list(history), sec, bank=bank,
-                        script_dir=pathlib.Path.cwd())
-    audio = render_timeline(tl, device=device)
-    write_wav_16(out, audio)
-    print(f"# rendered {sec:g}s -> {out} in {time.time() - t0:.2f}s "
-          f"({tl.num_segments} segments)")
+    with spans.span("repl.render") as whole:
+        with spans.span("repl.compile") as comp:
+            tl = compile_script(list(history), sec, bank=bank,
+                                script_dir=pathlib.Path.cwd())
+            comp.n = tl.num_segments
+        audio = render_timeline(tl, device=device)
+        with spans.span("repl.write_wav"):
+            write_wav_16(out, audio)
+    print(f"# rendered {sec:g}s -> {out} in {whole.dur_ns / 1e9:.2f}s "
+          f"({comp.n} segments)")

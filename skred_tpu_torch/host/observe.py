@@ -5,37 +5,15 @@
   * ``/S`` queue + session dump (wire.c:245-261, show_stats)
   * ``W``  wavetable stats + preview (wire.c:521-551 wavetable_show,
     downsample_block_average_min_max :468-507)
-  * the perf event firehose (mpsc_queue.h + wire.c:29-60) → a plain
-    in-process event log of every dispatched wire line
 """
 
 from __future__ import annotations
 
-import time
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
 from skred_tpu_torch import config as C
-
-
-class EventLog:
-    """Offline analog of the MPSC perf queue: wire lines with timestamps
-    (host wall clock + engine sample count)."""
-
-    def __init__(self, capacity: int = 65536):
-        self.capacity = capacity
-        self.items: List[Tuple[float, int, str]] = []
-
-    def send(self, sample_count: int, line: str) -> None:
-        if len(self.items) >= self.capacity:
-            self.items.pop(0)
-        self.items.append((time.time(), sample_count, line))
-
-    def drain(self) -> List[Tuple[float, int, str]]:
-        out = self.items
-        self.items = []
-        return out
 
 
 def system_show(engine) -> str:
