@@ -97,6 +97,10 @@ def test_fused_render_records_its_tree(stress64_batch):
         assert len(tiers) == len(st.tiers)
         for t in tiers:
             assert [r.name for r in _children(recs, t)] == ["kernel.tier"]
+    down = _one(recs, "fused.download")
+    tail = _children(recs, down)
+    assert [r.name for r in tail] == ["fused.download_tail"]
+    assert 0 <= tail[0].n <= st.num_blocks
     assert out.shape == (st.batch, BLOCKS * st.block, 2)
     for r in recs:
         assert r.dur_ns >= 0 and not r.profiled
