@@ -24,8 +24,20 @@ the batch, because the kernel takes one table base per voice.  Buckets
 are built per script identity, so every batch ``render_batch`` makes
 passes.
 
-``render_cyclic_each`` renders several batches over a mesh of devices,
-their blocks in turn (``render_batch``'s cyclic scripts).
+``render_cyclic`` renders one batch and hands each block to the fused
+renderer's download (``fused._Download``): the audio leaves the card in
+chunks while the block loop runs and lands in one array of the caller's
+own.  ``render_batch`` renders each group of its cyclic scripts (those
+that share a ``parallel.batch.cyclic_group_key``) as one batch through
+it; with a mesh, ``render_cyclic_each`` renders the groups over its
+devices, their blocks in turn.
+
+Spans (``spans.py``): ``cyclic.render`` around ``render_cyclic``;
+``cyclic.prepare`` (every entry point's set-up); ``cyclic.block_loop``
+(``n`` = blocks) and each ``cyclic.block``, inside which the kernel's
+wrapper records ``kernel.cyclic`` (``n`` = packed voices);
+``cyclic.download`` and inside it ``cyclic.download_tail`` (``n`` = blocks
+not yet in the result when the loop closed).
 
 Port of ``skred_tpu.engine.cyclic`` (cyclic_gate, the block scan,
 render_cyclic, render_cyclic_stream, render_cyclic_stream_device).
@@ -41,9 +53,10 @@ import numpy as np
 import torch
 
 from skred_tpu_torch import config as C
-from skred_tpu_torch.engine.fused import (Feat, _apply_ops_b, _gather_seg,
-                                          _pack_by_dtype, compute_feat,
-                                          from_stacked)
+from skred_tpu_torch import spans
+from skred_tpu_torch.engine.fused import (Feat, _apply_ops_b, _Download,
+                                          _gather_seg, _pack_by_dtype,
+                                          compute_feat, from_stacked)
 from skred_tpu_torch.engine.kernels.cyclic import cyclic_block
 from skred_tpu_torch.engine.numerics import div32
 from skred_tpu_torch.host.timeline import noise_stream
@@ -169,39 +182,42 @@ def _prep(st, exact, device, noise=None, noise_blocks=None):
     Returns (st, _Cyclic, zero carry)."""
     from skred_tpu_torch.parallel.batch import pack_stacked
 
-    if "fm_delayed" not in st.params:
-        st = pack_stacked(st, cyclic=True)
-    reason = cyclic_gate(st)
-    if reason is not None:
-        raise ValueError(f"cyclic kernel ineligible: {reason}")
-    # the kernel reads table_off + [0, table_size) unchecked: hold every
-    # voice's table inside the buffer here, on the host
-    end = (np.asarray(st.params["table_off"], np.int64)
-           + np.maximum(np.asarray(st.params["table_size"], np.int64), 1))
-    if end.size and int(end.max()) > np.asarray(st.table_buffer).size:
-        raise ValueError("a voice's table runs past the table buffer")
-    feat = compute_feat(st)
-    d = from_stacked(st, device)
-    params, ops = d["params"], d["ops"]
-    k = params["amp"].shape[-1]
-    single_seg = all(v.shape[1] == 1 for v in params.values()) \
-        and all(v.shape[1] == 1 for v in ops.values())
-    r = _Cyclic(params=params, ops=ops, seg_of_block=d["seg_of_block"],
-                seg_is_start=d["seg_is_start"] != 0,
-                table=d["table_buffer"], B=st.batch, k=k, block=st.block,
-                feat=feat, exact=bool(exact), single_seg=single_seg)
-    if feat.noise:
-        nb = st.num_blocks if noise_blocks is None else noise_blocks
-        stream = noise_stream(nb * st.block) if noise is None \
-            else np.asarray(noise, np.float32)[:nb * st.block]
-        r.noise = torch.as_tensor(stream, device=device)
-    if single_seg:
-        p = {kk: v[:, 0] for kk, v in params.items()}
-        o = {kk: v[:, 0] for kk, v in ops.items()}
-        r.built = (None, p, o, *_vecs(p, feat))
-    else:
-        r.groups = (_pack_by_dtype(params, k), _pack_by_dtype(ops, k))
-    return st, r, d["carry"]
+    with spans.span("cyclic.prepare"):
+        if "fm_delayed" not in st.params:
+            st = pack_stacked(st, cyclic=True)
+        reason = cyclic_gate(st)
+        if reason is not None:
+            raise ValueError(f"cyclic kernel ineligible: {reason}")
+        # the kernel reads table_off + [0, table_size) unchecked: hold
+        # every voice's table inside the buffer here, on the host
+        end = (np.asarray(st.params["table_off"], np.int64)
+               + np.maximum(np.asarray(st.params["table_size"], np.int64),
+                            1))
+        if end.size and int(end.max()) > np.asarray(st.table_buffer).size:
+            raise ValueError("a voice's table runs past the table buffer")
+        feat = compute_feat(st)
+        d = from_stacked(st, device)
+        params, ops = d["params"], d["ops"]
+        k = params["amp"].shape[-1]
+        single_seg = all(v.shape[1] == 1 for v in params.values()) \
+            and all(v.shape[1] == 1 for v in ops.values())
+        r = _Cyclic(params=params, ops=ops, seg_of_block=d["seg_of_block"],
+                    seg_is_start=d["seg_is_start"] != 0,
+                    table=d["table_buffer"], B=st.batch, k=k,
+                    block=st.block, feat=feat, exact=bool(exact),
+                    single_seg=single_seg)
+        if feat.noise:
+            nb = st.num_blocks if noise_blocks is None else noise_blocks
+            stream = noise_stream(nb * st.block) if noise is None \
+                else np.asarray(noise, np.float32)[:nb * st.block]
+            r.noise = torch.as_tensor(stream, device=device)
+        if single_seg:
+            p = {kk: v[:, 0] for kk, v in params.items()}
+            o = {kk: v[:, 0] for kk, v in ops.items()}
+            r.built = (None, p, o, *_vecs(p, feat))
+        else:
+            r.groups = (_pack_by_dtype(params, k), _pack_by_dtype(ops, k))
+        return st, r, d["carry"]
 
 
 def _block_step(r: _Cyclic, carry, kb):
@@ -210,32 +226,33 @@ def _block_step(r: _Cyclic, carry, kb):
     it; the kernel takes its transposed views and returns the same
     layout, so no state is copied.  Returns (carry, out [2, N, B])."""
     B, n = r.B, r.block
-    if not r.single_seg:
-        # segments last many blocks: gather and derive only when a row's
-        # segment changes
-        seg = np.ascontiguousarray(r.seg_of_block[:, kb])
-        if r.built is None or r.built[0] != seg.tobytes():
-            seg_t = torch.as_tensor(seg, device=r.table.device).long()
-            p = _gather_seg(r.groups[0], r.params, seg_t, B)
-            o = _gather_seg(r.groups[1], r.ops, seg_t, B)
-            r.built = (seg.tobytes(), p, o, *_vecs(p, r.feat))
-    _, p, o, vecs, table_off = r.built
-    start = r.seg_is_start[:, kb]
-    if start.any():
-        # rows that start no segment keep their carry: without one the
-        # ops change nothing
-        flag = torch.as_tensor(start, device=r.table.device)[:, None]
-        carry = _apply_ops_b(carry, o, flag, r.feat)
-    states = {kk: carry[kk].T for kk in _STATE_NAMES}
-    states["vol_gain"] = carry["vol_gain"]
-    nblk = r.noise[kb * n:(kb + 1) * n] if r.noise is not None else None
-    out_l, out_r, ns = cyclic_block(
-        r.table, table_off, kb * n + 1, nblk, vecs, states,
-        p["volume_final"], r.feat, r.k, n, r.exact)
-    new_carry = dict(carry)
-    for kk, vv in ns.items():
-        new_carry[kk] = vv.T if vv.dim() == 2 else vv
-    return new_carry, torch.stack([out_l.T, out_r.T])
+    with spans.span("cyclic.block"):
+        if not r.single_seg:
+            # segments last many blocks: gather and derive only when a
+            # row's segment changes
+            seg = np.ascontiguousarray(r.seg_of_block[:, kb])
+            if r.built is None or r.built[0] != seg.tobytes():
+                seg_t = torch.as_tensor(seg, device=r.table.device).long()
+                p = _gather_seg(r.groups[0], r.params, seg_t, B)
+                o = _gather_seg(r.groups[1], r.ops, seg_t, B)
+                r.built = (seg.tobytes(), p, o, *_vecs(p, r.feat))
+        _, p, o, vecs, table_off = r.built
+        start = r.seg_is_start[:, kb]
+        if start.any():
+            # rows that start no segment keep their carry: without one the
+            # ops change nothing
+            flag = torch.as_tensor(start, device=r.table.device)[:, None]
+            carry = _apply_ops_b(carry, o, flag, r.feat)
+        states = {kk: carry[kk].T for kk in _STATE_NAMES}
+        states["vol_gain"] = carry["vol_gain"]
+        nblk = r.noise[kb * n:(kb + 1) * n] if r.noise is not None else None
+        out_l, out_r, ns = cyclic_block(
+            r.table, table_off, kb * n + 1, nblk, vecs, states,
+            p["volume_final"], r.feat, r.k, n, r.exact)
+        new_carry = dict(carry)
+        for kk, vv in ns.items():
+            new_carry[kk] = vv.T if vv.dim() == 2 else vv
+        return new_carry, torch.stack([out_l.T, out_r.T])
 
 
 def _render_chunk(r: _Cyclic, carry, block0, nb):
@@ -270,11 +287,29 @@ def render_cyclic_stream(st, chunk_blocks: int = 172, noise=None,
 
 def render_cyclic(st, noise=None, exact: bool = True,
                   device="cuda") -> np.ndarray:
-    """Full render → numpy ``[B, T, 2]`` (tests and small batches)."""
-    chunks = list(render_cyclic_stream(st, chunk_blocks=st.num_blocks,
-                                       noise=noise, exact=exact,
-                                       device=device))
-    return np.concatenate(chunks, axis=1)
+    """Full render → numpy ``[B, T, 2]``, an array of the caller's own.
+    Each block is handed to ``fused._Download`` as the loop makes it, so
+    the audio leaves the card in chunks while the loop runs, and at most
+    a chunk of blocks and its staging stay on the card.  Runs on the card
+    unless ``device="cpu"``."""
+    with spans.span("cyclic.render"):
+        # built before the set-up, as render_fused builds it: its worker
+        # touches the result's pages meanwhile
+        down = _Download([(torch.device(device), np.arange(st.batch))],
+                         st.num_blocks, st.block)
+        try:
+            st, r, carry = _prep(st, exact, device, noise)
+            with spans.span("cyclic.block_loop", st.num_blocks), \
+                    torch.no_grad():
+                for kb in range(st.num_blocks):
+                    carry, o = _block_step(r, carry, kb)
+                    down.add([o.permute(1, 2, 0)])     # [N, B, 2]
+            with spans.span("cyclic.download"):
+                with spans.span("cyclic.download_tail", down.pending()):
+                    out = down.finish()
+        finally:
+            down.close()
+    return out
 
 
 def render_cyclic_each(sts, mesh, noise=None,

@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from skred_tpu_torch import spans
 from skred_tpu_torch.engine.kernels import cuda_call
 from skred_tpu_torch.engine.numerics import (cz_scales, cz_warp_k, f32,
                                              kdiv_inv, kfma)
@@ -572,35 +573,39 @@ def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
     ``CYC_ABLATE`` stubs the keyed variant's phases (timing only); the
     plain version and the general variant refuse it.  Returns
     ``(out_l [B, n], out_r [B, n], new_states)``; new_states holds the
-    states that ``feat`` lets the block change, and vol_gain."""
-    dev = vf.device
-    if CYC_ABLATE and (dev.type == "cpu"
-                       or (variant or variant_for(k)) == "general"):
-        raise ValueError(
-            f"cyclic: ablation {sorted(CYC_ABLATE)} stubs phases of the "
-            f"keyed kernel only; the "
-            + ("plain version (a CPU tensor)" if dev.type == "cpu"
-               else "general variant") + " has no stubs")
-    if dev.type == "cpu":
-        return cyclic_block_plain(table, table_off, cbase, noise_blk, vecs,
-                                  states, vf, feat, k, n, exact)
-    if dev.type != "cuda":
-        raise ValueError(f"cyclic: no kernel for device {dev}")
-    variant = variant or variant_for(k)
-    if variant == "fixed" and not 1 <= k <= FIXED_K_MAX:
-        raise ValueError(f"cyclic: the keyed variant takes 1 to "
-                         f"{FIXED_K_MAX} voices, not {k}")
-    if variant not in ("fixed", "general"):
-        raise ValueError(f"cyclic: no variant {variant!r}")
-    args, out_l, out_r, new_states = _pack_args(
-        table, table_off, cbase, noise_blk, vecs, states, vf, feat, k, n,
-        exact)
-    if variant == "fixed":
-        cyclic_fixed(args, fixed_key(feat, k, exact, CYC_ABLATE), dev)
-    else:
-        cyclic_general(args, dev)
-    cyclic_block.launches += 1
-    return out_l, out_r, new_states
+    states that ``feat`` lets the block change, and vol_gain.  The
+    argument building and the launch (or the plain version) run inside
+    the span ``kernel.cyclic``, ``n`` = ``k``: a reader tells the variant
+    by it."""
+    with spans.span("kernel.cyclic", k):
+        dev = vf.device
+        if CYC_ABLATE and (dev.type == "cpu"
+                           or (variant or variant_for(k)) == "general"):
+            raise ValueError(
+                f"cyclic: ablation {sorted(CYC_ABLATE)} stubs phases of the "
+                f"keyed kernel only; the "
+                + ("plain version (a CPU tensor)" if dev.type == "cpu"
+                   else "general variant") + " has no stubs")
+        if dev.type == "cpu":
+            return cyclic_block_plain(table, table_off, cbase, noise_blk, vecs,
+                                      states, vf, feat, k, n, exact)
+        if dev.type != "cuda":
+            raise ValueError(f"cyclic: no kernel for device {dev}")
+        variant = variant or variant_for(k)
+        if variant == "fixed" and not 1 <= k <= FIXED_K_MAX:
+            raise ValueError(f"cyclic: the keyed variant takes 1 to "
+                             f"{FIXED_K_MAX} voices, not {k}")
+        if variant not in ("fixed", "general"):
+            raise ValueError(f"cyclic: no variant {variant!r}")
+        args, out_l, out_r, new_states = _pack_args(
+            table, table_off, cbase, noise_blk, vecs, states, vf, feat, k, n,
+            exact)
+        if variant == "fixed":
+            cyclic_fixed(args, fixed_key(feat, k, exact, CYC_ABLATE), dev)
+        else:
+            cyclic_general(args, dev)
+        cyclic_block.launches += 1
+        return out_l, out_r, new_states
 
 
 cyclic_block.launches = 0

@@ -236,17 +236,21 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
 
     engine "auto": acyclic scripts are grouped by ``bucket_key`` (voices,
     passes, feature set) and each group renders as one batch with the
-    fused engine; a script with a cyclic modulation graph renders alone,
-    at the rows it has, with the cyclic engine, or, where that engine's
-    gate refuses it, with the compat engine (loudly, on stderr).
-    "compat" renders every script with the compat engine
-    (``render_stacked``).  ``outdir`` writes one 16-bit WAV per rendered
-    script.  With a ``mesh`` (``make_mesh``) each fused group and the
-    compat group are padded to a multiple of its device count and split
-    over it, and the cyclic scripts take its devices in turn, their
-    blocks stepped in turn; the audio is the render without a mesh, bit
-    for bit.  Runs on the card unless ``device="cpu"`` (without a
-    mesh)."""
+    fused engine; scripts with a cyclic modulation graph are grouped by
+    ``cyclic_group_key`` and each group renders as one batch with the
+    cyclic engine (``render_cyclic``), each row equal bit for bit to its
+    script rendered alone, or, where that engine's gate refuses the
+    group, with the compat engine (loudly, on stderr).  "compat" renders
+    every script with the compat engine (``render_stacked``).  ``outdir``
+    writes one 16-bit WAV per rendered script.  With a ``mesh``
+    (``make_mesh``) each fused group and the compat group are padded to a
+    multiple of its device count and split over it, and the cyclic
+    groups take its devices in turn, their blocks stepped in turn
+    (``render_cyclic_each``); the audio is the render without a mesh, bit
+    for bit.  Runs on the card unless ``device="cpu"`` (without a mesh).
+    Each cyclic group's packing, gate and render without a mesh run in
+    the span ``batch.cyclic_group``, ``n`` = its rows."""
+    from skred_tpu_torch import spans
     from skred_tpu_torch.assets.bank import WaveBank, write_wav_16
     from skred_tpu_torch.engine import cyclic
     from skred_tpu_torch.engine.fused import render_fused
@@ -288,28 +292,33 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
                 _padded([tls[i] for i in idxs], ndev)))
             out[idxs] = render_fused(st, mesh=mesh,
                                      device=device)[:len(idxs)]
+        groups: dict = {}
         for i in cyclic_idx:
-            # one bucket per script identity keeps the per-voice table
-            # bindings row-uniform, which is all the gate asks for
-            st = pack_stacked(stack_timelines([tls[i]]), cyclic=True)
-            reason = cyclic.cyclic_gate(st)
-            if reason is not None:
-                # the compat engine runs the script on the device through
-                # its own kernel; it is slower than the cyclic kernel, so
-                # the fall-back is loud (skred_tpu/parallel/batch.py:250)
-                print(f"# WARNING: cyclic engine refused script #{i} "
-                      f"({reason}); falling back to the compat scan "
-                      f"engine (orders of magnitude slower on "
-                      f"accelerators)", file=sys.stderr, flush=True)
-                scan_idx.append(i)
-                continue
-            cyc_sts.append((i, st))
+            groups.setdefault(cyclic_group_key(tls[i]), []).append(i)
+        for idxs in groups.values():
+            with spans.span("batch.cyclic_group", len(idxs)):
+                st = pack_stacked(stack_timelines([tls[i] for i in idxs]),
+                                  cyclic=True)
+                reason = cyclic.cyclic_gate(st)
+                if reason is not None:
+                    # the compat engine runs the scripts on the device
+                    # through its own kernel; it is slower than the cyclic
+                    # kernel, so the fall-back is loud
+                    # (skred_tpu/parallel/batch.py:250)
+                    print(f"# WARNING: cyclic engine refused scripts "
+                          f"{', '.join(f'#{i}' for i in idxs)} ({reason}); "
+                          f"falling back to the compat scan engine (orders "
+                          f"of magnitude slower on accelerators)",
+                          file=sys.stderr, flush=True)
+                    scan_idx += idxs
+                elif mesh is None:
+                    out[idxs] = cyclic.render_cyclic(st, device=device)
+                else:
+                    cyc_sts.append((idxs, st))
         if cyc_sts:
-            outs = cyclic.render_cyclic_each(
-                [st for _, st in cyc_sts],
-                [device] if mesh is None else mesh)
-            for (i, _), o in zip(cyc_sts, outs):
-                out[i] = o[0]
+            outs = cyclic.render_cyclic_each([st for _, st in cyc_sts], mesh)
+            for (idxs, _), o in zip(cyc_sts, outs):
+                out[idxs] = o
         if scan_idx:
             out[scan_idx] = stacked(scan_idx)
 
@@ -631,6 +640,29 @@ def bucket_key(tl) -> tuple:
     key = (st1.params["amp"].shape[-1], tl.fused_passes, compute_feat(st1))
     tl._bucket_key = key
     return key
+
+
+def cyclic_group_key(tl) -> tuple:
+    """The group of a timeline whose modulation graph has a cycle: its
+    packed voice count and static feature set (of its cyclic pack), and
+    the table each packed lane binds in each segment (``_table_sig``
+    taken in the pack's lane order, with the lanes' table sizes).  Each
+    row packs its own relevant voices, so lane ``j`` of two scripts can
+    be different voices: the bindings are keyed by lane, as the gate
+    checks them.  Scripts sharing a key render as one batch with the
+    cyclic engine: one kernel build (the count and the features), and
+    per-lane tables uniform across the rows, which is all its gate asks
+    for; each row renders as it would alone."""
+    from skred_tpu_torch.engine.fused import compute_feat
+
+    st1 = pack_stacked(stack_timelines([tl]), cyclic=True)
+    # the cyclic pack's lanes: the relevant voices in ascending order
+    lanes = _relevant_voices(tl.params)
+    sig = np.asarray(_table_sig(tl)).reshape(
+        np.shape(tl.params["table_key"]))[..., lanes]
+    return (st1.params["amp"].shape[-1], compute_feat(st1),
+            tuple(sig.ravel().tolist()),
+            st1.params["table_size"][0].tobytes())
 
 
 def fill_bucket(group: list, vp: int, min_reps: int = 4) -> list:
