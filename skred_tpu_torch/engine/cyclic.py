@@ -33,7 +33,9 @@ it; with a mesh, ``render_cyclic_each`` renders the groups over its
 devices, their blocks in turn.
 
 Spans (``spans.py``): ``cyclic.render`` around ``render_cyclic``;
-``cyclic.prepare`` (every entry point's set-up); ``cyclic.block_loop``
+``cyclic.prepare`` (every entry point's set-up), inside it
+``cyclic.schedule`` (``n`` = the general kernel's waves a frame);
+``cyclic.block_loop``
 (``n`` = blocks) and each ``cyclic.block``, inside which the kernel's
 wrapper records ``kernel.cyclic`` (``n`` = packed voices);
 ``cyclic.download`` and inside it ``cyclic.download_tail`` (``n`` = blocks
@@ -57,7 +59,7 @@ from skred_tpu_torch import spans
 from skred_tpu_torch.engine.fused import (Feat, _apply_ops_b, _Download,
                                           _gather_seg, _pack_by_dtype,
                                           compute_feat, from_stacked)
-from skred_tpu_torch.engine.kernels.cyclic import cyclic_block
+from skred_tpu_torch.engine.kernels.cyclic import cyclic_block, schedule_of
 from skred_tpu_torch.engine.numerics import div32
 from skred_tpu_torch.host.timeline import noise_stream
 
@@ -77,6 +79,30 @@ def cyclic_gate(st) -> Optional[str]:
     return None
 
 
+def _read_vecs(p, feat: Feat) -> dict:
+    """The vectors of ``_vecs`` that say which voice reads which voice's
+    sample, and where a read's value is used; the general kernel's
+    schedule takes these alone (``_schedule``)."""
+    i32 = lambda a: a.to(I32).T.contiguous()
+    v = {}
+    if feat.fm:
+        fmo = p["freq_mod_osc"]
+        v.update(fm_osc=i32(fmo), fm_del=i32(p["fm_delayed"]),
+                 use_fm=i32((fmo >= 0) & (p["fm_self"] == 0)))
+    if feat.cz:
+        v["cz_mode"] = i32(p["cz_mode"])
+        if feat.czm:
+            v.update(cm_osc=i32(p["cz_mod_osc"]),
+                     cm_del=i32(p["cm_delayed"]))
+    if feat.am:
+        v.update(am_osc=i32(p["amp_mod_osc"]), am_del=i32(p["am_delayed"]))
+    if feat.pm:
+        v.update(pm_osc=i32(p["pan_mod_osc"]), pm_del=i32(p["pm_delayed"]))
+    if feat.disc:
+        v["disconn"] = i32(p["disconnect"])
+    return v
+
+
 def _vecs(p, feat: Feat):
     """The kernel's per-voice vectors of one block, contiguous ``[k, B]``
     (rows along the fast axis, so a warp's parameter loads coalesce),
@@ -91,23 +117,21 @@ def _vecs(p, feat: Feat):
         "amp": T(p["amp"]), "pinc": T(p["phase_inc"]),
         "lo": T(lo), "hi": T(hi), "L": T(hi - lo),
         "clip_i": i32(torch.clamp(p["table_size"] - 1, min=0)),
+        **_read_vecs(p, feat),
     }
     if feat.fm:
         fmo = p["freq_mod_osc"]
         mod_inc = torch.gather(p["phase_inc"], 1, fmo.clamp(min=0).long())
-        v.update(fm_osc=i32(fmo), fm_del=i32(p["fm_delayed"]),
-                 use_fm=i32((fmo >= 0) & (p["fm_self"] == 0)),
-                 mis=T(mod_inc * p["freq_scale"]),
+        v.update(mis=T(mod_inc * p["freq_scale"]),
                  fm_dep=T(p["freq_mod_depth"]))
     if feat.direction:
         v["dirneg"] = i32(p["direction"])
     if feat.cz:
-        v.update(cz_mode=i32(p["cz_mode"]), cz_dist=T(p["cz_distortion"]),
-                 tsize=T(tsize_f), inv_ts=T(div32(1.0, tsize_f)))
+        v.update(cz_dist=T(p["cz_distortion"]), tsize=T(tsize_f),
+                 inv_ts=T(div32(1.0, tsize_f)))
         if feat.czm:
             cm = p["cz_mod_osc"]
-            v.update(cm_osc=i32(cm), cm_del=i32(p["cm_delayed"]),
-                     cm_ge=i32(cm >= 0), cm_dep=T(p["cz_mod_depth"]))
+            v.update(cm_ge=i32(cm >= 0), cm_dep=T(p["cz_mod_depth"]))
         else:
             # no effective cz-mod edge: the taken read multiplies to +0.0
             v["dm_row"] = T(torch.where(p["cz_mod_osc"] >= 0, 0.0, 1.0)
@@ -135,20 +159,26 @@ def _vecs(p, feat: Feat):
                  dec=T(p["env_decay"]), sus=T(p["env_sustain"]),
                  rel=T(p["env_release"]), vel=T(p["env_velocity"]))
     if feat.am:
-        v.update(am_osc=i32(p["amp_mod_osc"]), am_del=i32(p["am_delayed"]),
-                 am_dep=T(p["amp_mod_depth"]))
+        v["am_dep"] = T(p["amp_mod_depth"])
     if feat.pm:
-        v.update(pm_osc=i32(p["pan_mod_osc"]), pm_del=i32(p["pm_delayed"]),
-                 pm_dep=T(p["pan_mod_depth"]))
+        v["pm_dep"] = T(p["pan_mod_depth"])
     if feat.pm_self:
         v["pm_self"] = i32(p["pm_self"])
-    if feat.disc:
-        v["disconn"] = i32(p["disconnect"])
     if feat.sm:
         v.update(use_sm=i32(p["smoother_enable"]),
                  smoothing=T(p["smoother_smoothing"]))
     # bindings are row-uniform (cyclic_gate): row 0's bases serve all rows
     return v, p["table_off"][0].to(I32).contiguous()
+
+
+def _schedule(st, feat: Feat, k: int, device):
+    """The general kernel's waves over every row's and segment's reads,
+    once per batch, on the host, from the packed parameters (``[B, S,
+    k]`` numpy): ``kernels.cyclic.schedule_of`` of their ``_read_vecs``."""
+    flat = {kk: torch.from_numpy(np.asarray(v).reshape(-1, k))
+            for kk, v in st.params.items()
+            if np.ndim(v) == 3 and np.shape(v)[-1] == k}
+    return schedule_of(_read_vecs(flat, feat), feat, k, device)
 
 
 @dataclasses.dataclass
@@ -165,6 +195,8 @@ class _Cyclic:
     feat: Feat
     exact: bool
     single_seg: bool
+    # the general kernel's waves: (wave [k] i32 on the device, count)
+    schedule: Optional[tuple] = None
     groups: Optional[tuple] = None
     noise: Optional[torch.Tensor] = None
     # the last block's segments (bytes of seg_of_block's column) and what
@@ -201,11 +233,14 @@ def _prep(st, exact, device, noise=None, noise_blocks=None):
         k = params["amp"].shape[-1]
         single_seg = all(v.shape[1] == 1 for v in params.values()) \
             and all(v.shape[1] == 1 for v in ops.values())
+        with spans.span("cyclic.schedule") as sched:
+            schedule = _schedule(st, feat, k, device)
+            sched.n = schedule[1]
         r = _Cyclic(params=params, ops=ops, seg_of_block=d["seg_of_block"],
                     seg_is_start=d["seg_is_start"] != 0,
                     table=d["table_buffer"], B=st.batch, k=k,
                     block=st.block, feat=feat, exact=bool(exact),
-                    single_seg=single_seg)
+                    single_seg=single_seg, schedule=schedule)
         if feat.noise:
             nb = st.num_blocks if noise_blocks is None else noise_blocks
             stream = noise_stream(nb * st.block) if noise is None \
@@ -248,7 +283,8 @@ def _block_step(r: _Cyclic, carry, kb):
         nblk = r.noise[kb * n:(kb + 1) * n] if r.noise is not None else None
         out_l, out_r, ns = cyclic_block(
             r.table, table_off, kb * n + 1, nblk, vecs, states,
-            p["volume_final"], r.feat, r.k, n, r.exact)
+            p["volume_final"], r.feat, r.k, n, r.exact,
+            schedule=r.schedule)
         new_carry = dict(carry)
         for kk, vv in ns.items():
             new_carry[kk] = vv.T if vv.dim() == 2 else vv

@@ -1,22 +1,23 @@
 // The cyclic kernel for Hopper (sm_90a): one block of the reference's
 // serial per-frame voice loop (synth.c:526-612) for scripts whose
-// modulation graph has a cycle, one thread per batch row.
+// modulation graph has a cycle.
 //
 // Replaces skred_tpu/engine/cyclic.py:cyclic_block_pallas (body
 // _make_cyclic_kernel).
 //
 // Bound on this card: the kernel must read the per-voice vectors and
 // states once and write two [n, rows] output streams, a few megabytes at
-// 1024 rows, microseconds at 3.35 TB/s.  Its real limit is latency: each
-// thread walks n frames, and inside a frame the k voices in order, every
-// voice a dependent chain (modulator read -> phase wrap -> warp -> table
-// load -> biquad -> smoother -> pan) that the next voice may read.  At
-// 1024 rows a call is 32 one-warp blocks, one warp per SM: nothing hides
-// that latency, so the design shortens the chain.  Nothing of the TPU
-// kernel's memory plan is carried over: tables stay in the flat buffer in
-// global memory and are read through the read-only cache (__ldg) at
-// table_off[v] + idx, so a table larger than shared memory (a
-// 60,406-sample PCM loop is 236 KB) needs no special case.
+// 1024 rows, microseconds at 3.35 TB/s.  Its real limit is latency: a
+// frame's voices form a dependent chain (modulator read -> phase wrap ->
+// warp -> table load -> biquad -> smoother -> pan) that a later voice may
+// read.  The keyed variant walks it with one thread per row (at 1024 rows
+// 32 one-warp blocks, one warp per SM: nothing hides that latency, so its
+// design shortens the chain); the general one spreads a frame's voices
+// over threads (below).  Nothing of the TPU kernel's memory plan is
+// carried over: tables stay in the flat buffer in global memory and are
+// read through the read-only cache (__ldg) at table_off[v] + idx, so a
+// table larger than shared memory (a 60,406-sample PCM loop is 236 KB)
+// needs no special case.
 //
 // One source, two variants:
 //   * built with -DCYC_K=<k> and the feature defines below (the keyed
@@ -35,11 +36,27 @@
 //     without their slow paths, and a row whose operands need one
 //     renders the block again with the exact helpers (run_block);
 //   * built without them (the general variant, cyclic_general_launch):
-//     any k up to 64.  k and the feature flags are run-time arguments;
-//     the per-voice states sit in shared memory as [field][k][thread]
-//     columns and the parameters are re-read each frame through L1.
+//     any k up to 256 (the engine has 64 voices); k and the feature
+//     flags are run-time arguments.
+//     A thread per voice and row, not per row: at k = 64 a row's serial
+//     chain is 64 voice steps a frame, and a call at 512 rows would be 16
+//     one-warp blocks on 132 SMs.  What bounds it on this card is the
+//     chain a frame (the waves' voice steps, a barrier each, and the
+//     row's mix), not bytes.  So a frame's voices run in waves by their
+//     same-frame reads (a schedule built once per batch on the host,
+//     kernels/cyclic.py cyclic_levels): czfb64's graph is 2 waves, a
+//     chain of k reads k.  Voices exchange samples through shared
+//     memory; each thread holds its voice's parameters and states in
+//     registers for the whole block (read and written once a call); the
+//     mix, summed in voice order one add after another as the serial
+//     loop sums it, runs in a warp of its own a frame behind the voices,
+//     so it leaves the chain.  4 rows of 64 voices a block: 128 blocks
+//     at 512 rows, one an SM.
 // The wrapper (kernels/cyclic.py) takes the keyed variant for k up to its
-// cap and builds each key at first use; both share CyclicArgs.
+// cap and builds each key at first use; both share CyclicArgs.  With
+// CYC_SHIM defined the general variant's block body builds without its
+// kernel and launch, for g++ and a shim that runs a thread per CUDA
+// thread (tests/test_torch_cyclic_waves.py).
 //
 // Numerics are the JAX kernel's, bit for bit in exact mode: __fmaf_rn
 // where it calls _kfma (quantizer, envelope decay) and at its fma sites
@@ -64,9 +81,9 @@ struct CyclicArgs {
     int has_fm, has_cz, has_czm, has_am, has_am_self, has_pm, has_pm_self,
         has_env, has_flt, has_sm, has_hold, has_quant, has_noise, has_finish,
         has_direction, has_disc;
-    int cz_mask, st_sv, st_sb;
+    int cz_mask, st_sv, st_sb, n_waves;
     const float* table; const int* table_off; const float* noise;
-    const float* vf;
+    const float* vf; const int* wave;
     const float* amp; const float* pinc; const float* lo; const float* hi;
     const float* L; const int* clip_i;
     const int* fm_osc; const int* fm_del; const int* use_fm;
@@ -107,319 +124,433 @@ struct CyclicArgs {
 #ifndef CYC_K
 
 // ======================================================================
-// The general variant: k and the features at run time.
+// The general variant: k and the features at run time.  A thread a voice
+// of a row; a CUDA block renders gen_rows(k) rows, and one more warp sums
+// their mixes.  Inside a frame the voices run in waves (CyclicArgs::wave,
+// kernels/cyclic.py cyclic_levels): a voice reads this frame's sample of
+// a voice of a lower wave, through shared memory, after the barrier that
+// ends that wave.  A frame's critical path is n_waves voice steps and
+// barriers, not k.
 // ======================================================================
 
-#define CYC_THREADS 32
+constexpr int GEN_MIX = 32;                  // the mix warp
+constexpr int GEN_THREADS = 256 + GEN_MIX;   // the most a block takes
 
-// [k][CYC_THREADS] shared-memory columns a block needs for these features
-__host__ __device__ inline int cyclic_fields(const CyclicArgs& a) {
-    int f = 5;                               // two sample buffers, phase, pan
-    if (a.has_finish) f += 1;
-    if (a.has_hold) f += 2;
-    if (a.has_flt) f += 4;
-    if (a.has_sm) f += 1;
-    if (a.has_cz && !a.has_czm) f += 7;      // the hoisted warp scales
-    return f;
+// rows a block: about 256 voice threads, at most 16 rows (the mix warp
+// takes a lane a row and channel).  At k = 64, 4 rows: a warp's lanes
+// are 8 voices of 4 rows, where 2 rows (16 voices) branched apart more
+// (1.74 against 1.66 ms a block of czfb64 at 512 rows on the H100).
+__host__ __device__ inline int gen_rows(int k) {
+    return k > 16 ? 256 / k : 16;
 }
 
-// the read of voice m's sample under the serial-frame rule: voices
-// below `done` already hold this frame's sample in cur; a delayed edge,
-// and a voice not rendered yet, read the previous frame's
-__device__ __forceinline__ float read_mod(const float* cur, const float* prev,
-                                          int m, int delayed, int done,
-                                          int k) {
-    if (m < 0 || m >= k) return 0.0f;
-    const int o = m * CYC_THREADS;
-    return (delayed != 0 || m >= done) ? prev[o] : cur[o];
+// voice threads a block: whole warps, so that no warp holds both a voice
+// and a mix lane (each kind meets the barrier at its own instruction)
+__host__ __device__ inline int gen_voice_threads(int k) {
+    return (gen_rows(k) * k + 31) & ~31;
 }
 
-__global__ void __launch_bounds__(CYC_THREADS)
-cyclic_general_kernel(const CyclicArgs a) {
-    extern __shared__ float smem[];
-    const int tid = threadIdx.x;
-    const int b = blockIdx.x * CYC_THREADS + tid;
-    if (b >= a.rows) return;
-    const int k = a.k, n = a.n, exact = a.exact, B = a.rows;
-    const int KT = k * CYC_THREADS;
+// A modulator edge resolved once a call against the serial-frame rule:
+// voices below `done` already hold this frame's sample; a delayed edge,
+// and a voice not rendered yet, read the previous frame's.  -1 reads
+// +0.0; else the source's slot in a row's sample column, + GEN_SAME for
+// this frame's.  The schedule puts every this-frame source in a lower
+// wave; a voice's read of itself (pan-mod, done = v + 1) finds the sample
+// the thread has just written.  A read whose value the voice discards
+// (fm without use_fm, cz-mod at CZ mode 0, pan-mod with the pan off) is
+// none, as kernels/cyclic.py wave_reads leaves it out of the schedule.
+constexpr int GEN_SAME = 1 << 30;
 
-    // ---- carve the per-voice columns; each thread owns column tid ----
-    float* p = smem + tid;
-    float* buf0 = p; p += KT;
-    float* buf1 = p; p += KT;
-    float* s_ph = p; p += KT;
-    float* s_pnl = p; p += KT;
-    float* s_pnr = p; p += KT;
-    int* s_fin = nullptr;
-    if (a.has_finish) { s_fin = (int*)p; p += KT; }
-    int* s_hc = nullptr; float* s_hv = nullptr;
-    if (a.has_hold) { s_hc = (int*)p; p += KT; s_hv = p; p += KT; }
-    float *s_x1 = nullptr, *s_x2 = nullptr, *s_y1 = nullptr, *s_y2 = nullptr;
-    if (a.has_flt) {
-        s_x1 = p; p += KT; s_x2 = p; p += KT;
-        s_y1 = p; p += KT; s_y2 = p; p += KT;
+__device__ __forceinline__ int gen_slot(int m, int delayed, int done, int k,
+                                        int R) {
+    if (m < 0 || m >= k) return -1;
+    return m * R + ((delayed == 0 && m < done) ? GEN_SAME : 0);
+}
+
+__device__ __forceinline__ float gen_read(int slot, const float* cur,
+                                          const float* prev) {
+    if (slot < 0) return 0.0f;
+    return (slot & GEN_SAME) ? cur[slot & ~GEN_SAME] : prev[slot];
+}
+
+// One voice of one row: its parameters, read once a call, and its
+// states, in registers for the whole block.
+struct GenVoice {
+    float amp, pinc, lo, hi, hi_os, L, mis, fm_dep, tsz, inv_ts, cz_dist,
+        cm_dep, levels, inv_lev, b0, b1, b2, na1, na2, att, dec, att_dec,
+        sus, rel, vel, am_dep, pm_dep, smoothing;
+    int toff, clip, fm_s, cm_s, am_s, pm_s, mode, hmax, env_start,
+        env_relat;
+    bool use_fm, dirneg, osn, one_shot, noise, hold_on, quant_on, use_flt,
+        use_env, env_act, cm_ge, am_ge, am_self, pm_self, pan_on, dc0,
+        use_sm;
+    CzScales cz;
+    float ph, hv, x1, x2, y1, y2, sg, pnl, pnr, last;
+    int fin, hc;
+};
+
+__device__ __forceinline__ void gen_load(const CyclicArgs& a, GenVoice& p,
+                                         int v, int b, int R) {
+    const int B = a.rows, k = a.k;
+    const int vo = v * B + b;
+    p = GenVoice{};
+    p.amp = a.amp[vo];
+    p.pinc = a.pinc[vo];
+    p.lo = a.lo[vo];
+    p.hi = a.hi[vo];
+    p.L = a.L[vo];
+    p.clip = a.clip_i[vo];
+    p.toff = a.table_off[v];
+    p.fm_s = p.cm_s = p.am_s = p.pm_s = -1;
+    if (a.has_fm) {
+        p.use_fm = a.use_fm[vo] != 0;
+        if (p.use_fm)
+            p.fm_s = gen_slot(a.fm_osc[vo], a.fm_del[vo], v, k, R);
+        p.mis = a.mis[vo];
+        p.fm_dep = a.fm_dep[vo];
     }
-    float* s_sg = nullptr;
-    if (a.has_sm) { s_sg = p; p += KT; }
-    float* s_cz = nullptr;                    // 7 scale columns per voice
-    const bool cz_const = a.has_cz && !a.has_czm;
-    if (cz_const) { s_cz = p; p += 7 * KT; }
-
-    // ---- states in; hoisted warp scales ----
-    for (int v = 0; v < k; ++v) {
-        const int so = v * a.st_sv + b * a.st_sb;
-        const int c = v * CYC_THREADS;
-        buf0[c] = a.sample_0[so];
-        s_ph[c] = a.phase_0[so];
-        s_pnl[c] = a.pan_l_0[so];
-        s_pnr[c] = a.pan_r_0[so];
-        if (a.has_finish) s_fin[c] = a.finished_0[so];
-        if (a.has_hold) { s_hc[c] = a.hold_count_0[so];
-                          s_hv[c] = a.hold_val_0[so]; }
-        if (a.has_flt) { s_x1[c] = a.x1_0[so]; s_x2[c] = a.x2_0[so];
-                         s_y1[c] = a.y1_0[so]; s_y2[c] = a.y2_0[so]; }
-        if (a.has_sm) s_sg[c] = a.smoother_0[so];
-        if (cz_const) {
-            const int vo = v * B + b;
-            CzScales s = cz_scales(a.cz_dist[vo] + a.dm_row[vo], exact,
-                                   a.cz_mask);
-            float* q = s_cz + 7 * c;
-            q[0] = s.d; q[CYC_THREADS] = s.s1a; q[2 * CYC_THREADS] = s.s1b;
-            q[3 * CYC_THREADS] = s.sc2; q[4 * CYC_THREADS] = s.sc5b;
-            q[5 * CYC_THREADS] = s.p6; q[6 * CYC_THREADS] = s.p7;
+    if (a.has_direction) p.dirneg = a.dirneg[vo] != 0;
+    if (a.has_finish) {
+        p.hi_os = p.hi - 1e-6f;
+        p.osn = a.osn[vo] != 0;
+        p.one_shot = a.one_shot[vo] != 0;
+    }
+    if (a.has_cz) {
+        p.mode = a.cz_mode[vo];
+        p.tsz = a.tsize[vo];
+        p.inv_ts = a.inv_ts[vo];
+        p.cz_dist = a.cz_dist[vo];
+        if (a.has_czm) {
+            if (p.mode != 0)
+                p.cm_s = gen_slot(a.cm_osc[vo], a.cm_del[vo], v, k, R);
+            p.cm_ge = a.cm_ge[vo] != 0;
+            p.cm_dep = a.cm_dep[vo];
+        } else {
+            p.cz = cz_scales(p.cz_dist + a.dm_row[vo], a.exact, a.cz_mask);
         }
     }
-    const float vf = a.vf[b];
-    float vg = a.vol_gain_0[b];
-    float* prev = buf0;
-    float* cur = buf1;
+    if (a.has_noise) p.noise = a.is_noise[vo] != 0;
+    if (a.has_hold) {
+        p.hold_on = a.hold_on[vo] != 0;
+        p.hmax = a.hmax[vo];
+    }
+    if (a.has_quant) {
+        p.quant_on = a.quant_on[vo] != 0;
+        p.levels = a.levels[vo];
+        p.inv_lev = a.inv_lev[vo];
+    }
+    if (a.has_flt) {
+        p.b0 = a.b0[vo]; p.b1 = a.b1[vo]; p.b2 = a.b2[vo];
+        p.na1 = a.na1[vo]; p.na2 = a.na2[vo];
+        p.use_flt = a.use_flt[vo] != 0;
+    }
+    if (a.has_env) {
+        p.use_env = a.use_env[vo] != 0;
+        p.env_act = a.env_act[vo] != 0;
+        p.env_start = a.env_start[vo];
+        p.env_relat = a.env_relat[vo];
+        p.att = a.att[vo]; p.dec = a.dec[vo]; p.att_dec = p.att + p.dec;
+        p.sus = a.sus[vo]; p.rel = a.rel[vo]; p.vel = a.vel[vo];
+    }
+    p.dc0 = !a.has_disc || a.disconn[vo] == 0;
+    if (a.has_am) {
+        const int am_osc = a.am_osc[vo];
+        p.am_s = gen_slot(am_osc, a.am_del[vo], v, k, R);
+        p.am_ge = am_osc >= 0;
+        p.am_self = a.has_am_self && am_osc == v;
+        p.am_dep = a.am_dep[vo];
+    }
+    if (a.has_pm) {
+        const int pm_osc = a.pm_osc[vo];
+        p.pan_on = pm_osc >= 0 && p.dc0;
+        // the pan read comes after the voice's own sample
+        if (p.pan_on) p.pm_s = gen_slot(pm_osc, a.pm_del[vo], v + 1, k, R);
+        p.pm_self = a.has_pm_self && a.pm_self[vo] != 0;
+        p.pm_dep = a.pm_dep[vo];
+    }
+    if (a.has_sm) {
+        p.use_sm = a.use_sm[vo] != 0;
+        p.smoothing = a.smoothing[vo];
+    }
+    // ---- states in ----
+    const int so = v * a.st_sv + b * a.st_sb;
+    p.ph = a.phase_0[so];
+    p.last = a.sample_0[so];
+    p.pnl = a.pan_l_0[so];
+    p.pnr = a.pan_r_0[so];
+    if (a.has_finish) p.fin = a.finished_0[so];
+    if (a.has_hold) { p.hc = a.hold_count_0[so]; p.hv = a.hold_val_0[so]; }
+    if (a.has_flt) {
+        p.x1 = a.x1_0[so]; p.x2 = a.x2_0[so];
+        p.y1 = a.y1_0[so]; p.y2 = a.y2_0[so];
+    }
+    if (a.has_sm) p.sg = a.smoother_0[so];
+}
+
+__device__ __forceinline__ void gen_store(const CyclicArgs& a,
+                                          const GenVoice& p, int v, int b) {
+    const int so = v * a.st_sv + b * a.st_sb;
+    a.sample_e[so] = p.last;
+    a.phase_e[so] = p.ph;
+    a.pan_l_e[so] = p.pnl;
+    a.pan_r_e[so] = p.pnr;
+    if (a.has_finish) a.finished_e[so] = p.fin;
+    if (a.has_hold) { a.hold_count_e[so] = p.hc; a.hold_val_e[so] = p.hv; }
+    if (a.has_flt) {
+        a.x1_e[so] = p.x1; a.x2_e[so] = p.x2;
+        a.y1_e[so] = p.y1; a.y2_e[so] = p.y2;
+    }
+    if (a.has_sm) a.smoother_e[so] = p.sg;
+}
+
+// One voice's sample of frame t: the reference's voice body (synth.c:
+// 526-612), site for site the serial kernel's.  cur / prev: the row's
+// sample columns of this frame and the last; slot: the voice's; part_l
+// / part_r: the row's mix terms of this frame.
+__device__ __forceinline__ void gen_step(const CyclicArgs& a, GenVoice& p,
+                                         int t, float* cur, const float* prev,
+                                         float* part_l, float* part_r,
+                                         int slot) {
+    const int exact = a.exact;
+    const bool fin_b = a.has_finish && p.fin != 0;
+    const bool active = !fin_b && p.amp != 0.0f;
+    // ---- oscillator (osc_next, synth.c:217-275) ----
+    float inc = p.pinc;
+    if (a.has_fm) {
+        const float g = gen_read(p.fm_s, cur, prev) * p.fm_dep;
+        if (p.use_fm) inc = kfma(p.mis, g, p.pinc);
+    }
+    if (a.has_direction && p.dirneg) inc = -inc;
+    const float phv = p.ph + inc;
+    const bool bad = !isfinite(phv);
+    const bool over = phv >= p.hi;
+    const bool under = phv < p.lo;
+    const float r = fmodf(phv - p.lo, p.L);
+    const float wrap_over = p.lo + r;
+    const float wrap_under = p.hi + r;
+    bool osn_b = false;
+    float ph2;
+    if (a.has_finish) {
+        osn_b = p.osn;
+        ph2 = over ? (osn_b ? p.hi_os : wrap_over)
+                   : (under ? (osn_b ? p.lo : wrap_under) : phv);
+    } else {
+        ph2 = over ? wrap_over : (under ? wrap_under : phv);
+    }
+    if (bad) ph2 = 0.0f;
+    // ---- CZ warp, index, lookup ----
+    float idx_f = ph2;
+    if (a.has_cz) {
+        CzScales s = p.cz;
+        if (a.has_czm) {
+            const float rdm = gen_read(p.cm_s, cur, prev);
+            const float dm = p.cm_ge ? rdm * p.cm_dep : 1.0f;
+            s = cz_scales(p.cz_dist + dm, exact, a.cz_mask);
+        }
+        const float phase3 = exact ? kdiv_inv(ph2, p.inv_ts, p.tsz)
+                                   : __fdiv_rn(ph2, p.tsz);
+        const float warped = cz_warp_k(p.mode, phase3, s, p.tsz, a.cz_mask);
+        if (p.mode != 0) idx_f = warped;
+    }
+    int idx = (int)idx_f;
+    idx = idx < 0 ? 0 : idx;
+    idx = idx > p.clip ? p.clip : idx;
+    float f = __ldg(a.table + (p.toff + idx));
+    if (bad) f = 0.0f;
+    bool adv = active;
+    if (a.has_noise && p.noise) {
+        f = __ldg(a.noise + t);
+        adv = false;
+    }
+    if (adv) p.ph = ph2;
+    if (a.has_finish) {
+        const bool fin_osc = (bad && p.one_shot) || ((over || under) && osn_b);
+        if (adv && fin_osc) p.fin = 1;
+    }
+    // ---- sample & hold (synth.c:560-571) ----
+    float s1 = f;
+    if (a.has_hold) {
+        const int hc = p.hc;
+        const float hv2 = (p.hold_on && hc == 0) ? f : p.hv;
+        if (p.hold_on) s1 = hv2;
+        int hcn = hc + 1;
+        if (hcn >= p.hmax) hcn = 0;
+        if (active && p.hold_on) p.hc = hcn;
+        if (active) p.hv = hv2;
+    }
+    // ---- bit quantizer (synth.c:341-345) ----
+    float s2 = s1;
+    if (a.has_quant) {
+        const float iv = (float)(int)kfma(s1, p.levels, 0.5f);
+        if (p.quant_on) s2 = iv * p.inv_lev;
+    }
+    // ---- biquad (mmf_process, synth.c:349-364) ----
+    float s3 = s2;
+    if (a.has_flt) {
+        float fv = p.b1 * p.x1;
+        fv = kfma(p.b0, s2, fv);
+        fv = kfma(p.b2, p.x2, fv);
+        fv = kfma(p.na1, p.y1, fv);
+        fv = kfma(p.na2, p.y2, fv);
+        if (p.use_flt) s3 = fv;
+        if (active && p.use_flt) {
+            p.x2 = p.x1; p.x1 = s2; p.y2 = p.y1; p.y1 = fv;
+        }
+    }
+    // ---- amp, envelope, amp-mod, smoother ----
+    float final_g = p.amp;
+    if (a.has_env) {
+        const int count = a.cbase + t;
+        const float tf = (float)(count - p.env_start);
+        const float trf = (float)(count - p.env_relat);
+        float ev;
+        if (tf < p.att) ev = __fdiv_rn(tf, p.att);
+        else if (tf < p.att_dec)
+            ev = kfma(-__fdiv_rn(tf - p.att, p.dec), 1.0f - p.sus, 1.0f);
+        else if (p.env_relat == 0) ev = p.sus;
+        else if (trf < p.rel)
+            ev = p.sus * (1.0f - __fdiv_rn(trf, p.rel));
+        else ev = 0.0f;
+        if (!p.env_act) ev = 0.0f;
+        const float env = p.use_env ? ev * p.vel : 1.0f;
+        final_g = p.amp * env;
+    }
+    if (a.has_am) {
+        float amr = gen_read(p.am_s, cur, prev);
+        if (p.am_self) amr = s3;
+        const float ampmod = p.am_ge ? amr * p.am_dep : 1.0f;
+        final_g = final_g * ampmod;
+    }
+    float final2 = final_g;
+    if (a.has_sm) {
+        const float sg2 = kfma(p.smoothing, final_g - p.sg, p.sg);
+        if (p.use_sm) final2 = sg2;
+        if (active && p.use_sm) p.sg = sg2;
+    }
+    const float sample_out = active ? s3 * final2 : 0.0f;
+    cur[slot] = sample_out;
+    p.last = sample_out;
+    // ---- pan (+ pan-mod); the mix term (synth.c:595-612) ----
+    float plv = p.pnl, prv = p.pnr;
+    if (a.has_pm) {
+        float pmr = gen_read(p.pm_s, cur, prev);
+        if (p.pm_self) pmr = sample_out;
+        const float one_m_q = kfma(-pmr, p.pm_dep, 1.0f);
+        const float one_p_q = kfma(pmr, p.pm_dep, 1.0f);
+        if (p.pan_on) { plv = one_m_q * 0.5f; prv = one_p_q * 0.5f; }
+        if (active && p.pan_on) { p.pnl = plv; p.pnr = prv; }
+    }
+    const bool contrib = active && p.dc0;
+    part_l[slot] = contrib ? sample_out * plv : 0.0f;
+    part_r[slot] = contrib ? sample_out * prv : 0.0f;
+}
+
+// Block bx of the general variant, as thread tid; smem: gen_smem_bytes.
+// Threads below gen_voice_threads(k) are voice lanes (lane l, row r =
+// tid / R, tid % R: a warp holds few lanes, so mostly one wave); the last
+// warp's lane c * R + r sums channel c of row r.  Frame t's samples and
+// mix terms go to the buffers of parity t & 1: the mix warp sums frame
+// t - 1 in frame t's first wave, so the voices of frame t + 1 write those
+// terms again only after a barrier that it has passed.
+__device__ __forceinline__ void cyclic_general_block(const CyclicArgs& a,
+                                                     float* smem, int bx,
+                                                     int tid) {
+    const int k = a.k, n = a.n, B = a.rows;
+    const int R = gen_rows(k), KR = k * R, VT = gen_voice_threads(k);
+    const int W = a.n_waves > 1 ? a.n_waves : 1;
+    float* samp = smem;                       // [2][k][R]
+    float* part = smem + 2 * KR;              // [2][2][k][R]: parity, channel
+    int* order = (int*)(smem + 6 * KR);       // [k]: the voice of lane l
+
+    // ---- lanes in (wave, CZ mode, voice) order: the lanes of a warp
+    // mostly share a wave, and the warp curve's branch on the mode (the
+    // block's first row's) ----
+    if (tid < k) {
+        auto key = [&](int u) {
+            int mode = a.has_cz ? a.cz_mode[u * B + bx * R] : 0;
+            mode = mode < 0 ? 0 : (mode > 7 ? 8 : mode);
+            return __ldg(a.wave + u) * 16 + mode;
+        };
+        const int w = key(tid);
+        int rank = 0;
+        for (int u = 0; u < k; ++u) {
+            const int wu = key(u);
+            rank += (wu < w || (wu == w && u < tid)) ? 1 : 0;
+        }
+        order[rank] = tid;
+    }
+    __syncthreads();
+
+    const bool voice = tid < KR;
+    const int m = tid - VT;                   // the mix lane
+    const bool mixer = m >= 0 && m < 2 * R;
+    const int r = voice ? tid % R : (mixer ? m % R : 0);
+    const int c = mixer ? m / R : 0;
+    const int b = bx * R + r;
+    const bool live = (voice || mixer) && b < B;
+    GenVoice p;
+    int v = 0, my_w = -1;
+    if (voice && live) {
+        v = order[tid / R];
+        my_w = __ldg(a.wave + v);
+        gen_load(a, p, v, b, R);
+        samp[KR + v * R + r] = p.last;        // frame 0's prev
+    }
+    const float vf = mixer && live ? a.vf[b] : 0.0f;
+    float vg = mixer && live ? a.vol_gain_0[b] : 0.0f;
+    float* out = c ? a.out_r : a.out_l;
+    // frame tm's mix, in voice order, and the master volume (synth.c:
+    // 616-624)
+    auto mix_frame = [&](int tm) {
+        const float* pc = part + (2 * (tm & 1) + c) * KR + r;
+        float mix = 0.0f;
+        for (int u = 0; u < k; ++u) mix = mix + pc[u * R];
+        vg = kfma(0.002f, vf - vg, vg);
+        out[(size_t)tm * B + b] = mix * vg;
+    };
+    __syncthreads();
 
     for (int t = 0; t < n; ++t) {
-        const float whiteish = a.has_noise ? __ldg(a.noise + t) : 0.0f;
-        float mix_l = 0.0f, mix_r = 0.0f;
-        for (int v = 0; v < k; ++v) {
-            const int vo = v * B + b;
-            const int c = v * CYC_THREADS;
-            const float amp = __ldg(a.amp + vo);
-            const bool fin_b = a.has_finish && s_fin[c] != 0;
-            const bool active = !fin_b && amp != 0.0f;
-            // ---- oscillator (osc_next, synth.c:217-275) ----
-            const float pinc = __ldg(a.pinc + vo);
-            float inc = pinc;
-            if (a.has_fm) {
-                float g = read_mod(cur, prev, __ldg(a.fm_osc + vo),
-                                   __ldg(a.fm_del + vo), v, k)
-                          * __ldg(a.fm_dep + vo);
-                if (__ldg(a.use_fm + vo) != 0)
-                    inc = kfma(__ldg(a.mis + vo), g, pinc);
-            }
-            if (a.has_direction && __ldg(a.dirneg + vo) != 0) inc = -inc;
-            const float lo = __ldg(a.lo + vo), hi = __ldg(a.hi + vo);
-            const float ph_c = s_ph[c];
-            const float phv = ph_c + inc;
-            const bool bad = !isfinite(phv);
-            const bool over = phv >= hi;
-            const bool under = phv < lo;
-            const float r = fmodf(phv - lo, __ldg(a.L + vo));
-            const float wrap_over = lo + r;
-            const float wrap_under = hi + r;
-            bool osn_b = false;
-            float ph2;
-            if (a.has_finish) {
-                osn_b = __ldg(a.osn + vo) != 0;
-                ph2 = over ? (osn_b ? hi - 1e-6f : wrap_over)
-                           : (under ? (osn_b ? lo : wrap_under) : phv);
-            } else {
-                ph2 = over ? wrap_over : (under ? wrap_under : phv);
-            }
-            if (bad) ph2 = 0.0f;
-            // ---- CZ warp, index, lookup ----
-            float idx_f = ph2;
-            if (a.has_cz) {
-                const int mode = __ldg(a.cz_mode + vo);
-                const float tsz = __ldg(a.tsize + vo);
-                CzScales s;
-                if (a.has_czm) {
-                    float rdm = read_mod(cur, prev, __ldg(a.cm_osc + vo),
-                                         __ldg(a.cm_del + vo), v, k);
-                    float dm = __ldg(a.cm_ge + vo) != 0
-                        ? rdm * __ldg(a.cm_dep + vo) : 1.0f;
-                    s = cz_scales(__ldg(a.cz_dist + vo) + dm, exact,
-                                  a.cz_mask);
-                } else {
-                    const float* q = s_cz + 7 * c;
-                    s.d = q[0]; s.s1a = q[CYC_THREADS];
-                    s.s1b = q[2 * CYC_THREADS]; s.sc2 = q[3 * CYC_THREADS];
-                    s.sc5b = q[4 * CYC_THREADS]; s.p6 = q[5 * CYC_THREADS];
-                    s.p7 = q[6 * CYC_THREADS];
-                }
-                const float phase3 = exact
-                    ? kdiv_inv(ph2, __ldg(a.inv_ts + vo), tsz)
-                    : __fdiv_rn(ph2, tsz);
-                const float warped = cz_warp_k(mode, phase3, s, tsz,
-                                               a.cz_mask);
-                if (mode != 0) idx_f = warped;
-            }
-            int idx = (int)idx_f;
-            idx = idx < 0 ? 0 : idx;
-            const int clip = __ldg(a.clip_i + vo);
-            idx = idx > clip ? clip : idx;
-            float f = __ldg(a.table + (__ldg(a.table_off + v) + idx));
-            if (bad) f = 0.0f;
-            bool adv = active;
-            if (a.has_noise && __ldg(a.is_noise + vo) != 0) {
-                f = whiteish;
-                adv = false;
-            }
-            if (adv) s_ph[c] = ph2;
-            if (a.has_finish) {
-                const bool fin_osc = (bad && __ldg(a.one_shot + vo) != 0)
-                                     || ((over || under) && osn_b);
-                if (adv && fin_osc) s_fin[c] = 1;
-            }
-            // ---- sample & hold (synth.c:560-571) ----
-            float s1 = f;
-            if (a.has_hold) {
-                const bool h_on = __ldg(a.hold_on + vo) != 0;
-                const int hc = s_hc[c];
-                const float hv2 = (h_on && hc == 0) ? f : s_hv[c];
-                if (h_on) s1 = hv2;
-                int hcn = hc + 1;
-                if (hcn >= __ldg(a.hmax + vo)) hcn = 0;
-                if (active && h_on) s_hc[c] = hcn;
-                if (active) s_hv[c] = hv2;
-            }
-            // ---- bit quantizer (synth.c:341-345) ----
-            float s2 = s1;
-            if (a.has_quant) {
-                const float iv =
-                    (float)(int)kfma(s1, __ldg(a.levels + vo), 0.5f);
-                if (__ldg(a.quant_on + vo) != 0)
-                    s2 = iv * __ldg(a.inv_lev + vo);
-            }
-            // ---- biquad (mmf_process, synth.c:349-364) ----
-            float s3 = s2;
-            if (a.has_flt) {
-                const float x1 = s_x1[c], x2 = s_x2[c];
-                const float y1 = s_y1[c], y2 = s_y2[c];
-                float fv = __ldg(a.b1 + vo) * x1;
-                fv = kfma(__ldg(a.b0 + vo), s2, fv);
-                fv = kfma(__ldg(a.b2 + vo), x2, fv);
-                fv = kfma(__ldg(a.na1 + vo), y1, fv);
-                fv = kfma(__ldg(a.na2 + vo), y2, fv);
-                const bool uf = __ldg(a.use_flt + vo) != 0;
-                if (uf) s3 = fv;
-                if (active && uf) {
-                    s_x2[c] = x1; s_x1[c] = s2; s_y2[c] = y1; s_y1[c] = fv;
-                }
-            }
-            // ---- amp, envelope, amp-mod, smoother ----
-            float final_g = amp;
-            if (a.has_env) {
-                const int count = a.cbase + t;
-                const int env_relat = __ldg(a.env_relat + vo);
-                const float tf = (float)(count - __ldg(a.env_start + vo));
-                const float trf = (float)(count - env_relat);
-                const float att = __ldg(a.att + vo);
-                const float dec = __ldg(a.dec + vo);
-                const float sus = __ldg(a.sus + vo);
-                const float rel = __ldg(a.rel + vo);
-                float ev;
-                if (tf < att) ev = __fdiv_rn(tf, att);
-                else if (tf < att + dec)
-                    ev = kfma(-__fdiv_rn(tf - att, dec), 1.0f - sus, 1.0f);
-                else if (env_relat == 0) ev = sus;
-                else if (trf < rel)
-                    ev = sus * (1.0f - __fdiv_rn(trf, rel));
-                else ev = 0.0f;
-                if (__ldg(a.env_act + vo) == 0) ev = 0.0f;
-                const float env = __ldg(a.use_env + vo) != 0
-                    ? ev * __ldg(a.vel + vo) : 1.0f;
-                final_g = amp * env;
-            }
-            if (a.has_am) {
-                const int am_osc = __ldg(a.am_osc + vo);
-                float amr = read_mod(cur, prev, am_osc, __ldg(a.am_del + vo),
-                                     v, k);
-                if (a.has_am_self && am_osc == v) amr = s3;
-                const float ampmod = am_osc >= 0
-                    ? amr * __ldg(a.am_dep + vo) : 1.0f;
-                final_g = final_g * ampmod;
-            }
-            float final2 = final_g;
-            if (a.has_sm) {
-                const float sg = s_sg[c];
-                const float sg2 = kfma(__ldg(a.smoothing + vo), final_g - sg,
-                                       sg);
-                const bool u_sm = __ldg(a.use_sm + vo) != 0;
-                if (u_sm) final2 = sg2;
-                if (active && u_sm) s_sg[c] = sg2;
-            }
-            const float sample_out = active ? s3 * final2 : 0.0f;
-            cur[c] = sample_out;
-            // ---- pan (+ pan-mod) and mix (synth.c:595-612) ----
-            const bool dc0 = !a.has_disc || __ldg(a.disconn + vo) == 0;
-            float plv = s_pnl[c], prv = s_pnr[c];
-            if (a.has_pm) {
-                const int pm_osc = __ldg(a.pm_osc + vo);
-                float pmr = read_mod(cur, prev, pm_osc, __ldg(a.pm_del + vo),
-                                     v + 1, k);
-                if (a.has_pm_self && __ldg(a.pm_self + vo) != 0)
-                    pmr = sample_out;
-                const bool pan_on = pm_osc >= 0 && dc0;
-                const float dep = __ldg(a.pm_dep + vo);
-                const float one_m_q = kfma(-pmr, dep, 1.0f);
-                const float one_p_q = kfma(pmr, dep, 1.0f);
-                if (pan_on) { plv = one_m_q * 0.5f; prv = one_p_q * 0.5f; }
-                if (active && pan_on) { s_pnl[c] = plv; s_pnr[c] = prv; }
-            }
-            const bool contrib = active && dc0;
-            mix_l = mix_l + (contrib ? sample_out * plv : 0.0f);
-            mix_r = mix_r + (contrib ? sample_out * prv : 0.0f);
+        const int par = t & 1;
+        float* cur = samp + par * KR + r;
+        const float* prev = samp + (par ^ 1) * KR + r;
+        for (int w = 0; w < W; ++w) {
+            if (w == my_w)
+                gen_step(a, p, t, cur, prev, part + 2 * par * KR + r,
+                         part + (2 * par + 1) * KR + r, v * R);
+            if (mixer && live && w == 0 && t > 0) mix_frame(t - 1);
+            __syncthreads();
         }
-        // every voice wrote cur: it is the next frame's prev
-        float* swap = prev; prev = cur; cur = swap;
-        // ---- master-volume smoother (synth.c:616-624) ----
-        vg = kfma(0.002f, vf - vg, vg);
-        a.out_l[(size_t)t * B + b] = mix_l * vg;
-        a.out_r[(size_t)t * B + b] = mix_r * vg;
     }
+    if (mixer && live && n > 0) mix_frame(n - 1);
 
     // ---- states out ----
-    for (int v = 0; v < k; ++v) {
-        const int so = v * a.st_sv + b * a.st_sb;
-        const int c = v * CYC_THREADS;
-        a.sample_e[so] = prev[c];
-        a.phase_e[so] = s_ph[c];
-        a.pan_l_e[so] = s_pnl[c];
-        a.pan_r_e[so] = s_pnr[c];
-        if (a.has_finish) a.finished_e[so] = s_fin[c];
-        if (a.has_hold) { a.hold_count_e[so] = s_hc[c];
-                          a.hold_val_e[so] = s_hv[c]; }
-        if (a.has_flt) { a.x1_e[so] = s_x1[c]; a.x2_e[so] = s_x2[c];
-                         a.y1_e[so] = s_y1[c]; a.y2_e[so] = s_y2[c]; }
-        if (a.has_sm) a.smoother_e[so] = s_sg[c];
-    }
-    a.vol_gain_e[b] = vg;
+    if (voice && live) gen_store(a, p, v, b);
+    if (mixer && live && c == 0) a.vol_gain_e[b] = vg;
+}
+
+__host__ __device__ inline size_t gen_smem_bytes(int k) {
+    return (size_t)(6 * gen_rows(k) * k + k) * sizeof(float);
+}
+
+#ifndef CYC_SHIM
+__global__ void __launch_bounds__(GEN_THREADS)
+cyclic_general_kernel(const CyclicArgs a) {
+    extern __shared__ float smem[];
+    cyclic_general_block(a, smem, blockIdx.x, threadIdx.x);
 }
 
 extern "C" int cyclic_general_launch(const CyclicArgs* args, void* stream) {
-    const int blocks = (args->rows + CYC_THREADS - 1) / CYC_THREADS;
-    if (blocks <= 0 || args->k <= 0) return (int)cudaGetLastError();
-    const size_t smem = (size_t)cyclic_fields(*args) * args->k * CYC_THREADS
-                        * sizeof(float);
-    if (smem > 48 * 1024) {
-        // above 48 KB a block's dynamic shared memory is an opt-in
-        cudaError_t rc = cudaFuncSetAttribute(
-            cyclic_general_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (rc != cudaSuccess) return (int)rc;
-    }
-    cyclic_general_kernel<<<blocks, CYC_THREADS, smem,
-                            (cudaStream_t)stream>>>(*args);
+    const int k = args->k;
+    if (args->rows <= 0 || k <= 0) return (int)cudaGetLastError();
+    const int R = gen_rows(k);
+    if (R < 1) return (int)cudaErrorInvalidValue;      // k above 256
+    const int blocks = (args->rows + R - 1) / R;
+    cyclic_general_kernel<<<blocks, gen_voice_threads(k) + GEN_MIX,
+                            gen_smem_bytes(k), (cudaStream_t)stream>>>(*args);
     return (int)cudaGetLastError();
 }
+#endif  // CYC_SHIM
 
 #else  // CYC_K
 

@@ -23,7 +23,9 @@ launches one of ``csrc/cyclic.cu``'s two variants or raises:
 ``cyclic_fixed`` (voice count, features, CZ modes and arithmetic mode
 compiled in; one library per ``fixed_key``, built at first use) for ``k``
 up to ``FIXED_K_MAX``, ``cyclic_general`` (all of them run-time
-arguments) above it.
+arguments) above it.  The general variant renders a frame's voices at
+once, in waves by their same-frame reads (``cyclic_levels``): the
+caller's schedule, or one derived from ``vecs``.
 
 Timing ablation (``CYC_ABLATE``): the port of the JAX package's
 ``SKRED_CYC_ABLATE`` (``skred_tpu/engine/cyclic.py:66-72``), a comma list
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from skred_tpu_torch import spans
@@ -124,12 +127,73 @@ def _state_keys(fl):
     return keys + _STATE_TAIL
 
 
+def cyclic_levels(reads, k) -> np.ndarray:
+    """The wave of each of ``k`` packed voices in a frame: 0 for a voice
+    that reads no other voice's sample of the same frame, else 1 + the
+    highest wave among those it does.  A read is of the same frame
+    exactly where ``read_mod`` (``csrc/cyclic.cu``) says so: not delayed
+    and from a lower voice (a voice's read of itself stays in its own
+    thread).  ``reads``: (source, delayed) integer array pairs, the voice
+    on the last axis and any leading axes (rows, segments); the waves
+    take the union of their edges, so one schedule serves every row and
+    segment.  Returns int32 ``[k]``; the wave count is its max + 1."""
+    same = np.zeros((k, k), bool)             # same[m, v]: v reads m
+    lower = np.arange(k)
+    for src, delayed in reads:
+        src = np.asarray(src).reshape(-1, k)
+        hit = ((np.asarray(delayed).reshape(-1, k) == 0) & (src >= 0)
+               & (src < lower))
+        same[src[hit], np.nonzero(hit)[1]] = True
+    wave = np.zeros(k, np.int32)
+    for v in range(k):
+        up = wave[:v][same[:v, v]]
+        wave[v] = up.max() + 1 if up.size else 0
+    return wave
+
+
+def wave_reads(vecs, feat) -> list:
+    """The general variant's modulator reads of ``vecs`` (any shape
+    ``[k, ...]``, any device) as ``cyclic_levels`` takes them, each read
+    whose value the voice discards taken out: the fm read without
+    ``use_fm``, the cz-mod read of a voice whose CZ mode is 0, the
+    pan-mod read of a disconnected voice.  The kernel resolves such a
+    read to none too, so its result does not change."""
+    fl = _flags(feat)
+    host = lambda key: vecs[key].T.cpu().numpy()
+    reads = []
+    if fl["fm"]:
+        reads.append((np.where(host("use_fm") != 0, host("fm_osc"), -1),
+                      host("fm_del")))
+    if fl["czm"]:
+        reads.append((np.where(host("cz_mode") != 0, host("cm_osc"), -1),
+                      host("cm_del")))
+    if fl["am"]:
+        reads.append((host("am_osc"), host("am_del")))
+    if fl["pm"]:
+        pm = host("pm_osc")
+        if fl["disc"]:
+            pm = np.where(host("disconn") == 0, pm, -1)
+        reads.append((pm, host("pm_del")))
+    return reads
+
+
+def schedule_of(vecs, feat, k, device):
+    """The general variant's schedule for ``vecs`` (``[k, ...]``; a copy
+    to the host where they lie on the card): (wave ``[k]`` int32 on
+    ``device``, wave count)."""
+    wave = cyclic_levels(wave_reads(vecs, feat), k)
+    return (torch.from_numpy(wave).to(device),
+            int(wave.max(initial=-1)) + 1)
+
+
 def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
-                       feat, k, n, exact=True):
+                       feat, k, n, exact=True, schedule=None):
     """The kernel's arithmetic in torch ops on any device: a loop over the
     block's frames and, inside each, over the voices.  A stage that no
     row of a voice has on is skipped for that voice: its selects would
-    discard what it computes.  Returns what ``cyclic_block`` returns."""
+    discard what it computes.  Takes ``cyclic_block``'s arguments (the
+    voices run in order, so ``schedule`` goes unused) and returns what it
+    returns."""
     fl = _flags(feat)
     modes = fl["cz_modes"]
     dev = vf.device
@@ -403,13 +467,13 @@ def cyclic_block_plain(table, table_off, cbase, noise_blk, vecs, states, vf,
 
 _INT_FIELDS = (("n", "rows", "k", "cbase", "exact")
                + tuple("has_" + name for name in _FLAG_NAMES)
-               + ("cz_mask", "st_sv", "st_sb"))
+               + ("cz_mask", "st_sv", "st_sb", "n_waves"))
 _VEC_FIELDS = tuple(key for key, _ in _VEC_BASE) + tuple(
     key for name in _VEC_ORDER for key, _ in _VEC_FEAT[name])
 _STATE_FIELDS = tuple(key for key, _ in (
     _STATE_BASE + _STATE_FEAT["finish"] + _STATE_FEAT["hold"]
     + _STATE_FEAT["flt"] + _STATE_FEAT["sm"] + _STATE_TAIL))
-_PTR_FIELDS = (("table", "table_off", "noise", "vf") + _VEC_FIELDS
+_PTR_FIELDS = (("table", "table_off", "noise", "vf", "wave") + _VEC_FIELDS
                + tuple(key + "_0" for key in _STATE_FIELDS) + ("vol_gain_0",)
                + tuple(key + "_e" for key in _STATE_FIELDS) + ("vol_gain_e",)
                + ("out_l", "out_r"))
@@ -445,9 +509,11 @@ def _cz_mask(fl):
 
 
 def _pack_args(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
-               k, n, exact):
-    """Check the CUDA tensors and fill the kernel's argument struct.
-    Returns (CyclicArgs, out_l, out_r, new_states)."""
+               k, n, exact, schedule=None):
+    """Check the CUDA tensors and fill the kernel's argument struct;
+    ``schedule`` (``schedule_of``'s pair) for the general variant, derived
+    from ``vecs`` where None.  Returns (CyclicArgs, out_l, out_r,
+    new_states); the struct keeps the schedule's tensor alive."""
     fl = _flags(feat)
     dev = vf.device
     B = vf.shape[0]
@@ -485,6 +551,9 @@ def _pack_args(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
     a.vol_gain_e = new_states["vol_gain"].data_ptr()
     out = torch.empty((2, n, B), dtype=F32, device=dev)
     a.out_l, a.out_r = out[0].data_ptr(), out[1].data_ptr()
+    wave, a.n_waves = schedule or schedule_of(vecs, feat, k, dev)
+    a.wave = chk("wave", wave, dev, I32, (k,))
+    a.keep = wave
     return a, out[0].T, out[1].T, new_states
 
 
@@ -555,7 +624,7 @@ def cyclic_general(args, dev):
 
 
 def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
-                 k, n, exact=True, variant=None):
+                 k, n, exact=True, variant=None, schedule=None):
     """One block of the cyclic engine over all batch rows.
 
     table: [R] f32 flat table buffer; table_off: [k] i32, each voice's
@@ -569,7 +638,12 @@ def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
     inside the buffer (the cyclic renderer checks once per render, on the
     host).  ``variant``:
     None takes ``variant_for(k)``; "fixed" or "general" names one (the
-    tests and chip_smoke.py hold both to the plain version).  A nonempty
+    tests and chip_smoke.py hold both to the plain version).
+    ``schedule``: the general variant's waves, ``(wave [k] int32 on the
+    device, wave count)`` from ``cyclic_levels`` over edges that include
+    every same-frame read of ``vecs`` (the renderer builds it once per
+    batch); None derives it from ``vecs`` with a copy to the host
+    (``schedule_of``).  The keyed variant ignores it.  A nonempty
     ``CYC_ABLATE`` stubs the keyed variant's phases (timing only); the
     plain version and the general variant refuse it.  Returns
     ``(out_l [B, n], out_r [B, n], new_states)``; new_states holds the
@@ -599,7 +673,7 @@ def cyclic_block(table, table_off, cbase, noise_blk, vecs, states, vf, feat,
             raise ValueError(f"cyclic: no variant {variant!r}")
         args, out_l, out_r, new_states = _pack_args(
             table, table_off, cbase, noise_blk, vecs, states, vf, feat, k, n,
-            exact)
+            exact, schedule)
         if variant == "fixed":
             cyclic_fixed(args, fixed_key(feat, k, exact, CYC_ABLATE), dev)
         else:

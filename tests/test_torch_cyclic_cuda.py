@@ -8,6 +8,7 @@ so it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cyclic_cuda.py
 """
 
+import pathlib
 import re
 import shutil
 import subprocess
@@ -16,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.traffic import variants
 from skred_tpu_torch.engine import cyclic as tc
 from skred_tpu_torch.engine.kernels import build
 from skred_tpu_torch.engine.kernels import cyclic as ck
 from skred_tpu_torch.engine.kernels import cyclic_inputs as ci
 
 SCRIPTS = ("fb1", "fb2", "fb3", "fb5", "all_features")
+CZFB64 = variants.wire_lines((pathlib.Path(__file__).resolve().parent.parent
+                              / "benchmark" / "configs" / "czfb64.sk")
+                             .read_text())
 
 
 @pytest.fixture
@@ -129,8 +134,8 @@ def test_cyclic_cuda_operands_outside_the_fast_range(name, variant,
 
 @pytest.mark.cuda
 def test_cyclic_cuda_at_the_voice_limit(cuda_device):
-    """64 voices in a ring: above 48 KB of shared memory a block, which
-    the launch has to ask for."""
+    """64 voices in a ring, the general variant's voice cap: one read a
+    frame of the same frame (v63 of v0), so 2 waves."""
     lines = [f"v{v} w{v % 3} f{50 + 7 * v} a5 F{(v + 1) % 64},0.3 "
              f"J1 K3000 Q2 h3 c1,0.4" for v in range(64)]
     args = ci.on_device(ci.block_inputs(lines, 64, seed=8, n=32),
@@ -144,6 +149,60 @@ def test_cyclic_cuda_at_the_voice_limit(cuda_device):
     _same(got[0], want[0], "out_l")
     for kk in want[2]:
         _same(got[2][kk], want[2][kk], kk)
+
+
+def _waves_inputs(case):
+    """(the first block's arguments, blocks): czfb64 at 7 rows (4 rows a
+    CUDA block, the last ragged), a chain of 16 same-frame FM reads, the
+    all-features script with each read cut on a random 40% of its rows.
+    Blocks of 48 frames: the plain version walks a frame of 64 voices in
+    ~0.3 s."""
+    if case == "czfb64":
+        return ci.block_inputs(CZFB64, 7, seed=21, n=48), 2
+    if case == "chain16":
+        lines = ["v0 w1 f110 a5 F15,0.3 c1,0.4"] + [
+            f"v{v} w{v % 3} f{50 + 7 * v} a5 F{v - 1},0.3 J1 K3000 Q2 h3"
+            for v in range(1, 16)]
+        return ci.block_inputs(lines, 37, seed=22, n=128), 1
+    args = list(ci.block_inputs(ci.ALL_FEATURES, 100, seed=23, n=128))
+    rng = np.random.default_rng(23)
+    for key in ("fm_osc", "cm_osc", "am_osc", "pm_osc"):
+        if key in args[4]:
+            drop = torch.from_numpy(rng.uniform(size=args[4][key].shape)
+                                    < 0.4)
+            args[4] = dict(args[4], **{key: torch.where(
+                drop, -1, args[4][key]).contiguous()})
+    return tuple(args), 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("case", ["czfb64", "chain16", "rows_differ"])
+def test_cyclic_general_waves_match_plain_on_card(case, exact, cuda_device):
+    """The general variant, a frame's voices in waves, bit-equal to the
+    plain version in outputs and end states: czfb64 at 64 voices (2
+    waves) over 2 blocks, the second from the first's end states; a
+    16-voice chain (16 waves); rows whose graphs differ, on the schedule
+    derived from the vectors (their union)."""
+    args, blocks = _waves_inputs(case)
+    args = list(ci.on_device(args, cuda_device))
+    want_waves = {"czfb64": 2, "chain16": 16}.get(case)
+    for blk in range(blocks):
+        schedule = ck.schedule_of(args[4], args[7], args[8], cuda_device)
+        if want_waves is not None:
+            assert schedule[1] == want_waves
+        before = _counts()
+        got = ck.cyclic_block(*args, exact=exact, variant="general",
+                              schedule=schedule)
+        torch.cuda.synchronize()
+        assert _counts() == (before[0] + 1, before[1], before[2] + 1)
+        want = ck.cyclic_block_plain(*args, exact=exact)
+        _same(got[0], want[0], f"{case} block {blk} out_l")
+        _same(got[1], want[1], f"{case} block {blk} out_r")
+        for kk in want[2]:
+            _same(got[2][kk], want[2][kk], f"{case} block {blk} state {kk}")
+        args[2] += args[9]
+        args[5] = got[2]
 
 
 @pytest.mark.cuda
