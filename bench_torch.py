@@ -99,12 +99,11 @@ def launch_counters() -> dict:
     from skred_tpu_torch.engine.kernels import tier as tk
 
     return dict(tier=tk.tier, tier_keyed=tk.tier_keyed,
-                tier_general=tk.tier_general,
-                phase_walk_warp=pw.phase_walk_warp, phase_walk=pw.phase_walk,
+                phase_walk_warp=pw.phase_walk_warp,
                 lookup=lk.lookup, table_lookup=lk.table_lookup_pallas,
                 table_lookup_grouped=lk.table_lookup_grouped,
                 filt_smooth_noise=fs.filt_smooth_noise,
-                filt_smooth=fs.filt_smooth, cyclic=ck.cyclic_block,
+                cyclic=ck.cyclic_block,
                 cyclic_fixed=ck.cyclic_fixed,
                 cyclic_general=ck.cyclic_general, compat=cm.compat_block)
 

@@ -23,10 +23,12 @@ it:
                   the table does not hold fails the run: every bound
                   would be a guess)
   2. build        the native host compiler (g++, csrc/skred_host.cpp into
-                  build/host/); nvcc for every csrc/*.cu but compat.cu
-                  (built under a key only: the compat phase's, batch's and
-                  repair's renders and the stamp build), for the cyclic
-                  kernel's keys
+                  build/host/); nvcc for every csrc/*.cu that builds
+                  without a key (cyclic.cu's general variant, lookup.cu,
+                  fma_probe.cu; the others build under a key only), for
+                  the compat kernel's keys (the compat phase's, batch's
+                  and repair's renders and the stamp build), for the
+                  cyclic kernel's keys
                   (fb1-fb5 as the main path and the kernel phase render
                   them, and the all-features script), for the tier
                   kernel's keys (stress64's tiers with mix and fold on and
@@ -35,16 +37,15 @@ it:
                   together; seconds, registers and spills of each (a build
                   that spills fails the run, but for the cyclic kernel's)
   3. kernel       every kernel vs its plain version on the card, bit for
-                  bit, on random blocks (N=512, M=8192): tier, keyed and
-                  general variants, on stress64's two tier feature sets,
-                  and with the mix, with the fold of each of fm / cz / am
-                  and of all three (per-lane sources, some outside the
-                  bank), and with both, writing into a block buffer's
-                  columns and adding onto earlier accumulators;
-                  phase_walk and filt_smooth on noise64's, each in its
-                  general variant and (with the glue, over a bank of 4
-                  voices, the walk also with operands outside its fast
-                  wrap's range) its keyed one; the lookups
+                  bit, on random blocks (N=512, M=8192): tier, on
+                  stress64's two tier feature sets, and with the mix,
+                  with the fold of each of fm / cz / am and of all three
+                  (per-lane sources, some outside the bank), and with
+                  both, writing into a block buffer's columns and adding
+                  onto earlier accumulators; the keyed phase_walk and
+                  filt_smooth with their glue on noise64's, over a bank
+                  of 4 voices (the walk also with operands outside its
+                  fast wrap's range); the lookups
                   (grouped and single-lane forms at 4096- and
                   32768-sample slots, and the noise pass's base/limit
                   form); cyclic, keyed and general variants, on fb1's,
@@ -58,12 +59,11 @@ it:
                   (1024 rows) -> pack_stacked -> pad_segments_pow2 ->
                   render_fused_stream_device(chunk_blocks=172): one
                   warm-up, one timed pass with the launch counts read
-                  around it (every tier launch the keyed variant's), a
+                  around it (every tier launch the keyed library's), a
                   profiled chunk; then each kernel alone, its plain
                   version and its bound on the path's own first-block
-                  inputs, and the tier kernel's two variants in turns
-                  (general, keyed, keyed, general) at tier 1 and tier 0
-                  with clocks.sm, the mix kernel alone, the
+                  inputs, and the tier kernel in two turns at tier 1 and
+                  tier 0 with clocks.sm, the mix kernel alone, the
                   SASS instructions of one sample step, and the issue and
                   chain floors beside the bytes bound.  Mix and fold are
                   on (the default).  Then a 2-chunk batch of stress64
@@ -79,17 +79,15 @@ it:
   6. noise main   noise64 as in 4, cut to 2 chunks (344 blocks, 3.99 s
                   of audio per row) to keep the run short: the keyed
                   phase walk, the lookup and the keyed filter/smoother
-                  launched twice per block, the general variants and the
-                  tier kernel never; torch.take timed beside the lookup.
-                  Then on the first block's inputs of each tier: the
-                  "noise stages" lines (the device time of each stage of
-                  the pass as it ran before its glue moved into the
-                  keyed kernels, and of the rest of the block); the
-                  "noise turns" lines (each keyed kernel in turns with
-                  the general kernel plus the glue it absorbed, each
-                  bit-equal to the plain version, with its SASS
-                  instructions a sample step, issue floor and bytes
-                  bound); the "noise alone" lines (each kernel alone);
+                  launched twice per block, the tier kernel never;
+                  torch.take timed beside the lookup.  Then on the first
+                  block's inputs of each tier: the "noise block rest"
+                  line (the device time of the block around the noise
+                  pass); the "noise turns" lines (each keyed kernel in
+                  two turns, each bit-equal to the plain version, with
+                  its SASS instructions a sample step, issue floor and
+                  bytes bound); the "noise alone" lines (each kernel
+                  alone);
                   the single-lane lookup's form alone (row 6's shape);
                   the "lookup turns" lines: the lookup in turns with
                   torch.take (each turn 20 calls in a CUDA graph, so that
@@ -164,7 +162,8 @@ it:
                   plain version too, on fb1's vectors)
  13. mesh         a mesh of two entries on the card, ["cuda:0", "cuda:0"]:
                   stress64 and noise64 at 8 rows x 4 blocks through
-                  render_fused, the seven scripts through render_batch,
+                  render_fused, the seven scripts through render_batch
+                  (the fused and cyclic groups' rows split over it),
                   each bit-equal to its render without a mesh;
                   entry_torch.entry()'s step (one compat launch, equal to
                   render_stacked) and entry_torch.dryrun_multichip(2)
@@ -217,7 +216,8 @@ it:
                   itself exits 1 on either), and the launches its path
                   needs: the keyed tier kernel on stress64, the keyed
                   walk, the lookup and the keyed filter on noise64, the
-                  keyed cyclic kernel on fb1-fb5, no general variant
+                  keyed cyclic kernel on fb1-fb5, not the general
+                  cyclic variant
 
 Every bound comes from skred_tpu_torch/parallel/roofline.py, and the
 profiled chunks are aggregated by skred_tpu_torch/tools/profile_roofline.py.
@@ -391,37 +391,22 @@ def tier_spec(tk, peaks):
                            kw.get("mixw") is not None,
                            _folded(_flags(kw["feat"]), kw.get("fold")))
 
-    def launch(args, kw, dev, variant="keyed", entry=None):
-        """A launch of packed ``args`` that counts no launch: the keyed
-        variant's library for ``kw``'s key, or the general one; ``entry``
-        "mix" launches the mix kernel alone (the one both share)."""
+    def launch(args, kw, dev, entry=None):
+        """A launch of packed ``args`` that counts no launch: the library
+        for ``kw``'s key; ``entry`` "mix" launches its mix kernel
+        alone."""
         from skred_tpu_torch.engine.kernels import cuda_call
 
-        k = () if variant == "general" else key(kw)
-        e = "tier_mix_launch" if entry == "mix" \
-            else None if variant == "general" else "tier_keyed_launch"
-        return lambda: cuda_call.launch("tier", args, dev, k, e)
+        e = "tier_mix_launch" if entry == "mix" else "tier_keyed_launch"
+        return lambda: cuda_call.launch("tier", args, dev, key(kw), e)
 
-    plain_kw = lambda kw: {k: v for k, v in kw.items() if k != "variant"}
     return dict(name="tier", fn=tk.tier, pack=pack, fresh=fresh, key=key,
                 launch=launch, symbol="tier_keyed",
                 folded=lambda kw: _folded(_flags(kw["feat"]), kw.get("fold")),
                 run=lambda a, kw: flat(tk.tier(*a, **kw)),
-                plain=lambda a, kw: flat(tk.tier_plain(*a, **plain_kw(kw))),
+                plain=lambda a, kw: flat(tk.tier_plain(*a, **kw)),
                 bound=lambda a, kw: roofline.tier_bound(a, kw, peaks),
                 lanes=lambda a, kw: a[5]["amp"].shape[0])
-
-
-def phase_walk_spec(pw, peaks):
-    def pack(a, kw):
-        args, outs = pw._pack_args(*a, kw["fm"], kw["finish"], kw["n"])
-        return args, list(outs)
-
-    return dict(name="phase_walk", fn=pw.phase_walk, pack=pack,
-                run=lambda a, kw: list(pw.phase_walk(*a, **kw)),
-                plain=lambda a, kw: list(pw.phase_walk_plain(*a, **kw)),
-                bound=lambda a, kw: roofline.phase_walk_bound(a, kw, peaks),
-                lanes=lambda a, kw: a[1].shape[0])
 
 
 def lookup_spec(lk, peaks):
@@ -443,24 +428,10 @@ def lookup_spec(lk, peaks):
                 lanes=lambda a, kw: a[1].shape[0])
 
 
-def filt_smooth_spec(fs, peaks):
-    def pack(a, kw):
-        args, res = fs._pack_args(a, kw["feat"])
-        return args, list(res)
-
-    return dict(name="filt_smooth", fn=fs.filt_smooth, pack=pack,
-                run=lambda a, kw: list(fs.filt_smooth(*a, **kw)),
-                plain=lambda a, kw: list(fs.filt_smooth_plain(*a, **kw)),
-                bound=lambda a, kw: roofline.filt_smooth_bound(a, kw, peaks),
-                lanes=lambda a, kw: a[0].shape[1])
-
-
-# the JSON's and the max|diff| record's name of each wrapper: the keyed
-# variants, which the render path runs, carry the TPU kernels' names
+# the JSON's and the max|diff| record's name of each wrapper: the noise
+# kernels carry the TPU kernels' names
 RECORD_NAME = {"phase_walk_warp": "phase_walk",
-               "phase_walk": "phase_walk_general",
-               "filt_smooth_noise": "filt_smooth",
-               "filt_smooth": "filt_smooth_general"}
+               "filt_smooth_noise": "filt_smooth"}
 
 
 def phase_walk_warp_spec(pw, peaks):
@@ -553,10 +524,8 @@ def kernel_phase(dev, specs, errs):
     """Every kernel against its plain version on random blocks."""
     from skred_tpu_torch.engine.kernels import lookup as lk
     from skred_tpu_torch.engine.kernels.noise_inputs import (
-        NOISE64_FS0, NOISE64_FS1, NOISE64_FSN0, NOISE64_FSN1, NOISE64_PW0,
-        NOISE64_PW1, NOISE64_WARP0, NOISE64_WARP1, random_fs_inputs,
-        random_lookup_inputs, random_noise_fs_inputs, random_phase_inputs,
-        random_warp_inputs)
+        NOISE64_FSN0, NOISE64_FSN1, NOISE64_WARP0, NOISE64_WARP1,
+        random_lookup_inputs, random_noise_fs_inputs, random_warp_inputs)
     from skred_tpu_torch.engine.kernels.tier_inputs import (
         STRESS64_TIER0, STRESS64_TIER1, random_tier_inputs)
 
@@ -601,18 +570,6 @@ def kernel_phase(dev, specs, errs):
              {k: t(v) for k, v in states.items()})
         calls.append(("tier", label, a, dict(feat=feat, n=n)))
     calls += tier_variant_calls(dev, n)
-    calls = [c for c in calls if c[0] != "tier"] + [
-        ("tier", f"{label}, {variant}", a, dict(kw, variant=variant))
-        for name, label, a, kw in calls if name == "tier"
-        for variant in ("keyed", "general")]
-    for label, (fm, fin) in (("noise64 tier0", NOISE64_PW0),
-                             ("noise64 tier1", NOISE64_PW1)):
-        a = to_card(random_phase_inputs(fm, fin, n, m, seed=12), dev)
-        calls.append(("phase_walk", label, a, dict(fm=fm, finish=fin, n=n)))
-    for label, feat in (("noise64 tier0", NOISE64_FS0),
-                        ("noise64 tier1", NOISE64_FS1)):
-        a = to_card(random_fs_inputs(feat, n, m, seed=13), dev)
-        calls.append(("filt_smooth", label, a, dict(feat=feat)))
     from skred_tpu_torch.engine.kernels.tier import Fold
 
     b, w = m // 8, 4
@@ -651,7 +608,7 @@ def kernel_phase(dev, specs, errs):
         got = [None if g is None else g.clone()
                for g in sp["run"](*fresh(a, kw, False))]
         torch.cuda.synchronize()
-        if name in ("cyclic", "tier"):
+        if name == "cyclic":
             # both variants against one plain run of the same inputs
             if id(a) not in plains:
                 plains[id(a)] = sp["plain"](*fresh(a, kw, True))
@@ -981,7 +938,7 @@ def time_captured(label, captured, specs, dev, card, errs):
     return timings
 
 
-# ---- the noise pass: its stages on the card ----
+# ---- the noise pass on the card ----
 
 def frozen(x):
     """``x`` with every tensor in it cloned (through tuples, named
@@ -1028,119 +985,14 @@ def capture_noise(st, dev):
     return got
 
 
-# the stages of noise_glue that each keyed kernel absorbed, the general
-# kernel among them
-WALK_GLUE = ("fm + cz reads", "fm increment", "phase walk (general kernel)",
-             "cz warp + clip", "clip", "alive count")
-FILTER_GLUE = ("noise select + dead mask", "envelope", "am read",
-               "am stream", "filt_smooth (general kernel)")
-
-
-def noise_glue(a, kw):
-    """The noise pass of a captured ``_noise_pass`` call, stage by stage
-    as it ran before its glue moved into the keyed kernels (the glue's
-    torch ops around the general kernels).  Returns ({stage: a call that
-    runs it alone on what the stages before it gave, keeps its result and
-    returns it}, in order; the results by name)."""
-    from skred_tpu_torch.engine import fused
-    from skred_tpu_torch.engine.kernels import filt_smooth as fs
-    from skred_tpu_torch.engine.kernels import lookup as lk
-    from skred_tpu_torch.engine.kernels import phase_walk as pw
-    from skred_tpu_torch.engine.kernels.tier import bank_read
-
-    est_vm, prev_vm, carry, p, tp, cbase, table, _, feat, n, b = a[:11]
-    noise_blk = kw["noise_blk"]
-    fm, finish, direction, cz, czm, modes, _ = fused._pw_feat(feat)
-    stage = {}
-    x = {}
-
-    def add(name, fn, key):
-        def run():
-            x[key] = fn()
-            return x[key]
-        stage[name] = run
-        run()
-
-    add("carry in", lambda: fused._noise_inputs(est_vm, prev_vm, carry, tp,
-                                                feat, b), "in")
-    bank, v, ph0, fin0, states = x["in"]
-    read = lambda s: bank_read(bank, v[s + "_src"], v[s + "_del"], n, b)
-    streams = [s for s, on in (("fm", fm), ("cz", cz and czm)) if on]
-    if streams:
-        add("fm + cz reads", lambda: {s: read(s) for s in streams}, "rd")
-    if fm:
-        add("fm increment", lambda: pw.fm_increment(
-            x["rd"]["fm"], v, direction), "inc")
-    else:
-        x["inc"] = v["inc"]
-    add("phase walk (general kernel)", lambda: pw.phase_walk(
-        x["inc"], ph0, fin0, v["lo"], v["hi"], v["L"], v.get("osn"),
-        v.get("one_shot"), v["adv"], v["act"], fm=fm, finish=finish, n=n),
-        "walk")
-    if cz:
-        add("cz warp + clip", lambda: pw.cz_clip(
-            x["walk"][0], pw.cz_offset(x["rd"]["cz"], v) if czm
-            else v["dm"], v, cz, modes), "idx")
-    else:
-        add("clip", lambda: pw.cz_clip(x["walk"][0], None, v, False),
-            "idx")
-    add("alive count", lambda: pw.alive_count(x["walk"][1], v["act"], n),
-        "cnt")
-    add("lookup", lambda: lk.lookup(table, v["base_off"], v["limit"],
-                                    x["idx"]), "f")
-    add("noise select + dead mask", lambda: fs.noise_select(
-        x["f"], noise_blk, v["is_noise"], x["cnt"], n, finish), "sel")
-    if feat.env:
-        add("envelope", lambda: fs.env_stream(cbase, v, n), "env")
-    if feat.am:
-        add("am read", lambda: read("am"), "am_rd")
-        add("am stream", lambda: fs.am_stream(x["am_rd"], v), "amod")
-    ff = fused._fs_feat(feat)
-    add("filt_smooth (general kernel)", lambda: fs.filt_smooth(
-        x["sel"][0], x.get("env"), x.get("amod"), x["sel"][1],
-        *(v.get(k) for k in fs._FS_ARG_VECS),
-        *(states.get(k) for k in fs._END_NAMES), feat=ff),
-        "fs")
-    back = lambda t: fused.from_vm_vec(t, b, p["amp"].shape[1])
-    add("carry out", lambda: [back(t) for t in (*x["fs"][1:], x["walk"][2])
-                              if t is not None]
-        + [torch.clamp(back(x["cnt"]) - 1, 0, n - 1)], "out")
-    return stage, x
-
-
-def glue_turn(stage, x, names, result):
-    """One call that runs the named stages of ``noise_glue`` in order
-    and returns ``result(x)``."""
-    def go():
-        for name in names:
-            if name in stage:
-                stage[name]()
-        return result(x)
-    return go
-
-
-def noise_stages(caught, card):
-    """The device time of each stage of the noise pass as it ran before
-    its glue moved into the keyed kernels, alone (CUDA events, 5 calls
-    each) on noise64's first-block inputs at each tier, and of the rest
-    of the block: the whole block, the torch mix of the noise tiers, the
-    carry's concatenation and the volume scan.  Returns {lanes: {stage:
-    ms}} and the rest."""
+def noise_rest(caught, card):
+    """The device time of the rest of noise64's first block around the
+    noise pass, each part alone (CUDA events, 5 calls each): the whole
+    block, the torch mix of the noise tiers, the carry's concatenation
+    and the volume scan.  Returns {part: ms}."""
     from skred_tpu_torch.engine import fused
 
     reps = 5
-    res = {}
-    for (nm, m), (a, kw) in sorted(caught.items()):
-        if nm != "_noise_pass":
-            continue
-        res[m] = {name: cuda_ms(fn, reps)
-                  for name, fn in noise_glue(a, kw)[0].items()}
-        total = sum(res[m].values())
-        log(f"noise stages M={m} (noise64 first block, the pass before "
-            f"its glue moved into the keyed kernels): "
-            + ", ".join(f"{k} {t:.4f}" for k, t in res[m].items())
-            + f" ms; sum {total:.4f} ms (CUDA events, {reps} calls each), "
-            f"on {card}")
     r, carry, k0 = caught["_block_step", 0][0]
     ma, mkw = caught["_mix_parts", 0]
     n, nb = r.block, r.B
@@ -1163,7 +1015,7 @@ def noise_stages(caught, card):
     log("noise block rest (noise64 first block): " + ", ".join(
         f"{k} {t:.4f}" for k, t in rest.items())
         + f" ms (CUDA events, {reps} calls each), on {card}")
-    return res, rest
+    return rest
 
 
 def keyed_sass(name, key, kernel, entry):
@@ -1178,15 +1030,10 @@ def keyed_sass(name, key, kernel, entry):
 
 def noise_turns(caught, specs, dev, card, errs):
     """On noise64's first-block inputs at each tier: the keyed phase walk
-    against the general kernel with the glue it absorbed (the fm and cz
-    reads, the FM increment, the CZ warp and clip, the alive count), and
-    the keyed filter/smoother against the general kernel with its glue
-    (the noise select and dead mask, the envelope, the am read and
-    stream), in turns (general + glue, keyed, keyed, general + glue),
-    each bit-equal to the plain version; then each kernel alone (the
-    keyed two, the general two on the inputs the glue gives them, the
-    lookup); the keyed builds' SASS instructions a sample step and issue
-    floors beside their bytes bounds.  Returns {lanes: numbers}."""
+    and the keyed filter/smoother, two turns each, each bit-equal to the
+    plain version; then each kernel alone (the two, the lookup); the
+    builds' SASS instructions a sample step and issue floors beside
+    their bytes bounds.  Returns {lanes: numbers}."""
     from skred_tpu_torch.engine import fused
     from skred_tpu_torch.engine.kernels import cuda_call
     from skred_tpu_torch.engine.kernels import filt_smooth as fs
@@ -1205,89 +1052,44 @@ def noise_turns(caught, specs, dev, card, errs):
             est_vm, prev_vm, carry, tp, feat, b)
         pf, ff = fused._pw_feat(feat), fused._fs_feat(feat)
         pw_a, pw_kw = (bank, v, ph0, fin0), dict(feat=pf, n=n, b=b)
-        want_pw = pw.phase_walk_warp_plain(*pw_a, **pw_kw)
+        want_pw = list(pw.phase_walk_warp_plain(*pw_a, **pw_kw))
         f = lk.lookup(table, v["base_off"], v["limit"], want_pw[0])
         fs_a = (f, noise_blk, want_pw[1], cbase, bank, v, states)
         fs_kw = dict(feat=ff, b=b)
         want_fs = specs["filt_smooth_noise"]["plain"](fs_a, fs_kw)
-        want_pw = list(want_pw)
-        stage, x = noise_glue(a, kw)
         clk0 = sm_clock()
         times = {}
-        for kname, sa, skw, want, glue in (
-                ("phase_walk", pw_a, pw_kw, want_pw,
-                 glue_turn(stage, x, WALK_GLUE, lambda x: [
-                     x["idx"], x["cnt"], *x["walk"][2:]])),
-                ("filt_smooth", fs_a, fs_kw, want_fs,
-                 glue_turn(stage, x, FILTER_GLUE, lambda x: [x["fs"][0]] + [
-                     e for _, e in sorted(fs.end_states(x["fs"],
-                                                        ff).items())]))):
+        for kname, sa, skw, want in (
+                ("phase_walk", pw_a, pw_kw, want_pw),
+                ("filt_smooth", fs_a, fs_kw, want_fs)):
             sp = specs["phase_walk_warp" if kname == "phase_walk"
                        else "filt_smooth_noise"]
             args, outs = sp["pack"](sa, skw)
             go = sp["launch"](args, skw, dev)
-            times[kname] = {"general + glue": [], "keyed": []}
-            for turn in ("general + glue", "keyed", "keyed",
-                         "general + glue"):
-                if turn == "keyed":
-                    go()
-                    torch.cuda.synchronize()
-                    got, fn, reps = outs, go, 20
-                else:
-                    got, fn, reps = glue(), glue, 5
-                    torch.cuda.synchronize()
-                bad = [i for i, (g, w) in enumerate(zip(got, want))
+            times[kname] = []
+            for _ in range(2):
+                go()
+                torch.cuda.synchronize()
+                bad = [i for i, (g, w) in enumerate(zip(outs, want))
                        if not same_bits(g, w)]
                 ekey = RECORD_NAME[sp["name"]]
                 errs[ekey] = max([errs.get(ekey, 0.0)]
-                                 + [max_abs(g, w) for g, w in zip(got, want)
+                                 + [max_abs(g, w) for g, w in zip(outs, want)
                                     if g is not None])
                 if bad:
-                    fail(f"{kname} {turn} disagrees with the plain version "
-                         f"on noise64's first block at M={m} (outputs "
-                         f"{bad})")
-                times[kname][turn].append(cuda_ms(fn, reps))
+                    fail(f"{kname} disagrees with the plain version on "
+                         f"noise64's first block at M={m} (outputs {bad})")
+                times[kname].append(cuda_ms(go, 20))
         clk1 = sm_clock()
-        # the general kernels alone, on the inputs the glue gives them
-        inc = stage["fm increment"]() if pf[0] else v["inc"]
-        # (each launch's outputs are kept until it has run: the kernel
-        # writes into them)
-        g_args, g_outs = pw._pack_args(inc, ph0, fin0, v["lo"], v["hi"],
-                                       v["L"], v.get("osn"),
-                                       v.get("one_shot"), v["adv"], v["act"],
-                                       pf[0], pf[1], n)
-        sel = stage["noise select + dead mask"]()
-        fs_in = (sel[0], stage["envelope"]() if ff[5] else None,
-                 stage["am stream"]() if ff[6] else None, sel[1],
-                 *(v.get(k) for k in fs._FS_ARG_VECS),
-                 *(states.get(k) for k in fs._END_NAMES))
-        gf_args, gf_outs = fs._pack_args(fs_in, ff)
         lk_args, lk_out = lk._pack_args(table, v["base_off"], v["limit"],
                                         want_pw[0], False)
         alone = {
-            "keyed phase_walk": times["phase_walk"]["keyed"],
-            "keyed filt_smooth": times["filt_smooth"]["keyed"],
-            "general phase_walk": [cuda_ms(lambda: cuda_call.launch(
-                "phase_walk", g_args, dev), 20)],
-            "general filt_smooth": [cuda_ms(lambda: cuda_call.launch(
-                "filt_smooth", gf_args, dev), 20)],
+            "keyed phase_walk": times["phase_walk"],
+            "keyed filt_smooth": times["filt_smooth"],
             "lookup": [cuda_ms(lambda: cuda_call.launch(
                 "lookup", lk_args, dev), 20)],
         }
-        del g_outs, gf_outs, lk_out
-        g_plain = {
-            "phase_walk": host_ms(lambda: pw.phase_walk_plain(
-                inc, ph0, fin0, v["lo"], v["hi"], v["L"], v.get("osn"),
-                v.get("one_shot"), v["adv"], v["act"], fm=pf[0],
-                finish=pf[1], n=n))[0],
-            "filt_smooth": host_ms(lambda: fs.filt_smooth_plain(
-                *fs_in, feat=ff))[0]}
-        g_bound = {"phase_walk": specs["phase_walk"]["bound"](
-            (inc, ph0, fin0, v["lo"], v["hi"], v["L"], v.get("osn"),
-             v.get("one_shot"), v["adv"], v["act"]),
-            dict(fm=pf[0], finish=pf[1], n=n)),
-            "filt_smooth": specs["filt_smooth"]["bound"](
-                fs_in, dict(feat=ff))}
+        del lk_out
         mhz = max(float(c.split()[0]) for c in (clk0, clk1))
         warps = -(-m // 32)
         per_sched = -(-warps // (4 * sms))
@@ -1305,29 +1107,23 @@ def noise_turns(caught, specs, dev, card, errs):
                                    pw_kw if kname == "phase_walk" else fs_kw)
             floors[kname] = dict(sass=sass["per_sample"], issue_ms=issue,
                                  bound_ms=bms, bound_by=bby)
-        res[m] = dict(times=times, alone=alone, floors=floors,
-                      general_plain=g_plain, general_bound=g_bound)
+        res[m] = dict(times=times, alone=alone, floors=floors)
         for kname in ("phase_walk", "filt_smooth"):
             t, fl = times[kname], floors[kname]
-            mean_k = sum(t["keyed"]) / len(t["keyed"])
+            mean_k = sum(t) / len(t)
             log(f"noise turns M={m} {kname} (noise64 first block, n={n}): "
-                f"general + glue {fmt(t['general + glue'])} ms/call, keyed "
-                f"{fmt(t['keyed'])} ms/call (in turns general + glue, keyed, "
-                f"keyed, general + glue; CUDA events, 5 and 20 calls), "
-                f"{min(t['general + glue']) / max(t['keyed']):.1f}x at "
-                f"least; SASS {fl['sass']:.2f} instructions a sample step, "
-                f"issue floor {fl['issue_ms']:.4f} ms at {mhz:.0f} MHz "
-                f"({warps} warps, {per_sched} a scheduler), bytes bound "
-                f"{fl['bound_ms']:.4f} ms ({fl['bound_by']}): keyed "
+                f"keyed {fmt(t)} ms/call (two turns; CUDA events, 20 "
+                f"calls); SASS {fl['sass']:.2f} instructions a sample "
+                f"step, issue floor {fl['issue_ms']:.4f} ms at {mhz:.0f} "
+                f"MHz ({warps} warps, {per_sched} a scheduler), bytes "
+                f"bound {fl['bound_ms']:.4f} ms ({fl['bound_by']}): "
                 f"{mean_k / fl['bound_ms']:.2f}x its bound, "
-                f"{mean_k / fl['issue_ms']:.2f}x its issue floor; both "
+                f"{mean_k / fl['issue_ms']:.2f}x its issue floor; "
                 f"bit-equal to the plain version; clocks.sm {clk0} -> "
                 f"{clk1}, on {card}")
         log(f"noise alone M={m}: " + ", ".join(
             f"{k} {sum(t) / len(t):.4f}" for k, t in alone.items())
-            + f" ms/call (CUDA events, 20 calls); general phase_walk bound "
-            f"{g_bound['phase_walk'][0]:.4f} ms, general filt_smooth bound "
-            f"{g_bound['filt_smooth'][0]:.4f} ms, on {card}")
+            + f" ms/call (CUDA events, 20 calls), on {card}")
     return res
 
 
@@ -1353,12 +1149,11 @@ def tier_chunk(key):
 
 
 def tier_turns(label, captured, spec, dev, card, errs):
-    """The tier kernel's two variants alone on the path's first-block
-    inputs, in turns (general, keyed, keyed, general), each bit-equal to
-    the plain version, with clocks.sm around them; the mix kernel alone
-    after each turn; the SASS instructions of one sample step
-    per build, and from them the issue floor and the chain floor beside
-    the bytes bound.  Returns {lanes: numbers}."""
+    """The tier kernel alone on the path's first-block inputs, two turns,
+    each bit-equal to the plain version, with clocks.sm around them; the
+    mix kernel alone after each turn; the SASS instructions of one
+    sample step, and from them the issue floor and the chain floor
+    beside the bytes bound.  Returns {lanes: numbers}."""
     from skred_tpu_torch.engine.kernels import build
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1369,29 +1164,26 @@ def tier_turns(label, captured, spec, dev, card, errs):
         fresh = spec["fresh"]
         want = spec["plain"](*fresh(a, kw, True))
         clk0 = sm_clock()
-        times = {"general": [], "keyed": []}
-        mix = []
+        times, mix = [], []
         has_mix = kw.get("mixw") is not None
-        for variant in ("general", "keyed", "keyed", "general"):
+        for _ in range(2):
             ka, kkw = fresh(a, kw, False)
             args, outs = spec["pack"](ka, kkw)
-            go = spec["launch"](args, kkw, dev, variant)
+            go = spec["launch"](args, kkw, dev)
             go()
             torch.cuda.synchronize()
             bad = [i for i, (g, w) in enumerate(zip(outs, want))
                    if not same_bits(g, w)]
-            ekey = "tier_general" if variant == "general" else "tier"
-            errs[ekey] = max([errs.get(ekey, 0.0)]
-                             + [max_abs(g, w) for g, w in zip(outs, want)
-                                if g is not None])
+            errs["tier"] = max([errs.get("tier", 0.0)]
+                               + [max_abs(g, w) for g, w in zip(outs, want)
+                                  if g is not None])
             if bad:
-                fail(f"tier {variant} variant disagrees with its plain "
-                     f"version on the {label} path's M={m} call (outputs "
-                     f"{bad})")
-            times[variant].append(cuda_ms(go, 20))
+                fail(f"tier kernel disagrees with its plain version on the "
+                     f"{label} path's M={m} call (outputs {bad})")
+            times.append(cuda_ms(go, 20))
             if has_mix:
-                mix.append(cuda_ms(spec["launch"](args, kkw, dev, variant,
-                                                  "mix"), 20))
+                mix.append(cuda_ms(spec["launch"](args, kkw, dev, "mix"),
+                                   20))
         clk1 = sm_clock()
         mhz = max(float(c.split()[0]) for c in (clk0, clk1))
         n = kw["n"]
@@ -1401,42 +1193,36 @@ def tier_turns(label, captured, spec, dev, card, errs):
         chunk = tier_chunk(key)
         keyed = sass_loop(build._target("tier", key), "tier_keyed_kernel",
                           chunk)
-        general = sass_loop(build._target("tier"), "_Z11tier_kernel", 1)
         issue_ms = keyed["per_sample"] * n * per_sched / (mhz * 1e6) * 1e3
         chain_ms = TIER_CHAIN_OPS * OP_CYCLES * n / (mhz * 1e6) * 1e3
         bound_ms, bound_by = spec["bound"](a, kw)
-        mean = {v: sum(ts) / len(ts) for v, ts in times.items()}
+        mean = sum(times) / len(times)
         # the tier kernel without its mix: against the mix's least reading
         # (noise only adds time), so an upper estimate
-        own = mean["keyed"] - min(mix, default=0.0)
+        own = mean - min(mix, default=0.0)
         res[m] = dict(times=times, mix=mix, mean=mean, own=own,
-                      sass=keyed["per_sample"], sass_general=general["loop"],
-                      issue_ms=issue_ms, chain_ms=chain_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
+                      sass=keyed["per_sample"], issue_ms=issue_ms,
+                      chain_ms=chain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
         fmt = lambda ts: " / ".join(f"{t:.4f}" for t in ts)
-        log(f"tier turns M={m} ({label} first block, n={n}): general "
-            f"{fmt(times['general'])} ms/call, keyed {fmt(times['keyed'])} "
-            f"ms/call (in turns general, keyed, keyed, general; CUDA "
-            f"events, 20 calls each; each call the tier kernel and, with "
-            f"the mix, its mix kernel), "
-            f"{min(times['general']) / max(times['keyed']):.2f}x at least; "
+        log(f"tier turns M={m} ({label} first block, n={n}): "
+            f"{fmt(times)} ms/call (two turns; CUDA events, 20 calls each; "
+            f"each call the tier kernel and, with the mix, its mix "
+            f"kernel); "
             + (f"the mix kernel alone {fmt(mix)} ms/call (after each "
                f"turn); " if has_mix else "no mix; ")
-            + f"SASS: keyed {keyed['per_sample']:.2f} instructions per "
-            f"sample step ({keyed['loop']} in its {chunk}-sample loop, "
-            f"{keyed['instructions']} in {keyed['kernel']}), general "
-            f"{general['loop']} in its one-sample loop (static, every "
-            f"run-time branch); floors at {mhz:.0f} MHz, {sms} SMs, "
-            f"{warps} warps ({per_sched} a scheduler): issue "
-            f"{issue_ms:.4f} ms (the keyed tier kernel alone, its mean call "
-            f"less the mix kernel's least reading: {own:.4f} ms, "
-            f"{own / issue_ms:.2f}x its issue floor), chain {chain_ms:.4f} ms (estimate from the "
-            f"source, {TIER_CHAIN_OPS} dependent FP32 operations x "
-            f"{OP_CYCLES} cycles a sample), bytes bound "
-            f"{bound_ms:.4f} ms ({bound_by}); both variants bit-equal to "
-            f"the plain version; clocks.sm {clk0} -> {clk1}, on {card}")
-        if mean["keyed"] > mean["general"]:
-            fail(f"tier keyed variant slower than the general one at M={m}")
+            + f"SASS {keyed['per_sample']:.2f} instructions per sample "
+            f"step ({keyed['loop']} in its {chunk}-sample loop, "
+            f"{keyed['instructions']} in {keyed['kernel']}); floors at "
+            f"{mhz:.0f} MHz, {sms} SMs, {warps} warps ({per_sched} a "
+            f"scheduler): issue {issue_ms:.4f} ms (the tier kernel alone, "
+            f"its mean call less the mix kernel's least reading: "
+            f"{own:.4f} ms, {own / issue_ms:.2f}x its issue floor), chain "
+            f"{chain_ms:.4f} ms (estimate from the source, "
+            f"{TIER_CHAIN_OPS} dependent FP32 operations x {OP_CYCLES} "
+            f"cycles a sample), bytes bound {bound_ms:.4f} ms "
+            f"({bound_by}); bit-equal to the plain version; clocks.sm "
+            f"{clk0} -> {clk1}, on {card}")
     return res
 
 
@@ -2248,10 +2034,6 @@ def batch_phase(dev, card, counters):
                "filt_smooth_noise", "cyclic"):
         if counts[nm] <= 0:
             fail(f"batch: {nm} was not launched")
-    for nm in ("tier_general", "phase_walk", "filt_smooth"):
-        if counts[nm]:
-            fail(f"batch: the render path launched the general variant "
-                 f"{nm}")
     if counts["compat"]:
         fail("batch: the fused and cyclic engines launched the compat "
              "kernel")
@@ -2818,9 +2600,9 @@ BENCH_SECONDS = NOISE64_SECONDS    # 344 whole blocks: 2 chunks of 172
 def bench_phase(card, counters):
     """bench_torch.main on the card at 4 s: its seven buckets (stress64
     and noise64 at fill_bucket's 2048 rows, fb1-fb5 at 1024), each with
-    the launches its render path needs in its two timed passes and no
-    general variant's.  Returns the launches summed over the buckets'
-    timed passes."""
+    the launches its render path needs in its two timed passes and not
+    the general cyclic variant's.  Returns the launches summed over the
+    buckets' timed passes."""
     import bench_torch
 
     want_scripts = [STRESS64.name, NOISE64.name] + [p.name for p in FEEDBACK]
@@ -2839,7 +2621,6 @@ def bench_phase(card, counters):
             or res.get("partial"):
         fail(f"bench: buckets {[b['scripts'] for b in res['buckets']]}, "
              f"not one for each of {want_scripts}")
-    general = ("tier_general", "phase_walk", "filt_smooth", "cyclic_general")
     totals = {}
     for b in res["buckets"]:
         roof = b["roofline"]
@@ -2868,8 +2649,8 @@ def bench_phase(card, counters):
                  f"not {want}")
         for nm, c in b["launches"].items():
             totals[nm] = totals.get(nm, 0) + c
-    if any(totals.get(nm) for nm in general):
-        fail(f"bench: a general variant was launched: {totals}")
+    if totals.get("cyclic_general"):
+        fail(f"bench: the general cyclic variant was launched: {totals}")
     return {nm: totals.get(nm, 0) for nm in counters}
 
 
@@ -2957,8 +2738,7 @@ def main():
                                                 "bytes spill stores, 0 "
                                                 "bytes spill loads"):
                     fail(f"{name}.cu spills under {lab}: {line}")
-    for name in ("tier", "phase_walk", "lookup", "filt_smooth"):
-        build.load(name)
+    build.load("lookup")
     for key in ckeys.values():
         build.load("compat", key)
     build.load("cyclic", (), "cyclic_general_launch")
@@ -2970,8 +2750,7 @@ def main():
         build.load(name, key, f"{name}_keyed_launch")
 
     specs = {s["name"]: s for s in (
-        tier_spec(tk, peaks), phase_walk_spec(pw, peaks),
-        lookup_spec(lk, peaks), filt_smooth_spec(fs, peaks),
+        tier_spec(tk, peaks), lookup_spec(lk, peaks),
         phase_walk_warp_spec(pw, peaks), filt_smooth_noise_spec(fs, peaks),
         cyclic_spec(ck, peaks))}
     noise_kernels = ["phase_walk_warp", "lookup", "filt_smooth_noise"]
@@ -3021,7 +2800,7 @@ def main():
         errs, seconds=NOISE64_SECONDS)
     _, st = prepare(NOISE64, NOISE64_SECONDS)
     caught = capture_noise(st, dev)
-    noise_stages(caught, card)
+    noise_rest(caught, card)
     n_turns = noise_turns(caught, specs, dev, card, errs)
     del caught, st
     short_path("noise short", short_batch(n_lines), dev, fused,
@@ -3085,63 +2864,43 @@ def main():
                     replaces=replaces, launches=launches,
                     max_abs_err=errs.get(name, 0.0), **timings[name, m])
 
-    # the tier kernel's two variants: each timed in turns on the main
-    # path's tier-1 inputs (its widest call); launches from the main path's
-    # timed pass, which runs the keyed variant only (the general one's
-    # count is 0 there: no render path takes it)
+    # the tier kernel, timed in two turns on the main path's tier-1
+    # inputs (its widest call); launches from the main path's timed pass
     wide = max(s_turns)
-
-    def tier_record(name, variant, launches):
-        tn = s_turns[wide]
-        return dict(name=name, route="cuda",
+    tn = s_turns[wide]
+    tier_rec = dict(name="tier", route="cuda",
                     source="skred_tpu_torch/engine/kernels/csrc/tier.cu",
                     replaces="skred_tpu/engine/kernels.py:1999",
-                    launches=launches, max_abs_err=errs.get(name, 0.0),
-                    ms=tn["mean"][variant],
+                    launches=s_launch["tier_keyed"],
+                    max_abs_err=errs.get("tier", 0.0), ms=tn["mean"],
                     plain_ms=s_time["tier", wide]["plain_ms"],
                     bound_ms=tn["bound_ms"], bound_by=tn["bound_by"],
                     library_ms=None)
 
-    # the noise kernels' two variants on the noise main path's tier-1
-    # inputs: the keyed one timed in turns (its mean), the general one
-    # alone on the inputs the glue gives it; launches from the main
-    # path's timed pass, which runs the keyed variants only
+    # the noise kernels on the noise main path's tier-1 inputs, timed in
+    # two turns (their mean); launches from the main path's timed pass
     nwide = max(n_turns)
 
-    def noise_record(name, variant, launches, keyed_name):
+    def noise_record(name, launches, wrapper):
         tn = n_turns[nwide]
-        rec = dict(name=name if variant == "keyed" else f"{name}_general",
-                   route="cuda",
-                   source=f"skred_tpu_torch/engine/kernels/csrc/{name}.cu",
-                   replaces="skred_tpu/engine/kernels.py:"
-                   + ("311" if name == "phase_walk" else "522"),
-                   launches=launches, library_ms=None)
-        rec["max_abs_err"] = errs.get(rec["name"], 0.0)
-        if variant == "keyed":
-            ms = tn["times"][name]["keyed"]
-            rec.update(ms=sum(ms) / len(ms),
-                       plain_ms=n_time[keyed_name, nwide]["plain_ms"],
-                       bound_ms=tn["floors"][name]["bound_ms"],
-                       bound_by=tn["floors"][name]["bound_by"])
-        else:
-            rec.update(ms=tn["alone"][f"general {name}"][0],
-                       plain_ms=tn["general_plain"][name],
-                       bound_ms=tn["general_bound"][name][0],
-                       bound_by=tn["general_bound"][name][1])
-        return rec
+        ms = tn["times"][name]
+        return dict(name=name, route="cuda",
+                    source=f"skred_tpu_torch/engine/kernels/csrc/{name}.cu",
+                    replaces="skred_tpu/engine/kernels.py:"
+                    + ("311" if name == "phase_walk" else "522"),
+                    launches=launches, library_ms=None,
+                    max_abs_err=errs.get(name, 0.0), ms=sum(ms) / len(ms),
+                    plain_ms=n_time[wrapper, nwide]["plain_ms"],
+                    bound_ms=tn["floors"][name]["bound_ms"],
+                    bound_by=tn["floors"][name]["bound_by"])
 
     kernels = [
-        tier_record("tier", "keyed", s_launch["tier_keyed"]),
-        tier_record("tier_general", "general", s_launch["tier_general"]),
-        noise_record("phase_walk", "keyed",
-                     n_launch["phase_walk_warp"], "phase_walk_warp"),
-        noise_record("phase_walk", "general", n_launch["phase_walk"],
+        tier_rec,
+        noise_record("phase_walk", n_launch["phase_walk_warp"],
                      "phase_walk_warp"),
         record("lookup", n_launch["lookup"], n_time,
                "skred_tpu/engine/kernels.py:780", "lookup"),
-        noise_record("filt_smooth", "keyed",
-                     n_launch["filt_smooth_noise"], "filt_smooth_noise"),
-        noise_record("filt_smooth", "general", n_launch["filt_smooth"],
+        noise_record("filt_smooth", n_launch["filt_smooth_noise"],
                      "filt_smooth_noise"),
         dict(name="table_lookup", route="cuda",
              source="skred_tpu_torch/engine/kernels/csrc/lookup.cu",
@@ -3171,9 +2930,7 @@ def main():
     # the bench's launches: each bucket's two timed passes, summed; the
     # JSON's name of each record -> the wrapper whose count it reads
     bench_counter = {"tier": "tier_keyed", "phase_walk": "phase_walk_warp",
-                     "phase_walk_general": "phase_walk",
                      "filt_smooth": "filt_smooth_noise",
-                     "filt_smooth_general": "filt_smooth",
                      "cyclic": "cyclic_fixed"}
     for rec in kernels:
         rec["bench_launches"] = b_launch[bench_counter.get(rec["name"],

@@ -24,16 +24,17 @@ the batch, because the kernel takes one table base per voice.  Buckets
 are built per script identity, so every batch ``render_batch`` makes
 passes.
 
-``render_cyclic`` renders one batch and hands each block to the fused
-renderer's download (``fused._Download``): the audio leaves the card in
-chunks while the block loop runs and lands in one array of the caller's
-own.  ``render_batch`` renders each group of its cyclic scripts (those
-that share a ``parallel.batch.cyclic_group_key``) as one batch through
-it; with a mesh, ``render_cyclic_each`` renders the groups over its
-devices, their blocks in turn.
+``render_cyclic`` renders one batch through the block-loop engines'
+download (``engine/download.py``): the audio leaves the card in chunks
+while the block loop runs and lands in one array of the caller's own.
+With a mesh it splits the batch's rows over its devices as
+``render_fused`` does, every shard rendered by the whole batch's
+features, noise stream and schedule.  ``render_batch`` renders each
+group of its cyclic scripts (those that share a
+``parallel.batch.cyclic_group_key``) as one batch through it.
 
 Spans (``spans.py``): ``cyclic.render`` around ``render_cyclic``;
-``cyclic.prepare`` (every entry point's set-up), inside it
+``cyclic.prepare`` (every entry point's set-up, once a call), inside it
 ``cyclic.schedule`` (``n`` = the general kernel's waves a frame);
 ``cyclic.block_loop``
 (``n`` = blocks) and each ``cyclic.block``, inside which the kernel's
@@ -56,9 +57,10 @@ import torch
 
 from skred_tpu_torch import config as C
 from skred_tpu_torch import spans
-from skred_tpu_torch.engine.fused import (Feat, _apply_ops_b, _Download,
-                                          _gather_seg, _pack_by_dtype,
-                                          compute_feat, from_stacked)
+from skred_tpu_torch.engine import download
+from skred_tpu_torch.engine.fused import (Feat, _apply_ops_b, _gather_seg,
+                                          _pack_by_dtype, compute_feat,
+                                          from_stacked)
 from skred_tpu_torch.engine.kernels.cyclic import cyclic_block, schedule_of
 from skred_tpu_torch.engine.numerics import div32
 from skred_tpu_torch.host.timeline import noise_stream
@@ -208,11 +210,15 @@ _STATE_NAMES = ("phase", "sample", "finished", "hold_count", "hold_val",
                 "x1", "x2", "y1", "y2", "smoother", "pan_l", "pan_r")
 
 
-def _prep(st, exact, device, noise=None, noise_blocks=None):
-    """The batch on ``device`` for the block loop: packed for the cyclic
-    engine if it is not yet, held to the gate and to its table buffer.
-    Returns (st, _Cyclic, zero carry)."""
-    from skred_tpu_torch.parallel.batch import pack_stacked
+def _prep_shards(st, exact, split, noise=None, noise_blocks=None):
+    """The batch for the block loop, split by rows over ``split``
+    (``parallel.batch.shard_rows``'s ``(device, rows)`` pairs): packed
+    for the cyclic engine if it is not yet, held to the gate and to its
+    table buffer.  The features, the noise stream and the general
+    kernel's schedule are the whole batch's, so every shard renders as
+    its rows do in the unsplit batch.  Returns (st, [(_Cyclic, zero
+    carry)] one a shard)."""
+    from skred_tpu_torch.parallel.batch import pack_stacked, take_rows
 
     with spans.span("cyclic.prepare"):
         if "fm_delayed" not in st.params:
@@ -228,31 +234,49 @@ def _prep(st, exact, device, noise=None, noise_blocks=None):
         if end.size and int(end.max()) > np.asarray(st.table_buffer).size:
             raise ValueError("a voice's table runs past the table buffer")
         feat = compute_feat(st)
-        d = from_stacked(st, device)
-        params, ops = d["params"], d["ops"]
-        k = params["amp"].shape[-1]
-        single_seg = all(v.shape[1] == 1 for v in params.values()) \
-            and all(v.shape[1] == 1 for v in ops.values())
+        k = np.shape(st.params["amp"])[-1]
         with spans.span("cyclic.schedule") as sched:
-            schedule = _schedule(st, feat, k, device)
-            sched.n = schedule[1]
-        r = _Cyclic(params=params, ops=ops, seg_of_block=d["seg_of_block"],
-                    seg_is_start=d["seg_is_start"] != 0,
-                    table=d["table_buffer"], B=st.batch, k=k,
-                    block=st.block, feat=feat, exact=bool(exact),
-                    single_seg=single_seg, schedule=schedule)
+            wave, waves = _schedule(st, feat, k, "cpu")
+            sched.n = waves
+        stream = None
         if feat.noise:
             nb = st.num_blocks if noise_blocks is None else noise_blocks
             stream = noise_stream(nb * st.block) if noise is None \
                 else np.asarray(noise, np.float32)[:nb * st.block]
-            r.noise = torch.as_tensor(stream, device=device)
-        if single_seg:
-            p = {kk: v[:, 0] for kk, v in params.items()}
-            o = {kk: v[:, 0] for kk, v in ops.items()}
-            r.built = (None, p, o, *_vecs(p, feat))
-        else:
-            r.groups = (_pack_by_dtype(params, k), _pack_by_dtype(ops, k))
-        return st, r, d["carry"]
+        shards = []
+        for device, rows in split:
+            shard = take_rows(st, rows)
+            d = from_stacked(shard, device)
+            params, ops = d["params"], d["ops"]
+            single_seg = all(v.shape[1] == 1 for v in params.values()) \
+                and all(v.shape[1] == 1 for v in ops.values())
+            r = _Cyclic(params=params, ops=ops,
+                        seg_of_block=d["seg_of_block"],
+                        seg_is_start=d["seg_is_start"] != 0,
+                        table=d["table_buffer"], B=shard.batch, k=k,
+                        block=st.block, feat=feat, exact=bool(exact),
+                        single_seg=single_seg,
+                        schedule=(wave.to(device), waves))
+            if stream is not None:
+                r.noise = torch.as_tensor(stream, device=device)
+            if single_seg:
+                p = {kk: v[:, 0] for kk, v in params.items()}
+                o = {kk: v[:, 0] for kk, v in ops.items()}
+                r.built = (None, p, o, *_vecs(p, feat))
+            else:
+                r.groups = (_pack_by_dtype(params, k),
+                            _pack_by_dtype(ops, k))
+            shards.append((r, d["carry"]))
+        return st, shards
+
+
+def _prep(st, exact, device, noise=None, noise_blocks=None):
+    """``_prep_shards`` of all the batch's rows on one ``device``.
+    Returns (st, _Cyclic, zero carry)."""
+    st, [(r, carry)] = _prep_shards(
+        st, exact, [(torch.device(device), np.arange(st.batch))], noise,
+        noise_blocks)
+    return st, r, carry
 
 
 def _block_step(r: _Cyclic, carry, kb):
@@ -321,52 +345,39 @@ def render_cyclic_stream(st, chunk_blocks: int = 172, noise=None,
         yield _rows_audio(outs, rows).cpu().numpy()
 
 
-def render_cyclic(st, noise=None, exact: bool = True,
-                  device="cuda") -> np.ndarray:
+def _shard_blocks(r: _Cyclic, carry, nb):
+    """Generator over the blocks of one shard's render: each block's
+    ``[N, B, 2]`` on the shard's device."""
+    for kb in range(nb):
+        carry, o = _block_step(r, carry, kb)
+        yield o.permute(1, 2, 0)
+
+
+def render_cyclic(st, noise=None, exact: bool = True, device="cuda",
+                  mesh=None) -> np.ndarray:
     """Full render → numpy ``[B, T, 2]``, an array of the caller's own.
-    Each block is handed to ``fused._Download`` as the loop makes it, so
-    the audio leaves the card in chunks while the loop runs, and at most
-    a chunk of blocks and its staging stay on the card.  Runs on the card
-    unless ``device="cpu"``."""
+    Each block goes to the download (``engine/download.py``) as the loop
+    makes it, so the audio leaves the card in chunks while the loop
+    runs, and at most a chunk of blocks and its staging stay on the
+    card.  ``mesh``: a list of devices (``parallel.batch.make_mesh``)
+    that the batch's rows are split over, as ``render_fused`` splits
+    them: the batch is packed, gated and scheduled once, whole, each
+    shard renders by the whole batch's features, noise stream and
+    schedule, so the audio is the unsplit render's bit for bit, and the
+    shards' blocks are stepped in turn.  Runs on the card unless
+    ``device="cpu"`` (without a mesh)."""
+    from skred_tpu_torch.parallel.batch import shard_rows
+
     with spans.span("cyclic.render"):
-        # built before the set-up, as render_fused builds it: its worker
-        # touches the result's pages meanwhile
-        down = _Download([(torch.device(device), np.arange(st.batch))],
-                         st.num_blocks, st.block)
-        try:
-            st, r, carry = _prep(st, exact, device, noise)
-            with spans.span("cyclic.block_loop", st.num_blocks), \
-                    torch.no_grad():
-                for kb in range(st.num_blocks):
-                    carry, o = _block_step(r, carry, kb)
-                    down.add([o.permute(1, 2, 0)])     # [N, B, 2]
-            with spans.span("cyclic.download"):
-                with spans.span("cyclic.download_tail", down.pending()):
-                    out = down.finish()
-        finally:
-            down.close()
-    return out
+        split = shard_rows(st.batch, [device] if mesh is None else mesh)
 
+        def start():
+            _, shards = _prep_shards(st, exact, split, noise)
+            return zip(*(_shard_blocks(r, carry, st.num_blocks)
+                         for r, carry in shards))
 
-def render_cyclic_each(sts, mesh, noise=None,
-                       exact: bool = True) -> list:
-    """Render several cyclic batches → a numpy ``[B, T, 2]`` each:
-    batch ``i`` on ``mesh[i % len(mesh)]`` (a list of devices,
-    ``parallel.batch.make_mesh``), every batch's blocks stepped in turn,
-    so the cards of a mesh work at once.  ``render_batch`` renders its
-    cyclic scripts, one batch each, through it."""
-    preps = [_prep(st, exact, torch.device(mesh[i % len(mesh)]), noise)
-             for i, st in enumerate(sts)]
-    carries = [carry for _, _, carry in preps]
-    outs = [[] for _ in preps]
-    with torch.no_grad():
-        for kb in range(max(st.num_blocks for st, _, _ in preps)):
-            for i, (st, r, _) in enumerate(preps):
-                if kb < st.num_blocks:
-                    carries[i], o = _block_step(r, carries[i], kb)
-                    outs[i].append(o)
-    return [_rows_audio(torch.stack(o), st.batch).cpu().numpy()
-            for o, (st, _, _) in zip(outs, preps)]
+        return download.run("cyclic", split, st.num_blocks, st.block,
+                            start)
 
 
 def render_cyclic_stream_device(st, chunk_blocks: int = 172,

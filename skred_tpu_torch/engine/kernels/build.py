@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # sources that build under a key only (their defines select every
 # feature): build_all() with no items leaves them out
-KEY_ONLY = ("compat",)
+KEY_ONLY = ("compat", "filt_smooth", "phase_walk", "tier")
 
 _LIBS: dict = {}
 LOG: dict = {}          # label -> (seconds, compiler output) of this process

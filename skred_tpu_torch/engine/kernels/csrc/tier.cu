@@ -2,8 +2,8 @@
 // DSP chain, one thread per lane, with the modulator-bank fold and the
 // static-pan stereo mix.
 //
-// Replaces skred_tpu/engine/kernels.py:tier_pallas (body
-// _make_tier_kernel) whole: phases 0-4, the fold (its bank_read) and
+// Replaces skred_tpu/engine/kernels.py:tier_pallas (its kernel body at
+// kernels.py:1075) whole: phases 0-4, the fold (its bank_read) and
 // phase 5 (the mix with its out_last output).
 //
 // Bound on this card: per lane-sample the kernel must read each modulator
@@ -18,34 +18,24 @@
 // on them.  Neighbouring threads own neighbouring lanes, so every [N, M]
 // read and write coalesces.
 //
-// One source, two variants:
-//   * built with -DTIER_KEYED=1 and the key's defines (the keyed
-//     variant, tier_keyed_launch; kernels/tier.py tier_key): the JAX
-//     kernel's 14-field static feature tuple, the arithmetic mode, the
-//     mix and which of fm / cz / am are folded are compile-time
-//     constants, as the JAX package compiles one kernel per feature
-//     tuple, so a stage the tier lacks costs no instruction and no
-//     register.  The block is walked in chunks of T samples per thread,
-//     the TPU kernel's phase split done in registers and software-
-//     pipelined: a chunk's modulator reads, which depend on no state,
-//     are issued a phase ahead of their use; the phase walk, CZ warp and
-//     index clip run over the chunk's T samples and its T table loads
-//     are issued back to back; the S&H / quantizer / biquad / smoother
-//     chain and the stores of the chunk before run after them, so the
-//     loads of one chunk are in flight during the walk of the next and
-//     the two serial chains share one basic block.  The phase wrap and
-//     the CZ divide run without their slow paths (wrap_fmod's two
-//     in-range cases; kdiv_inv while finite), and a lane whose operands
-//     leave that range renders the block again with the exact helpers,
-//     as the keyed cyclic kernel does.  A block is one warp, so that a
-//     narrow tier still reaches every SM;
-//   * built without them (the general variant, tier_launch): the
-//     features arrive as run-time ints in TierArgs (uniform across the
-//     grid, so the branches never diverge within a warp; cz_modes is a
-//     bit mask), and each thread runs phases 0-4 per sample, one sample
-//     after the other.
-// The wrapper (kernels/tier.py) launches the keyed variant; the general
-// one only when asked by name.  Both share TierArgs and the mix kernel.
+// Built once per key (kernels/tier.py tier_key): the JAX kernel's
+// 14-field static feature tuple, the arithmetic mode, the mix and which
+// of fm / cz / am are folded are compile-time constants, as the JAX
+// package compiles one kernel per feature tuple, so a stage the tier
+// lacks costs no instruction and no register.  The block is walked in
+// chunks of T samples per thread, the TPU kernel's phase split done in
+// registers and software-pipelined: a chunk's modulator reads, which
+// depend on no state, are issued a phase ahead of their use; the phase
+// walk, CZ warp and index clip run over the chunk's T samples and its T
+// table loads are issued back to back; the S&H / quantizer / biquad /
+// smoother chain and the stores of the chunk before run after them, so
+// the loads of one chunk are in flight during the walk of the next and
+// the two serial chains share one basic block.  The phase wrap and the
+// CZ divide run without their slow paths (wrap_fmod's two in-range
+// cases; kdiv_inv while finite), and a lane whose operands leave that
+// range renders the block again with the exact helpers, as the keyed
+// cyclic kernel does.  A block is one warp, so that a narrow tier still
+// reaches every SM.
 //
 // The fold.  The TPU kernel copies the earlier tiers' whole output into
 // VMEM and picks (8,128) row windows of it through scalar-prefetched row
@@ -175,8 +165,8 @@ static long long mix_launches = 0;
 
 extern "C" long long tier_mix_launch_count() { return mix_launches; }
 
-// The mix alone (both variants' launch calls run it after the tier
-// kernel when the call has a mix; chip_smoke.py also times it alone).
+// The mix alone (tier_keyed_launch runs it after the tier kernel when
+// the key has a mix; chip_smoke.py also times it alone).
 extern "C" int tier_mix_launch(const TierArgs* args, void* stream) {
     const int threads = 128;
     const size_t cells = (size_t)args->n * args->b;
@@ -188,306 +178,9 @@ extern "C" int tier_mix_launch(const TierArgs* args, void* stream) {
     return (int)cudaGetLastError();
 }
 
-#ifndef TIER_KEYED
 
 // ======================================================================
-// The general variant: the features at run time.
-// ======================================================================
-
-// One folded modulator stream of one lane: the source voice's column of
-// the bank, read once per sample.
-struct FoldRead {
-    const float* col;    // null: the stream reads +0.0
-    float last;          // the column's sample at t - 1
-    bool del;
-
-    __device__ __forceinline__ void init(const TierArgs& a, bool on,
-                                         const int* src, const int* dly,
-                                         int m) {
-        col = nullptr; last = 0.0f; del = false;
-        if (!on) return;
-        const int s = src[m];
-        if (s < 0 || s >= a.bank_w) return;
-        const int c = s * a.b + m % a.b;
-        col = a.bank + c;
-        last = a.prev[c];
-        del = dly[m] != 0;
-    }
-
-    __device__ __forceinline__ float at(int t, int stride) {
-        if (col == nullptr) return 0.0f;
-        const float cur = col[(size_t)t * stride];
-        const float r = del ? last : cur;
-        last = cur;
-        return r + 0.0f;
-    }
-};
-
-__global__ void __launch_bounds__(128) tier_kernel(const TierArgs a) {
-    const int m = blockIdx.x * blockDim.x + threadIdx.x;
-    if (m >= a.m) return;
-    const int M = a.m;
-    const int n = a.n;
-    const int exact = a.exact;
-
-    // ---- per-lane parameters, held in registers for the whole block ----
-    const float lo = a.lo[m], hi = a.hi[m], L = a.L[m];
-    const bool adv = a.adv[m] != 0, act = a.act[m] != 0;
-    const bool osn = a.has_finish && a.osn[m] != 0;
-    const bool one_shot = a.has_finish && a.one_shot[m] != 0;
-    const int base = a.base_off[m], clip = a.clip_i[m];
-    const float amp = a.amp[m];
-    const float hi_os = hi - 1e-6f;
-
-    bool use_fm = false, dirneg = false;
-    float mis = 0.0f, pinc = 0.0f, fmdep = 0.0f, inc_const = 0.0f;
-    if (a.has_fm) {
-        use_fm = a.use_fm[m] != 0;
-        mis = a.mis[m]; pinc = a.pinc[m]; fmdep = a.fm_depth[m];
-        dirneg = a.has_direction && a.dirneg[m] != 0;
-    } else {
-        inc_const = a.inc[m];
-    }
-
-    int mode = 0;
-    float dist = 0.0f, tsz = 0.0f, inv_ts = 0.0f, czdep = 0.0f;
-    bool cm_ge = false;
-    CzCoeffs coeffs;
-    coeffs.is_pl = coeffs.is_4 = coeffs.is_pw = 0;
-    if (a.has_cz) {
-        mode = a.cz_mode[m]; dist = a.cz_dist[m]; tsz = a.tsize[m];
-        if (exact) inv_ts = kdiv(1.0f, tsz);
-        if (a.has_czm) {
-            cm_ge = a.cm_ge0[m] != 0;
-            czdep = a.cz_depth[m];
-        } else {
-            // d is constant across the block: hoist scales and curve
-            CzScales s = cz_scales(dist + a.dm[m], exact, a.cz_mask);
-            coeffs = cz_coeffs(mode, s, a.cz_mask);
-        }
-    }
-
-    bool use_env = false, env_act = false;
-    int env_start = 0, env_relat = 0;
-    float att = 0.0f, dec = 0.0f, sus = 0.0f, rel = 0.0f, vel = 0.0f,
-          att_dec = 0.0f;
-    if (a.has_env) {
-        use_env = a.use_env[m] != 0; env_act = a.env_active[m] != 0;
-        env_start = a.env_start[m]; env_relat = a.env_rel_at[m];
-        att = a.att[m]; dec = a.dec[m]; sus = a.sus[m]; rel = a.rel[m];
-        vel = a.vel[m];
-        att_dec = att + dec;
-    }
-    bool am_ge = false;
-    float amdep_a = 0.0f;
-    if (a.has_am) { am_ge = a.am_ge0[m] != 0; amdep_a = a.am_depth_a[m]; }
-    const bool hoist_am = a.has_am && !a.has_am_self;
-    // a lane whose select drops the read (no edge) loads nothing
-    FoldRead rd_fm, rd_cz, rd_am;
-    rd_fm.init(a, a.has_fm && a.fold_fm && use_fm, a.fm_src, a.fm_del, m);
-    rd_cz.init(a, a.has_cz && a.has_czm && a.fold_cz && cm_ge, a.cz_src,
-               a.cz_del, m);
-    rd_am.init(a, a.has_am && a.fold_am && am_ge, a.am_src, a.am_del, m);
-    const int bstride = a.bank_stride;
-    const bool hoist_gain = a.has_env || hoist_am;
-
-    float b0 = 0, b1 = 0, b2 = 0, na1 = 0, na2 = 0;
-    bool use_flt = false;
-    float x1 = 0, x2 = 0, y1 = 0, y2 = 0;
-    if (a.has_flt) {
-        b0 = a.b0[m]; b1 = a.b1[m]; b2 = a.b2[m];
-        na1 = a.na1[m]; na2 = a.na2[m]; use_flt = a.use_flt[m] != 0;
-        x1 = a.x1_0[m]; x2 = a.x2_0[m]; y1 = a.y1_0[m]; y2 = a.y2_0[m];
-    }
-    bool use_sm = false;
-    float smoothing = 0, sg = 0;
-    if (a.has_sm) {
-        use_sm = a.use_sm[m] != 0; smoothing = a.smoothing[m];
-        sg = a.smoother_0[m];
-    }
-    bool am_self = false;
-    float am_depth = 0;
-    if (a.has_am_self) { am_self = a.am_self[m] != 0; am_depth = a.am_depth[m]; }
-    bool hold_on = false;
-    int hmax = 1, hc = 0;
-    float hv = 0;
-    if (a.has_hold) {
-        hold_on = a.hold_on[m] != 0; hmax = a.hold_max[m];
-        hc = a.hold_count_0[m]; hv = a.hold_val_0[m];
-    }
-    bool quant_on = false;
-    float levels = 0, inv_lev = 0;
-    if (a.has_quant) {
-        quant_on = a.quant_on[m] != 0; levels = a.levels[m];
-        inv_lev = a.inv_levels[m];
-    }
-
-    float ph_c = a.phase_0[m];
-    int fin_c = a.has_finish ? a.finished_0[m] : 0;
-    int cnt = 0;
-    float o_last = 0.0f;
-
-    for (int t = 0; t < n; ++t) {
-        const size_t tm = (size_t)t * M + m;
-        // ---- phase 0: FM increment ----
-        float inc_t;
-        if (a.has_fm) {
-            float rdf = a.fold_fm ? rd_fm.at(t, bstride) : a.inc[tm];
-            float g3 = rdf * fmdep;
-            inc_t = use_fm ? kfma(mis, g3, pinc) : pinc;
-            if (dirneg) inc_t = -inc_t;
-        } else {
-            inc_t = inc_const;
-        }
-        // ---- phase 1: phase walk (osc_next), one step ----
-        float ph = ph_c + inc_t;
-        bool bad = !isfinite(ph);
-        bool over = ph >= hi;
-        bool under = ph < lo;
-        float r = fmodf(ph - lo, L);
-        float wrap_over = lo + r;
-        float wrap_under = hi + r;
-        float ph2;
-        if (a.has_finish)
-            ph2 = over ? (osn ? hi_os : wrap_over)
-                       : (under ? (osn ? lo : wrap_under) : ph);
-        else
-            ph2 = over ? wrap_over : (under ? wrap_under : ph);
-        if (bad) ph2 = 0.0f;
-        bool alive_t;
-        if (a.has_finish) {
-            bool fin_new = (bad && one_shot) || ((over || under) && osn);
-            bool fin_b = fin_c != 0;
-            bool step_on = adv && !fin_b;
-            alive_t = act && !fin_b;     // dead is monotone in a block:
-            if (step_on) ph_c = ph2;     // this is t < cnt_e
-            if (step_on && fin_new) fin_c = 1;
-            cnt += alive_t ? 1 : 0;
-        } else {
-            alive_t = act;
-            if (adv) ph_c = ph2;
-        }
-        // ---- phase 2: CZ warp + index clip + dead masking ----
-        float idx_f = ph2;
-        if (a.has_cz) {
-            float phase;
-            if (exact && a.ts_pow2) phase = ph2 * inv_ts;
-            else if (exact) phase = kdiv_inv(ph2, inv_ts, tsz);
-            else phase = __fdiv_rn(ph2, tsz);
-            float warped;
-            if (a.has_czm) {
-                float rdc = a.fold_cz ? rd_cz.at(t, bstride)
-                                      : (cm_ge ? a.dm[tm] : 0.0f);
-                float dm3 = cm_ge ? rdc * czdep : 1.0f;
-                CzScales s = cz_scales(dist + dm3, exact, a.cz_mask);
-                warped = cz_warp_k(mode, phase, s, tsz, a.cz_mask);
-            } else {
-                warped = cz_warp_fast(coeffs, phase, tsz);
-            }
-            if (mode != 0) idx_f = warped;
-        }
-        int idx = (int)idx_f;
-        idx = idx < 0 ? 0 : idx;
-        idx = idx > clip ? clip : idx;
-        if (!alive_t) idx = 0;
-        // ---- phase 3: table lookup ----
-        float f = __ldg(a.table + (base + idx));
-        // ---- phase 3.5: gain amp·env(·amod) ----
-        float amod_t = 1.0f;
-        if (a.has_am) {
-            float rda = a.fold_am ? rd_am.at(t, bstride)
-                                  : (am_ge ? a.amod[tm] : 0.0f);
-            amod_t = am_ge ? rda * amdep_a : 1.0f;
-        }
-        float base_gain = amp;
-        if (hoist_gain) {
-            float g = amp;
-            if (a.has_env) {
-                int tpos = a.cbase + t;
-                float tf = (float)(tpos - env_start);
-                float trf = (float)(tpos - env_relat);
-                float v;
-                if (tf < att) v = __fdiv_rn(tf, att);
-                else if (tf < att_dec)
-                    v = kfma(-__fdiv_rn(tf - att, dec), 1.0f - sus, 1.0f);
-                else if (env_relat == 0) v = sus;
-                else if (trf < rel) v = sus * (1.0f - __fdiv_rn(trf, rel));
-                else v = 0.0f;
-                if (!env_act) v = 0.0f;
-                float env_t = use_env ? v * vel : 1.0f;
-                g = amp * env_t;
-            }
-            if (hoist_am) g = g * amod_t;
-            base_gain = g;
-        }
-        // ---- phase 4: S&H + quantize + biquad + smoother ----
-        float f_t = alive_t ? f : 0.0f;
-        float s1 = f_t;
-        if (a.has_hold) {
-            float hv2 = (hold_on && hc == 0) ? f_t : hv;
-            s1 = hold_on ? hv2 : f_t;
-            int hcn = hc + 1;
-            if (hcn >= hmax) hcn = 0;
-            if (alive_t) hv = hv2;
-            if (alive_t && hold_on) hc = hcn;
-        }
-        float x_t = s1;
-        if (a.has_quant) {
-            float iv = (float)(int)kfma(s1, levels, 0.5f);
-            if (quant_on) x_t = iv * inv_lev;
-        }
-        float s3 = x_t;
-        if (a.has_flt) {
-            float fv = b1 * x1;
-            fv = kfma(b0, x_t, fv);
-            fv = kfma(b2, x2, fv);
-            fv = kfma(na1, y1, fv);
-            fv = kfma(na2, y2, fv);
-            if (use_flt) s3 = fv;
-            if (alive_t && use_flt) {
-                x2 = x1; x1 = x_t; y2 = y1; y1 = fv;
-            }
-        }
-        float final_t = base_gain;
-        if (a.has_am_self) {
-            if (am_self) amod_t = s3 * am_depth;
-            final_t = base_gain * amod_t;
-        }
-        float final2 = final_t;
-        if (a.has_sm) {
-            float sg2 = kfma(smoothing, final_t - sg, sg);
-            if (use_sm) final2 = sg2;
-            if (alive_t && use_sm) sg = sg2;
-        }
-        o_last = alive_t ? s3 * final2 : 0.0f;
-        a.out[(size_t)t * a.out_stride + m] = o_last;
-    }
-    if (a.has_mix) a.out_last[m] = o_last;
-
-    a.phase_e[m] = ph_c;
-    a.cnt_e[m] = a.has_finish ? cnt : (act ? n : 0);
-    if (a.has_finish) a.finished_e[m] = fin_c;
-    if (a.has_flt) {
-        a.x1_e[m] = x1; a.x2_e[m] = x2; a.y1_e[m] = y1; a.y2_e[m] = y2;
-    }
-    if (a.has_sm) a.smoother_e[m] = sg;
-    if (a.has_hold) { a.hold_count_e[m] = hc; a.hold_val_e[m] = hv; }
-}
-
-extern "C" int tier_launch(const TierArgs* args, void* stream) {
-    const int threads = 128;
-    const int blocks = (args->m + threads - 1) / threads;
-    if (blocks > 0)
-        tier_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
-    int rc = (int)cudaGetLastError();
-    if (rc != 0 || !args->has_mix) return rc;
-    return tier_mix_launch(args, stream);
-}
-
-#else  // TIER_KEYED
-
-// ======================================================================
-// The keyed variant: built with -DTIER_KEYED=1,
+// The key's defines:
 //   -DTIER_HAS_<FLAG>=<0|1> for the 12 flags of the feature tuple (FM,
 //   CZ, CZM, ENV, FLT, SM, HOLD, QUANT, AM, AM_SELF, FINISH, DIRECTION),
 //   -DTIER_CZ_MASK=<bit k: CZ mode k>, -DTIER_TS_POW2, -DTIER_EXACT,
@@ -991,5 +684,3 @@ extern "C" int tier_keyed_launch(const TierArgs* a, void* stream) {
     if (rc != 0 || !MIX || A_MIX) return rc;
     return tier_mix_launch(a, stream);
 }
-
-#endif  // TIER_KEYED

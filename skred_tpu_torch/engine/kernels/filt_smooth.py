@@ -1,17 +1,14 @@
 """The filter/smoother kernel: a noise-voice tier's serial output stages.
 
-``filt_smooth`` is the port of ``skred_tpu.engine.kernels.
-filt_smooth_pallas``: per lane, over one block, the sample & hold, the
-bit quantizer, the biquad, the gain amp·env·amod (am-self lanes take
-their own filtered sample), the amp smoother and the dead mask
-(synth.c:560-592), with the end states.  Layout: time-major ``[N, M]``
-streams, ``[M]`` per-lane vectors, the JAX function's argument order.
-
-``feat`` is the JAX kernel's FsFeat tuple (flt, sm, hold, quant,
+``filt_smooth_plain`` is the port of ``skred_tpu.engine.kernels.
+filt_smooth_pallas`` in torch ops: per lane, over one block, the sample &
+hold, the bit quantizer, the biquad, the gain amp·env·amod (am-self
+lanes take their own filtered sample), the amp smoother and the dead
+mask (synth.c:560-592), with the end states.  Layout: time-major ``[N,
+M]`` streams, ``[M]`` per-lane vectors, the JAX function's argument
+order.  ``feat`` is the JAX kernel's FsFeat tuple (flt, sm, hold, quant,
 am_self, env, am, alive_arr): stages that are off are skipped and their
-end states pass through unchanged.  A CPU tensor runs
-``filt_smooth_plain``; a CUDA tensor launches ``csrc/filt_smooth.cu`` or
-raises.
+end states pass through unchanged.
 
 ``filt_smooth_noise`` is the noise pass's last stage with its glue: the
 noise stream selected in for the noise voices, the alive mask from each
@@ -19,10 +16,8 @@ lane's alive count, the envelope × velocity, the am stream read from the
 bank of earlier tiers, then the serial stages above.  A CPU tensor runs
 ``filt_smooth_noise_plain``, the composition of the glue's torch ops and
 ``filt_smooth_plain`` in the noise pass's order; a CUDA tensor launches
-the keyed variant of ``csrc/filt_smooth.cu``, built once per
-``filt_smooth_key`` with the stages compiled in.  ``filt_smooth`` is the
-general variant, with run-time flags, launched only by
-name.
+``csrc/filt_smooth.cu``, built once per ``filt_smooth_key`` with the
+stages compiled in.
 """
 
 from __future__ import annotations
@@ -40,16 +35,13 @@ from skred_tpu_torch.engine.numerics import div32, fma32, kfma
 F32 = torch.float32
 I32 = torch.int32
 
-_FS_NAMES = ("flt", "sm", "hold", "quant", "am_self", "env", "am",
-             "alive_arr")
-
-
 def filt_smooth_plain(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt,
                       use_sm, amp, smoothing, am_self, am_depth, hold_on,
                       hold_max, quant_on, levels, inv_levels, x1, x2, y1, y2,
                       sg, hc, hv, *, feat):
-    """The kernel's arithmetic in torch ops, a loop over samples.
-    Returns (samples [N, M], x1, x2, y1, y2, sg, hold_count, hold_val)."""
+    """``filt_smooth_pallas``'s arithmetic in torch ops, a loop over
+    samples.  Returns (samples [N, M], x1, x2, y1, y2, sg, hold_count,
+    hold_val)."""
     flt, sm, hold, quant, am_self_f, env_a, am_a, alive_a = feat
     n, m = x.shape
     out = torch.empty((n, m), dtype=F32, device=x.device)
@@ -110,108 +102,6 @@ def filt_smooth_plain(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt,
     return out, x1, x2, y1, y2, sg, hc, hv
 
 
-class FiltSmoothArgs(ctypes.Structure):
-    """Mirrors csrc/filt_smooth.cu's FiltSmoothArgs."""
-    _fields_ = ([(k, ctypes.c_int) for k in
-                 ("n", "m")
-                 + tuple("has_" + k for k in _FS_NAMES[:-1])
-                 + ("alive_arr",)]
-                + [(k, ctypes.c_void_p) for k in (
-                    "x", "alive", "env", "amod", "amp",
-                    "b0", "b1", "b2", "na1", "na2", "use_flt",
-                    "use_sm", "smoothing", "am_self", "am_depth",
-                    "hold_on", "hold_max", "quant_on", "levels",
-                    "inv_levels",
-                    "x1_0", "x2_0", "y1_0", "y2_0", "sg_0", "hc_0", "hv_0",
-                    "out", "x1_e", "x2_e", "y1_e", "y2_e", "sg_e", "hc_e",
-                    "hv_e")])
-
-
-# per-lane inputs by stage: (struct field, dtype)
-_VECS = {"flt": (("b0", F32), ("b1", F32), ("b2", F32), ("na1", F32),
-                 ("na2", F32), ("use_flt", I32)),
-         "sm": (("use_sm", I32), ("smoothing", F32)),
-         "am_self": (("am_self", I32), ("am_depth", F32)),
-         "hold": (("hold_on", I32), ("hold_max", I32)),
-         "quant": (("quant_on", I32), ("levels", F32), ("inv_levels", F32))}
-# end states by stage: (struct field stem, dtype, position in the result)
-_STATES = {"flt": (("x1", F32, 1), ("x2", F32, 2), ("y1", F32, 3),
-                   ("y2", F32, 4)),
-           "sm": (("sg", F32, 5),),
-           "hold": (("hc", I32, 6), ("hv", F32, 7))}
-
-
-_ARG_NAMES = ("x", "env", "amod", "alive", "b0", "b1", "b2", "na1", "na2",
-              "use_flt", "use_sm", "amp", "smoothing", "am_self", "am_depth",
-              "hold_on", "hold_max", "quant_on", "levels", "inv_levels",
-              "x1_0", "x2_0", "y1_0", "y2_0", "sg_0", "hc_0", "hv_0")
-
-
-def _pack_args(args, feat):
-    """Check the CUDA tensors (``args`` in ``filt_smooth``'s order) and
-    fill the argument struct.  Returns (FiltSmoothArgs, result tuple)."""
-    fl = dict(zip(_FS_NAMES, (bool(f) for f in feat)))
-    named = dict(zip(_ARG_NAMES, args))
-    x = named["x"]
-    dev = x.device
-    n, m = x.shape
-    chk = lambda k, dt, shape: cuda_call.check("filt_smooth", k, named[k],
-                                               dev, dt, shape)
-    a = FiltSmoothArgs(n=n, m=m, alive_arr=int(fl["alive_arr"]))
-    for k in _FS_NAMES[:-1]:
-        setattr(a, "has_" + k, int(fl[k]))
-    a.x = chk("x", F32, (n, m))
-    a.alive = chk("alive", I32, (n, m) if fl["alive_arr"] else (m,))
-    if fl["env"]:
-        a.env = chk("env", F32, (n, m))
-    if fl["am"]:
-        a.amod = chk("amod", F32, (n, m))
-    a.amp = chk("amp", F32, (m,))
-    res = [torch.empty((n, m), dtype=F32, device=dev)] + list(args[20:])
-    a.out = res[0].data_ptr()
-    for stage, keys in _VECS.items():
-        if fl[stage]:
-            for k, dt in keys:
-                setattr(a, k, chk(k, dt, (m,)))
-    for stage, keys in _STATES.items():
-        if fl[stage]:
-            for k, dt, pos in keys:
-                setattr(a, k + "_0", chk(k + "_0", dt, (m,)))
-                res[pos] = torch.empty(m, dtype=dt, device=dev)
-                setattr(a, k + "_e", res[pos].data_ptr())
-    return a, tuple(res)
-
-
-def filt_smooth(x, env, amod, alive, b0, b1, b2, na1, na2, use_flt, use_sm,
-                amp, smoothing, am_self, am_depth, hold_on, hold_max,
-                quant_on, levels, inv_levels, x1, x2, y1, y2, sg, hc, hv, *,
-                feat):
-    """One block of the serial output stages over M lanes.
-
-    x: [N, M] f32 oscillator samples; env, amod: [N, M] f32 or None
-    (constant 1); alive: [N, M] i32 when feat's alive_arr, else [M];
-    the rest [M] (i32 flags and counts, f32 values).  Returns (samples
-    [N, M], x1, x2, y1, y2, sg, hold_count, hold_val), as
-    ``filt_smooth_pallas``."""
-    args = (x, env, amod, alive, b0, b1, b2, na1, na2, use_flt, use_sm,
-            amp, smoothing, am_self, am_depth, hold_on, hold_max, quant_on,
-            levels, inv_levels, x1, x2, y1, y2, sg, hc, hv)
-    dev = x.device
-    if dev.type == "cpu":
-        return filt_smooth_plain(*args, feat=feat)
-    if dev.type != "cuda":
-        raise ValueError(f"filt_smooth: no kernel for device {dev}")
-    a, res = _pack_args(args, feat)
-    cuda_call.launch("filt_smooth", a, dev)
-    filt_smooth.launches += 1
-    return res
-
-
-filt_smooth.launches = 0
-
-
-# ---- the keyed variant: the serial stages with the noise pass's glue ----
-
 # the per-lane vectors and end states of the serial stages, by stage
 _NOISE_VECS = {"env": (("use_env", I32), ("env_active", I32),
                        ("env_start", I32), ("env_rel_at", I32), ("att", F32),
@@ -219,7 +109,13 @@ _NOISE_VECS = {"env": (("use_env", I32), ("env_active", I32),
                        ("vel", F32)),
                "am": (("am_ge0", I32), ("am_depth_a", F32), ("am_src", I32),
                       ("am_del", I32)),
-               **_VECS}
+               "flt": (("b0", F32), ("b1", F32), ("b2", F32), ("na1", F32),
+                       ("na2", F32), ("use_flt", I32)),
+               "sm": (("use_sm", I32), ("smoothing", F32)),
+               "am_self": (("am_self", I32), ("am_depth", F32)),
+               "hold": (("hold_on", I32), ("hold_max", I32)),
+               "quant": (("quant_on", I32), ("levels", F32),
+                         ("inv_levels", F32))}
 _NOISE_STATES = {"flt": (("x1", F32), ("x2", F32), ("y1", F32),
                          ("y2", F32)),
                  "sm": (("smoother", F32),),
@@ -287,7 +183,7 @@ def end_states(res, feat):
 
 def filt_smooth_noise_plain(f, noise_blk, cnt, cbase, bank, vecs, states, *,
                             feat, b, out=None):
-    """The keyed kernel's function in torch ops: the noise select and the
+    """The kernel's function in torch ops: the noise select and the
     dead mask, the envelope, the am read and stream, then
     ``filt_smooth_plain``, in the noise pass's order.  Takes and returns
     what ``filt_smooth_noise`` does."""
@@ -321,10 +217,10 @@ def _fs_flags(feat):
 
 @functools.lru_cache(maxsize=None)
 def filt_smooth_key(feat):
-    """The keyed variant's build key (``-D`` defines): one library per
-    stage set."""
-    return ("FS_KEYED=1",) + tuple(f"FS_{k.upper()}={int(v)}"
-                                   for k, v in _fs_flags(feat).items())
+    """The kernel's build key (``-D`` defines): one library per stage
+    set."""
+    return tuple(f"FS_{k.upper()}={int(v)}"
+                 for k, v in _fs_flags(feat).items())
 
 
 _FN_INTS = ("n", "m", "b", "bank_w", "bank_stride", "out_stride", "cbase",
@@ -348,7 +244,7 @@ class FiltNoiseArgs(ctypes.Structure):
 
 
 def fn_vec_keys(fl):
-    """The [M] per-lane vectors the keyed kernel reads under build flags
+    """The [M] per-lane vectors the kernel reads under build flags
     ``fl`` (``_fs_flags``): (key, dtype)."""
     keys = [("is_noise", I32), ("amp", F32)]
     for stage in ("env", "am", "flt", "sm", "am_self", "hold", "quant"):

@@ -1,13 +1,11 @@
 """The phase-walk kernel: a noise-voice tier's serial oscillator phases.
 
-``phase_walk`` is the port of ``skred_tpu.engine.kernels.
-phase_walk_pallas``: per lane, N steps of the reference's osc_next
-(synth.c:217-258) with the single-fmod wrap of both directions, one-shot
-voices pinned at their ends and, when ``finish`` is set, the per-sample
-dead mask and the end finished flag.  Layout: time-major ``[N, M]``
-streams, ``[M]`` per-lane vectors.  A CPU tensor runs
-``phase_walk_plain``, the same arithmetic in torch ops; a CUDA tensor
-launches ``csrc/phase_walk.cu`` or raises.
+``phase_walk_plain`` is the port of ``skred_tpu.engine.kernels.
+phase_walk_pallas`` in torch ops: per lane, N steps of the reference's
+osc_next (synth.c:217-258) with the single-fmod wrap of both directions,
+one-shot voices pinned at their ends and, when ``finish`` is set, the
+per-sample dead mask and the end finished flag.  Layout: time-major
+``[N, M]`` streams, ``[M]`` per-lane vectors.
 
 ``phase_walk_warp`` is the noise pass's first stage with its glue: the
 modulator reads from the bank of earlier tiers, the FM increment, the
@@ -15,10 +13,8 @@ walk, the CZ warp and the index clip, giving the int32 table index the
 lookup takes and each lane's alive count.  A CPU tensor runs
 ``phase_walk_warp_plain``, the composition of the glue's torch ops and
 ``phase_walk_plain`` in the noise pass's order; a CUDA tensor launches
-the keyed variant of ``csrc/phase_walk.cu``, built once per
-``phase_walk_key`` with the stages compiled in.  ``phase_walk`` is the
-general variant, with run-time flags, launched only by
-name.
+``csrc/phase_walk.cu``, built once per ``phase_walk_key`` with the
+stages compiled in.
 """
 
 from __future__ import annotations
@@ -39,7 +35,7 @@ I32 = torch.int32
 
 def phase_walk_plain(inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act,
                      *, fm=True, finish=True, n):
-    """The kernel's arithmetic in torch ops, a loop over samples.
+    """``phase_walk_pallas``'s walk in torch ops, a loop over samples.
     Returns ``(ph [N, M] f32, dead [N, M] i32 or None, phase_end [M],
     fin_end [M] or None)``."""
     m = phase0.shape[0]
@@ -82,73 +78,6 @@ def phase_walk_plain(inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act,
         return ph_s, dead, ph_c, fin_c
     return ph_s, None, ph_c, None
 
-
-class PhaseWalkArgs(ctypes.Structure):
-    """Mirrors csrc/phase_walk.cu's PhaseWalkArgs."""
-    _fields_ = ([(k, ctypes.c_int) for k in ("n", "m", "has_fm",
-                                             "has_finish")]
-                + [(k, ctypes.c_void_p) for k in (
-                    "inc", "phase_0", "finished_0", "lo", "hi", "L", "osn",
-                    "one_shot", "adv", "act", "ph", "dead", "phase_e",
-                    "finished_e")])
-
-
-def _pack_args(inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act, fm,
-               finish, n):
-    """Check the CUDA tensors and fill the argument struct.  Returns
-    (PhaseWalkArgs, (ph, dead, phase_end, fin_end))."""
-    dev = phase0.device
-    m = phase0.shape[0]
-    chk = lambda name, x, dt, shape: cuda_call.check("phase_walk", name, x,
-                                                     dev, dt, shape)
-    a = PhaseWalkArgs(n=n, m=m, has_fm=int(bool(fm)),
-                      has_finish=int(bool(finish)))
-    a.inc = chk("inc", inc, F32, (n, m) if fm else (m,))
-    a.phase_0 = chk("phase0", phase0, F32, (m,))
-    a.lo, a.hi, a.L = (chk(k, x, F32, (m,))
-                       for k, x in (("lo", lo), ("hi", hi), ("L", L)))
-    a.adv = chk("adv", adv, I32, (m,))
-    ph = torch.empty((n, m), dtype=F32, device=dev)
-    ph_e = torch.empty(m, dtype=F32, device=dev)
-    a.ph, a.phase_e = ph.data_ptr(), ph_e.data_ptr()
-    dead = fin_e = None
-    if finish:
-        a.finished_0 = chk("fin0", fin0, I32, (m,))
-        a.osn, a.one_shot, a.act = (
-            chk(k, x, I32, (m,))
-            for k, x in (("osn", osn), ("one_shot", one_shot), ("act", act)))
-        dead = torch.empty((n, m), dtype=I32, device=dev)
-        fin_e = torch.empty(m, dtype=I32, device=dev)
-        a.dead, a.finished_e = dead.data_ptr(), fin_e.data_ptr()
-    return a, (ph, dead, ph_e, fin_e)
-
-
-def phase_walk(inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act, *,
-               fm=True, finish=True, n):
-    """One block's phase walk over M lanes.
-
-    inc: [N, M] per-sample increments when ``fm``, else [M] (constant in
-    the block); phase0, lo, hi, L: [M] f32; fin0, osn, one_shot, act: [M]
-    i32 (read only with ``finish``); adv: [M] i32, the lanes whose phase
-    steps.  Returns ``(ph [N, M], dead [N, M] i32 or None, phase_end [M],
-    fin_end [M] or None)``, as ``phase_walk_pallas``."""
-    dev = phase0.device
-    if dev.type == "cpu":
-        return phase_walk_plain(inc, phase0, fin0, lo, hi, L, osn, one_shot,
-                                adv, act, fm=fm, finish=finish, n=n)
-    if dev.type != "cuda":
-        raise ValueError(f"phase_walk: no kernel for device {dev}")
-    args, outs = _pack_args(inc, phase0, fin0, lo, hi, L, osn, one_shot,
-                            adv, act, fm, finish, n)
-    cuda_call.launch("phase_walk", args, dev)
-    phase_walk.launches += 1
-    return outs
-
-
-phase_walk.launches = 0
-
-
-# ---- the keyed variant: the walk with the noise pass's glue ----
 
 # PwFeat: (fm, finish, direction, cz, czm, cz_modes, ts_pow2), a noise
 # tier's flags as ``fused.Feat`` names them
@@ -195,7 +124,7 @@ def alive_count(dead, act, n):
 
 
 def phase_walk_warp_plain(bank, vecs, phase0, fin0, *, feat, n, b):
-    """The keyed kernel's function in torch ops: the fm read, the FM
+    """The kernel's function in torch ops: the fm read, the FM
     increment, the walk (``phase_walk_plain``), the cz read, the CZ warp
     and the clip, the alive count, in the noise pass's order.  Takes and
     returns what ``phase_walk_warp`` does."""
@@ -232,11 +161,10 @@ def _pw_flags(feat):
 
 @functools.lru_cache(maxsize=None)
 def phase_walk_key(feat):
-    """The keyed variant's build key (``-D`` defines): one library per
-    tier feature set."""
-    fl = _pw_flags(feat)
-    return ("PW_KEYED=1",) + tuple(f"PW_{k.upper()}={int(v)}"
-                                   for k, v in fl.items())
+    """The kernel's build key (``-D`` defines): one library per tier
+    feature set."""
+    return tuple(f"PW_{k.upper()}={int(v)}"
+                 for k, v in _pw_flags(feat).items())
 
 
 _PW_INTS = ("n", "m", "b", "bank_w", "bank_stride", "has_fm", "has_finish",

@@ -27,12 +27,10 @@ Layout: time-major ``[N, M]`` streams over voice-major lanes (lane
 takes them.  A CPU tensor runs ``tier_plain``, the same arithmetic in
 torch ops; a CUDA tensor launches ``csrc/tier.cu`` or raises.
 
-``csrc/tier.cu`` has two variants.  The keyed one, which ``tier``
-launches, is built once per ``tier_key`` (the feature tuple, the
-arithmetic mode, the mix and the folded streams, all compiled in); a
-render builds its tiers' keys together before its first block
-(``engine/fused.py``).  The general one, with the features as
-run-time flags, runs only when asked for (``variant="general"``).
+``csrc/tier.cu`` is built once per ``tier_key`` (the feature tuple,
+the arithmetic mode, the mix and the folded streams, all compiled in);
+a render builds its tiers' keys together before its first block
+(``engine/fused.py``).
 
 ``feat`` is the JAX kernel's 14-tuple (fm, cz, czm, env, flt, sm, hold,
 quant, am, am_self, finish, direction, cz_modes, ts_pow2).
@@ -44,9 +42,9 @@ compiles in (``tier_phases``) adds one ``TIER_ABLATE_<PHASE>=1`` define to
 the keyed build, which stubs that phase (``csrc/tier.cu``); the empty set
 adds nothing, so every key is then the same as without the switch.  An
 ablated render is invalid by design: it is for timing a phase's share
-(``tools/mega_ablate.py``).  The plain version and the general variant
-have no stubs, so ``tier`` refuses a nonempty set on a CPU tensor or with
-``variant="general"``, as the JAX package's XLA branch never reads it.
+(``tools/mega_ablate.py``).  The plain version has no stubs, so
+``tier`` refuses a nonempty set on a CPU tensor, as the JAX package's XLA
+branch never reads it.
 """
 
 from __future__ import annotations
@@ -600,7 +598,7 @@ def tier_phases(feat, mix=False) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def tier_key(feat, exact=True, mix=False, folded=(), ablate=MEGA_ABLATE):
-    """The build key (``-D`` defines) of the keyed variant: one library
+    """The build key (``-D`` defines) of ``csrc/tier.cu``: one library
     per (feature tuple, arithmetic mode, mix, folded streams), as the JAX
     package compiles one kernel per feature tuple.  Deterministic; the CZ
     mode mask counts only where CZ is on, and a folded stream only where
@@ -613,9 +611,8 @@ def tier_key(feat, exact=True, mix=False, folded=(), ablate=MEGA_ABLATE):
     folded = _folded(fl, Fold(None, None, 0, tuple(folded)))
     mask = sum(1 << k for k in fl["cz_modes"] if 1 <= k <= 7) \
         if fl["cz"] else 0
-    key = (("TIER_KEYED=1", f"TIER_EXACT={int(bool(exact))}",
-            f"TIER_CZ_MASK={mask}", f"TIER_TS_POW2={int(fl['ts_pow2'])}",
-            f"TIER_MIX={int(bool(mix))}")
+    key = ((f"TIER_EXACT={int(bool(exact))}", f"TIER_CZ_MASK={mask}",
+            f"TIER_TS_POW2={int(fl['ts_pow2'])}", f"TIER_MIX={int(bool(mix))}")
            + tuple(f"TIER_FOLD_{k.upper()}={int(k in folded)}"
                    for k in ("fm", "cz", "am"))
            + tuple(f"TIER_HAS_{k.upper()}={int(fl[k])}"
@@ -628,20 +625,14 @@ def tier_key(feat, exact=True, mix=False, folded=(), ablate=MEGA_ABLATE):
 
 
 def tier_keyed(args, key, dev):
-    """Launch the keyed variant built under ``key`` (built at first use if
-    it was not built before; a failed build raises)."""
+    """Launch the kernel built under ``key`` (built at first use if it
+    was not built before; a failed build raises)."""
     cuda_call.launch("tier", args, dev, key, "tier_keyed_launch")
     tier_keyed.launches += 1
 
 
-def tier_general(args, dev):
-    """Launch the general variant."""
-    cuda_call.launch("tier", args, dev)
-    tier_general.launches += 1
-
-
 def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
-         n, b=None, mixw=None, acc=None, fold=None, out=None, variant=None):
+         n, b=None, mixw=None, acc=None, fold=None, out=None):
     """One tier pass over one block (see the module docstring).
 
     table: [R] f32 packed table buffer; cbase: int, the 1-based global
@@ -662,40 +653,29 @@ def tier(table, cbase, inc, dm, amod, vecs, states, *, feat, exact=True,
     ``*_src`` / ``*_del`` vectors.  out: an [N, M] view to write the
     samples into, e.g. the tier's columns of a block buffer that is the
     bank of later tiers; it must not overlap the bank's read columns.
-    variant: None or "keyed" launches the keyed variant, "general" the
-    general one (the tests and chip_smoke.py hold both to the plain
-    version).  A nonempty ``MEGA_ABLATE`` stubs the keyed variant's
-    phases (timing only); the other two refuse it.
+    A nonempty ``MEGA_ABLATE`` stubs the kernel's phases (timing only);
+    the plain version refuses it.
 
     Returns (out [N, M], end-state dict incl. cnt)."""
     with spans.span("kernel.tier"):
         kw = dict(feat=feat, exact=exact, n=n, b=b, mixw=mixw, acc=acc,
                   fold=fold, out=out)
-        if MEGA_ABLATE and (table.device.type == "cpu"
-                            or variant == "general"):
+        if MEGA_ABLATE and table.device.type == "cpu":
             raise ValueError(
                 f"tier: ablation {sorted(MEGA_ABLATE)} stubs phases of the "
-                f"keyed kernel only; the "
-                + ("plain version (a CPU tensor)" if table.device.type == "cpu"
-                   else "general variant") + " has no stubs")
+                f"kernel only; the plain version (a CPU tensor) has no stubs")
         if table.device.type == "cpu":
             return tier_plain(table, cbase, inc, dm, amod, vecs, states, **kw)
         if table.device.type != "cuda":
             raise ValueError(f"tier: no kernel for device {table.device}")
-        if variant not in (None, "keyed", "general"):
-            raise ValueError(f"tier: no variant {variant!r}")
         args, out, outs = _pack_args(table, cbase, inc, dm, amod, vecs, states,
                                      **kw)
-        if variant == "general":
-            tier_general(args, table.device)
-        else:
-            folded = _folded(_flags(feat), fold)
-            tier_keyed(args, tier_key(feat, exact, mixw is not None, folded,
-                                      MEGA_ABLATE), table.device)
+        folded = _folded(_flags(feat), fold)
+        tier_keyed(args, tier_key(feat, exact, mixw is not None, folded,
+                                  MEGA_ABLATE), table.device)
         tier.launches += 1
         return out, outs
 
 
 tier.launches = 0
 tier_keyed.launches = 0
-tier_general.launches = 0

@@ -243,13 +243,12 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
     group, with the compat engine (loudly, on stderr).  "compat" renders
     every script with the compat engine (``render_stacked``).  ``outdir``
     writes one 16-bit WAV per rendered script.  With a ``mesh``
-    (``make_mesh``) each fused group and the compat group are padded to a
-    multiple of its device count and split over it, and the cyclic
-    groups take its devices in turn, their blocks stepped in turn
-    (``render_cyclic_each``); the audio is the render without a mesh, bit
-    for bit.  Runs on the card unless ``device="cpu"`` (without a mesh).
-    Each cyclic group's packing, gate and render without a mesh run in
-    the span ``batch.cyclic_group``, ``n`` = its rows."""
+    (``make_mesh``) each group is padded to a multiple of its device
+    count and its rows split over it (``shard_rows``); the audio is the
+    render without a mesh, bit for bit.  Runs on the card unless
+    ``device="cpu"`` (without a mesh).  Each cyclic group's packing, gate
+    and render run in the span ``batch.cyclic_group``, ``n`` = its
+    rows."""
     from skred_tpu_torch import spans
     from skred_tpu_torch.assets.bank import WaveBank, write_wav_16
     from skred_tpu_torch.engine import cyclic
@@ -281,7 +280,7 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
         out = np.zeros((len(tls), tls[0].num_blocks * tls[0].block, 2),
                        np.float32)
         buckets: dict = {}
-        cyclic_idx, scan_idx, cyc_sts = [], [], []
+        cyclic_idx, scan_idx = [], []
         for i, tl in enumerate(tls):
             if tl.fused_passes is None:
                 cyclic_idx.append(i)
@@ -297,8 +296,8 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
             groups.setdefault(cyclic_group_key(tls[i]), []).append(i)
         for idxs in groups.values():
             with spans.span("batch.cyclic_group", len(idxs)):
-                st = pack_stacked(stack_timelines([tls[i] for i in idxs]),
-                                  cyclic=True)
+                st = pack_stacked(stack_timelines(
+                    _padded([tls[i] for i in idxs], ndev)), cyclic=True)
                 reason = cyclic.cyclic_gate(st)
                 if reason is not None:
                     # the compat engine runs the scripts on the device
@@ -311,14 +310,9 @@ def render_batch(scripts: List[pathlib.Path], seconds: float,
                           f"of magnitude slower on accelerators)",
                           file=sys.stderr, flush=True)
                     scan_idx += idxs
-                elif mesh is None:
-                    out[idxs] = cyclic.render_cyclic(st, device=device)
                 else:
-                    cyc_sts.append((idxs, st))
-        if cyc_sts:
-            outs = cyclic.render_cyclic_each([st for _, st in cyc_sts], mesh)
-            for (idxs, _), o in zip(cyc_sts, outs):
-                out[idxs] = o
+                    out[idxs] = cyclic.render_cyclic(
+                        st, mesh=mesh, device=device)[:len(idxs)]
         if scan_idx:
             out[scan_idx] = stacked(scan_idx)
 

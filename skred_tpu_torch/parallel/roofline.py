@@ -10,8 +10,8 @@ Three parts, one source for the counts:
     the card rather than guess its rates.
   * per-kernel counts and bounds (``tier_counts`` / ``tier_bound``,
     ``phase_walk_warp_*``, ``lookup_*``, ``filt_smooth_noise_*``,
-    ``cyclic_*``, ``compat_*`` and the general variants'), each taking one call's
-    arguments as the renderer passes them: the bytes the call must move
+    ``cyclic_*`` and ``compat_*``), each taking one call's arguments as
+    the renderer passes them: the bytes the call must move
     (each input read once, each output written once; where the work
     depends on the data, what these inputs need) against its f32
     operations.  chip_smoke.py holds each kernel's time against them.
@@ -205,45 +205,9 @@ def tier_counts(a, kw):
     return read, write, tier_ops(fl, mix) * n * m
 
 
-def phase_walk_counts(a, kw):
-    """The general walk: add, subtract, fmod and two wrap adds a
-    lane-sample."""
-    inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act = a
-    n, m = kw["n"], phase0.shape[0]
-    fin = kw["finish"]
-    read = nbytes(inc, phase0, lo, hi, L, adv) \
-        + (nbytes(fin0, osn, one_shot, act) if fin else 0)
-    write = n * m * 4 * (2 if fin else 1) + m * 4 * (2 if fin else 1)
-    return read, write, 5 * n * m
-
-
 def lookup_counts(a, kw):
     table, base, limit, idx = a
     return nbytes(table, base, limit, idx), nbytes(idx), 0
-
-
-def filt_smooth_counts(a, kw):
-    """The general filter/smoother."""
-    from skred_tpu_torch.engine.kernels import filt_smooth as fs
-
-    fl = dict(zip(fs._FS_NAMES, kw["feat"]))
-    named = dict(zip(fs._ARG_NAMES, a))
-    x = named["x"]
-    n, m = x.shape
-    read = nbytes(x, named["alive"], named["amp"],
-                  named["env"] if fl["env"] else None,
-                  named["amod"] if fl["am"] else None)
-    write = nbytes(x)
-    for stage, keys in fs._VECS.items():
-        if fl[stage]:
-            read += nbytes(*(named[k] for k, _ in keys))
-    for stage, keys in fs._STATES.items():
-        if fl[stage]:
-            read += nbytes(*(named[k + "_0"] for k, _, _ in keys))
-            write += m * 4 * len(keys)
-    ops = (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
-        + (3 if fl["sm"] else 0) + 2 + 1
-    return read, write, ops * n * m
 
 
 def phase_walk_warp_counts(a, kw):
@@ -307,9 +271,7 @@ def _bounded(counts):
 
 
 tier_bound = _bounded(tier_counts)
-phase_walk_bound = _bounded(phase_walk_counts)
 lookup_bound = _bounded(lookup_counts)
-filt_smooth_bound = _bounded(filt_smooth_counts)
 phase_walk_warp_bound = _bounded(phase_walk_warp_counts)
 filt_smooth_noise_bound = _bounded(filt_smooth_noise_counts)
 cyclic_bound = _bounded(cyclic_counts)

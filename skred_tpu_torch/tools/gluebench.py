@@ -72,7 +72,7 @@ class Stubs:
 
     def tier(self, table, cbase, inc, dm, amod, vecs, states, *, feat,
              exact=True, n, b=None, mixw=None, acc=None, fold=None,
-             out=None, variant=None):
+             out=None):
         m, dev = vecs["amp"].shape[0], vecs["amp"].device
         if out is None:
             out = self.const((n, m), F32, dev)

@@ -39,12 +39,10 @@ SCAN_RANGE = "volume_scan"
 # device-kernel name -> category, first match wins
 CATEGORIES = (
     ("tier mix", re.compile(r"tier_mix_kernel")),
-    ("tier kernel", re.compile(r"tier_(keyed_)?kernel")),
+    ("tier kernel", re.compile(r"tier_keyed_kernel")),
     ("keyed walk", re.compile(r"phase_walk_keyed_kernel")),
-    ("general walk", re.compile(r"phase_walk_kernel")),
     ("lookup", re.compile(r"lookup_(time|lane)_major")),
     ("keyed filter", re.compile(r"filt_smooth_keyed_kernel")),
-    ("general filter", re.compile(r"filt_smooth_kernel")),
     ("cyclic kernel", re.compile(r"cyclic_(fixed|general)_kernel")),
     ("copies and slices", re.compile(
         r"[Mm]emcpy|[Mm]emset|copy|Copy|[Cc]at|index|gather|scatter|slice",

@@ -70,9 +70,9 @@ def sass_loop(so, kernel, samples, first=None) -> dict:
     ``samples`` > 1 (the keyed build's chunks) the first loop of at least
     4 x ``samples`` instructions: the fast pass's steady chunk loop;
     ``first``: the first loop of at least that many instructions (the
-    keyed cyclic build's frame loop, a frame a pass).  Otherwise (the
-    general build) its largest loop, counted statically, every run-time
-    branch included."""
+    keyed cyclic build's frame loop, a frame a pass).  Otherwise (a
+    kernel without chunks, as the lookup's) its largest loop, counted
+    statically, every run-time branch included."""
     funcs = sass_functions(so)
     name = next(nm for nm in funcs if kernel in nm)
     ins = funcs[name]

@@ -3,12 +3,12 @@
 refusals that keep an ablated render out of every headline, and
 ``tools/mega_ablate.py``'s configurations.
 
-With the empty set every key is the tuple the kernels were built under
-before the switches existed (literals of stress64's two tier keys and
-fb2's cyclic key).  Each phase adds exactly its one define, in a fixed
-order; an unknown name raises, also from the environment at import.
-The plain versions (CPU tensors) and the general variants have no stubs
-and refuse a nonempty set; under either variable ``bench_torch.py``,
+With the empty set every key is the tuple of the kernels' own defines,
+with no stub (literals of stress64's two tier keys and fb2's cyclic
+key).  Each phase adds exactly its one define, in a fixed order; an
+unknown name raises, also from the environment at import.  The plain
+versions (CPU tensors) and the general cyclic variant have no stubs and
+refuse a nonempty set; under either variable ``bench_torch.py``,
 ``card_parity`` and ``endurance`` refuse to start, and a CPU render
 raises.  The stubs themselves run only on the card (chip_smoke.py's
 ablate phase).
@@ -36,17 +36,17 @@ ONE_BLOCK = 0.0116
 FB2 = ROOT / "corpus" / "fb2.sk"
 ALL_FLAGS = (True,) * 12 + ((1, 2, 3, 4, 5, 6, 7), True)
 
-# the keys before the switches existed (stress64's tier 0 and tier 1 as
-# the main path renders them, mix and fold on; fb2's keyed cyclic call)
+# the keys without a stub (stress64's tier 0 and tier 1 as the main path
+# renders them, mix and fold on; fb2's keyed cyclic call)
 STRESS64_KEYS = (
-    ("TIER_KEYED=1", "TIER_EXACT=1", "TIER_CZ_MASK=0", "TIER_TS_POW2=1",
-     "TIER_MIX=1", "TIER_FOLD_FM=0", "TIER_FOLD_CZ=0", "TIER_FOLD_AM=0",
+    ("TIER_EXACT=1", "TIER_CZ_MASK=0", "TIER_TS_POW2=1", "TIER_MIX=1",
+     "TIER_FOLD_FM=0", "TIER_FOLD_CZ=0", "TIER_FOLD_AM=0",
      "TIER_HAS_FM=0", "TIER_HAS_CZ=0", "TIER_HAS_CZM=0", "TIER_HAS_ENV=0",
      "TIER_HAS_FLT=0", "TIER_HAS_SM=1", "TIER_HAS_HOLD=0",
      "TIER_HAS_QUANT=0", "TIER_HAS_AM=0", "TIER_HAS_AM_SELF=0",
      "TIER_HAS_FINISH=0", "TIER_HAS_DIRECTION=0"),
-    ("TIER_KEYED=1", "TIER_EXACT=1", "TIER_CZ_MASK=254", "TIER_TS_POW2=1",
-     "TIER_MIX=1", "TIER_FOLD_FM=1", "TIER_FOLD_CZ=0", "TIER_FOLD_AM=0",
+    ("TIER_EXACT=1", "TIER_CZ_MASK=254", "TIER_TS_POW2=1", "TIER_MIX=1",
+     "TIER_FOLD_FM=1", "TIER_FOLD_CZ=0", "TIER_FOLD_AM=0",
      "TIER_HAS_FM=1", "TIER_HAS_CZ=1", "TIER_HAS_CZM=0", "TIER_HAS_ENV=0",
      "TIER_HAS_FLT=1", "TIER_HAS_SM=1", "TIER_HAS_HOLD=1",
      "TIER_HAS_QUANT=1", "TIER_HAS_AM=0", "TIER_HAS_AM_SELF=0",
@@ -154,9 +154,6 @@ def test_plain_versions_and_general_variants_refuse(monkeypatch):
     monkeypatch.setattr(tk, "MEGA_ABLATE", frozenset({"phase4"}))
     with pytest.raises(ValueError, match="plain version"):
         tk.tier(*args, feat=ALL_FLAGS, n=n)
-    meta = (torch.empty(8, device="meta"),) + args[1:]
-    with pytest.raises(ValueError, match="general variant"):
-        tk.tier(*meta, feat=ALL_FLAGS, n=n, variant="general")
 
     a = list(ci.block_inputs(ci.ALL_FEATURES, 2, seed=17, n=8))
     monkeypatch.setattr(ck, "CYC_ABLATE", frozenset({"dsp"}))

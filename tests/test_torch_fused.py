@@ -156,9 +156,8 @@ def test_render_fused_matches_jax_package(name, lines, seconds):
 
 
 def _launch_counts():
-    return (tt.tier.launches, tpw.phase_walk.launches, tlk.lookup.launches,
-            tfs.filt_smooth.launches, tpw.phase_walk_warp.launches,
-            tfs.filt_smooth_noise.launches)
+    return (tt.tier.launches, tlk.lookup.launches,
+            tpw.phase_walk_warp.launches, tfs.filt_smooth_noise.launches)
 
 
 def _check_stream_checksum(lines, seconds):

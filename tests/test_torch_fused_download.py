@@ -1,14 +1,15 @@
 """``render_fused``'s download: the audio copied into the caller's array
-chunk by chunk while the block loop runs (``engine/fused.py``'s
-``_Download``).
+chunk by chunk while the block loop runs (``engine/download.py``).
 
 On the CPU: the result equals ``render_fused_device``'s blocks laid out
 ``[B, T, 2]`` bit for bit, whole and over a mesh of uneven shards, with
 chunks that do not divide the render; the chunk rule covers every block
 once, in order; two calls share no memory; an error in the loop
 surfaces and leaves no thread behind; the download's counter has its
-reader.  On the card (skipped without one; no JAX is imported, so it
-runs on a machine with the port's dependencies alone):
+reader; ``download.run`` builds the download before the set-up and
+records its spans under either engine's prefix.  On the card (skipped
+without one; no JAX is imported, so it runs on a machine with the
+port's dependencies alone):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_fused_download.py
@@ -29,7 +30,7 @@ import torch
 
 from skred_tpu_torch import spans
 from skred_tpu_torch.assets import WaveBank
-from skred_tpu_torch.engine import fused
+from skred_tpu_torch.engine import download, fused
 from skred_tpu_torch.host import timeline
 from skred_tpu_torch.parallel import batch
 
@@ -85,8 +86,9 @@ def test_result_is_the_device_render_bit_for_bit(small, monkeypatch, mesh,
                                                  chunk):
     st, want = small
     rows = len(np.array_split(np.arange(st.batch), len(mesh or [0]))[0])
-    monkeypatch.setattr(fused, "CHUNK_BYTES", chunk * BLOCK * rows * 2 * 4)
-    chunks = fused._chunks(st.num_blocks, BLOCK, rows)
+    monkeypatch.setattr(download, "CHUNK_BYTES",
+                        chunk * BLOCK * rows * 2 * 4)
+    chunks = download._chunks(st.num_blocks, BLOCK, rows)
     assert chunks[0] == (0, chunk) and st.num_blocks % chunk
     got = fused.render_fused(st, mesh=mesh, device="cpu")
     _same_bits(got, want)
@@ -97,7 +99,7 @@ def test_result_is_the_device_render_bit_for_bit(small, monkeypatch, mesh,
     (1, 345, 345), (1024, 345, 16), (1024, 1, 1), (64, 345, 256),
     (1, 1, 1)])
 def test_chunks_cover_every_block_once_in_order(rows, blocks, chunk):
-    got = fused._chunks(blocks, BLOCK, rows)
+    got = download._chunks(blocks, BLOCK, rows)
     assert [k for k0, k1 in got for k in range(k0, k1)] == list(range(blocks))
     assert max(k1 - k0 for k0, k1 in got) == chunk
     assert all(k1 - k0 == chunk for k0, k1 in got[:-1])
@@ -121,12 +123,51 @@ def test_error_in_the_loop_surfaces_and_leaves_no_thread(small,
             raise RuntimeError("block 3 failed")
         return step(r, carry, k_glob, caps=caps)
 
-    monkeypatch.setattr(fused, "CHUNK_BYTES", 2 * BLOCK * st.batch * 2 * 4)
+    monkeypatch.setattr(download, "CHUNK_BYTES",
+                        2 * BLOCK * st.batch * 2 * 4)
     monkeypatch.setattr(fused, "_block_step", failing)
     before = threading.active_count()
     with pytest.raises(RuntimeError, match="block 3 failed"):
         fused.render_fused(st, device="cpu")
     assert threading.active_count() == before
+
+
+@pytest.mark.parametrize("prefix", ["fused", "cyclic"])
+def test_run_records_its_spans(monkeypatch, prefix):
+    """Two uneven shards of 5 rows, 3 blocks of 4 samples, one block a
+    chunk: the download is built before ``start`` runs; the result lays
+    each shard's blocks out in its rows; the spans are ``<prefix>.
+    block_loop`` (n = blocks), then ``<prefix>.download`` holding
+    ``<prefix>.download_tail`` (n = 0: on the CPU a chunk is written at
+    once)."""
+    order = []
+
+    class Built(download._Download):
+        def __init__(self, *a):
+            order.append("download")
+            super().__init__(*a)
+
+    monkeypatch.setattr(download, "_Download", Built)
+    monkeypatch.setattr(download, "CHUNK_BYTES", 4 * 3 * 2 * 4)
+    n, nb = 4, 3
+    audio = torch.arange(5 * nb * n * 2, dtype=torch.float32) \
+        .reshape(5, nb * n, 2)
+    split = batch.shard_rows(5, ["cpu"] * 2)
+
+    def start():
+        order.append("start")
+        return (tuple(audio[rows, k * n:(k + 1) * n].permute(1, 0, 2)
+                      for _, rows in split) for k in range(nb))
+
+    last = max((r.id for r in spans.records()), default=0)
+    got = download.run(prefix, split, nb, n, start)
+    recs = [r for r in spans.records() if r.id > last]
+    assert order == ["download", "start"]
+    _same_bits(got, audio.numpy())
+    assert [(r.name, r.n) for r in recs] == [
+        (f"{prefix}.block_loop", nb), (f"{prefix}.download_tail", 0),
+        (f"{prefix}.download", 0)]
+    assert recs[1].parent == recs[2].id and recs[0].parent is None
 
 
 def _record(name, n, profiled=False):
@@ -173,7 +214,7 @@ def test_card_result_is_the_device_render_bit_for_bit(
     """``chunk16``: 22 chunks of 16 blocks at 64 rows, so the three
     staging slots are each reused."""
     if chunk_bytes is not None:
-        monkeypatch.setattr(fused, "CHUNK_BYTES", chunk_bytes)
+        monkeypatch.setattr(download, "CHUNK_BYTES", chunk_bytes)
     st = card_batches[script]
     before = threading.active_count()
     got = fused.render_fused(st, mesh=mesh)
@@ -195,7 +236,7 @@ def test_card_error_in_the_loop_joins_the_worker(card_batches, monkeypatch):
             raise RuntimeError("block 300 failed")
         return step(r, carry, k_glob, caps=caps)
 
-    monkeypatch.setattr(fused, "CHUNK_BYTES", 16 * BLOCK * 64 * 2 * 4)
+    monkeypatch.setattr(download, "CHUNK_BYTES", 16 * BLOCK * 64 * 2 * 4)
     monkeypatch.setattr(fused, "_block_step", failing)
     before = threading.active_count()
     with pytest.raises(RuntimeError, match="block 300 failed"):

@@ -1,9 +1,8 @@
 """The noise pass's CUDA kernels against their plain versions, on the card.
 
-Both variants of csrc/phase_walk.cu and csrc/filt_smooth.cu: the keyed
-ones the render path launches (``phase_walk_warp``, ``filt_smooth_noise``,
-one library per key, all built once in one parallel build by a session
-fixture) and the general ones (``phase_walk``, ``filt_smooth``), and the
+csrc/phase_walk.cu and csrc/filt_smooth.cu as the render path launches
+them (``phase_walk_warp``, ``filt_smooth_noise``, one library per key,
+all built once in one parallel build by a session fixture), and the
 lookup.  Needs an NVIDIA card and nvcc; skips elsewhere.  Imports
 nothing of JAX, so it runs on a machine that has only the port's
 dependencies:
@@ -21,14 +20,9 @@ from skred_tpu_torch.engine.kernels import filt_smooth as fs
 from skred_tpu_torch.engine.kernels import lookup as lk
 from skred_tpu_torch.engine.kernels import phase_walk as pw
 from skred_tpu_torch.engine.kernels.noise_inputs import (
-    NOISE64_FS0, NOISE64_FS1, NOISE64_FSN0, NOISE64_FSN1, NOISE64_WARP0,
-    NOISE64_WARP1, random_fs_inputs, random_lookup_inputs,
-    random_noise_fs_inputs, random_phase_inputs, random_warp_inputs)
+    NOISE64_FSN0, NOISE64_FSN1, NOISE64_WARP0, NOISE64_WARP1,
+    random_lookup_inputs, random_noise_fs_inputs, random_warp_inputs)
 from skred_tpu_torch.engine.kernels.tier import Fold
-
-FS_CASES = {"noise64_tier0": NOISE64_FS0, "noise64_tier1": NOISE64_FS1,
-            "all": (True,) * 8,
-            "none_const_alive": (False,) * 8}
 
 ALL_MODES = (1, 2, 3, 4, 5, 6, 7)
 # phase_walk_warp's (fm, finish, direction, cz, czm, cz_modes, ts_pow2)
@@ -67,7 +61,7 @@ def built():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     from skred_tpu_torch.engine.kernels import build
 
-    build.build_all(["phase_walk", "lookup", "filt_smooth"] + _keys())
+    build.build_all(["lookup"] + _keys())
     return torch.device("cuda")
 
 
@@ -92,25 +86,6 @@ def _same(a, b, what):
 
 def _on(dev):
     return lambda a: None if a is None else torch.from_numpy(a).to(dev)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("fm", [False, True])
-@pytest.mark.parametrize("finish", [False, True])
-def test_phase_walk_cuda_matches_plain_on_card(fm, finish, cuda_device):
-    n, m = 512, 8192
-    args = list(map(_on(cuda_device),
-                    random_phase_inputs(fm, finish, n, m, seed=6)))
-    before = pw.phase_walk.launches
-    got = pw.phase_walk(*args, fm=fm, finish=finish, n=n)
-    torch.cuda.synchronize()
-    assert pw.phase_walk.launches == before + 1
-    want = pw.phase_walk_plain(*args, fm=fm, finish=finish, n=n)
-    for k, (g, w) in enumerate(zip(got, want)):
-        if w is None:
-            assert g is None
-        else:
-            _same(g, w, f"output {k}")
 
 
 @pytest.mark.cuda
@@ -139,35 +114,29 @@ def test_lookup_cuda_matches_plain_on_card(slot_size, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(FS_CASES))
-def test_filt_smooth_cuda_matches_plain_on_card(case, cuda_device):
-    feat = FS_CASES[case]
-    n, m = 512, 8192
-    args = list(map(_on(cuda_device), random_fs_inputs(feat, n, m, seed=9)))
-    before = fs.filt_smooth.launches
-    got = fs.filt_smooth(*args, feat=feat)
-    torch.cuda.synchronize()
-    assert fs.filt_smooth.launches == before + 1
-    want = fs.filt_smooth_plain(*args, feat=feat)
-    for k, (g, w) in enumerate(zip(got, want)):
-        _same(g, w, f"output {k}")
-
-
-@pytest.mark.cuda
 def test_noise_kernels_reject_bad_inputs(cuda_device):
     on = _on(cuda_device)
-    args = list(map(on, random_phase_inputs(True, True, 16, 256, seed=1)))
-    args[3] = args[3].double()                       # lo
+    feat = NOISE64_WARP1
+    bank, prev, vecs, ph0, fin0 = random_warp_inputs(feat, 16, 64, 8, 2,
+                                                     seed=1)
+    tv = {k: on(x) for k, x in vecs.items()}
+    tv["lo"] = tv["lo"].double()
     with pytest.raises(TypeError):
-        pw.phase_walk(*args, fm=True, finish=True, n=16)
+        pw.phase_walk_warp(Fold(on(bank), on(prev), 2), tv, on(ph0),
+                           on(fin0), feat=feat, n=16, b=8)
     table, slot, idx = random_lookup_inputs(16, 64, 4096, seed=1)
     with pytest.raises(ValueError):                  # idx on the CPU
         lk.table_lookup_grouped(on(table).reshape(-1, 32, 128), on(slot),
                                 torch.from_numpy(idx))
-    args = list(map(on, random_fs_inputs(NOISE64_FS0, 16, 256, seed=1)))
-    args[0] = args[0][:, :128]                       # x of the wrong width
-    with pytest.raises(ValueError):
-        fs.filt_smooth(*args, feat=NOISE64_FS0)
+    feat = NOISE64_FSN0
+    f, nz, cnt, cbase, bank, prev, vecs, states = random_noise_fs_inputs(
+        feat, 16, 64, 8, 2, seed=1)
+    with pytest.raises(ValueError):                  # f of the wrong width
+        fs.filt_smooth_noise(on(f)[:, :32], on(nz), on(cnt), cbase,
+                             Fold(on(bank), on(prev), 2),
+                             {k: on(x) for k, x in vecs.items()},
+                             {k: on(x) for k, x in states.items()},
+                             feat=feat, b=8)
 
 
 def _warp_call(feat, dev, n, seed, out_of_range=False):
@@ -180,12 +149,11 @@ def _warp_call(feat, dev, n, seed, out_of_range=False):
     buf[:, :W * B] = on(bank)
     fold = Fold(buf[:, :W * B], on(prev), W)
     tv = {k: on(x) for k, x in vecs.items()}
-    before = (pw.phase_walk_warp.launches, pw.phase_walk.launches)
+    before = pw.phase_walk_warp.launches
     got = pw.phase_walk_warp(fold, tv, on(ph0), on(fin0), feat=feat, n=n,
                              b=B)
     torch.cuda.synchronize()
-    assert (pw.phase_walk_warp.launches, pw.phase_walk.launches) \
-        == (before[0] + 1, before[1])
+    assert pw.phase_walk_warp.launches == before + 1
     want = pw.phase_walk_warp_plain(fold, tv, on(ph0), on(fin0), feat=feat,
                                     n=n, b=B)
     for k, (g, w) in enumerate(zip(got, want)):
@@ -239,12 +207,11 @@ def _fsn_call(feat, dev, n, seed):
     ts = {k: on(x) for k, x in states.items()}
     bufs = [torch.full((n, (W + V) * B), 7.0, device=dev) for _ in (0, 1)]
     cols = lambda buf: buf[:, W * B:]
-    before = (fs.filt_smooth_noise.launches, fs.filt_smooth.launches)
+    before = fs.filt_smooth_noise.launches
     out, ends = fs.filt_smooth_noise(on(f), on(nz), on(cnt), cbase, fold, tv,
                                      ts, feat=feat, b=B, out=cols(bufs[0]))
     torch.cuda.synchronize()
-    assert (fs.filt_smooth_noise.launches, fs.filt_smooth.launches) \
-        == (before[0] + 1, before[1])
+    assert fs.filt_smooth_noise.launches == before + 1
     want, want_ends = fs.filt_smooth_noise_plain(
         on(f), on(nz), on(cnt), cbase, fold, tv, ts, feat=feat, b=B,
         out=cols(bufs[1]))
@@ -324,9 +291,8 @@ def test_keyed_noise_kernels_refuse_another_key(cuda_device):
 @pytest.mark.cuda
 def test_noise_pass_launches_only_the_keyed_variants(cuda_device):
     """noise64 on the card: each noise tier launches the keyed walk, the
-    lookup and the keyed filter/smoother once a block, never the general
-    variants; the render equals the one whose wrappers run their plain
-    versions on the card."""
+    lookup and the keyed filter/smoother once a block; the render equals
+    the one whose wrappers run their plain versions on the card."""
     from skred_tpu_torch.assets.bank import WaveBank
     from skred_tpu_torch.engine import fused
     from skred_tpu_torch.host.timeline import compile_script
@@ -336,12 +302,11 @@ def test_noise_pass_launches_only_the_keyed_variants(cuda_device):
     tl = compile_script(lines, 3 * 512 / 44100.0, bank=WaveBank(),
                         script_dir=SCRIPTS.parent.parent / "corpus")
     st = pack_stacked(stack_timelines([tl] * 8))
-    counters = (pw.phase_walk_warp, fs.filt_smooth_noise, lk.lookup,
-                pw.phase_walk, fs.filt_smooth)
+    counters = (pw.phase_walk_warp, fs.filt_smooth_noise, lk.lookup)
     before = [c.launches for c in counters]
     got = fused.render_fused(st, device=cuda_device)
     after = [c.launches - b for c, b in zip(counters, before)]
-    assert after == [2 * st.num_blocks] * 3 + [0, 0], after
+    assert after == [2 * st.num_blocks] * 3, after
     real = (fused.phase_walk_warp, fused.filt_smooth_noise, fused.lookup)
     fused.phase_walk_warp = pw.phase_walk_warp_plain
     fused.filt_smooth_noise = fs.filt_smooth_noise_plain

@@ -21,11 +21,11 @@ from skred_tpu.engine import kernels as jk
 from skred_tpu_torch.engine.kernels import filt_smooth as fs
 from skred_tpu_torch.engine.kernels import lookup as lk
 from skred_tpu_torch.engine.kernels import phase_walk as pw
-from skred_tpu_torch.engine.kernels.noise_inputs import (NOISE64_FS0,
-                                                         NOISE64_FS1,
-                                                         random_fs_inputs,
-                                                         random_lookup_inputs,
-                                                         random_phase_inputs)
+from skred_tpu_torch.engine.kernels.noise_inputs import (
+    NOISE64_FS0, NOISE64_FS1, NOISE64_FSN1, NOISE64_WARP1, random_fs_inputs,
+    random_lookup_inputs, random_noise_fs_inputs, random_phase_inputs,
+    random_warp_inputs)
+from skred_tpu_torch.engine.kernels.tier import Fold
 
 torch.set_num_threads(1)
 
@@ -222,22 +222,34 @@ def test_filt_smooth_plain_matches_pallas_interpret(case):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    before = (pw.phase_walk.launches, fs.filt_smooth.launches,
+    """The noise pass's three wrappers on noise64's tier-1 feature sets:
+    a CPU tensor runs the plain version and launches nothing."""
+    before = (pw.phase_walk_warp.launches, fs.filt_smooth_noise.launches,
               lk.lookup.launches, lk.table_lookup_pallas.launches)
-    args = random_phase_inputs(True, True, 16, 256, seed=1)
-    got = pw.phase_walk(*map(_t, args), fm=True, finish=True, n=16)
-    want = pw.phase_walk_plain(*map(_t, args), fm=True, finish=True, n=16)
-    for g, w in zip(got, want):
-        _same(g.numpy(), w.numpy(), "phase_walk")
-    args = random_fs_inputs(NOISE64_FS1, 16, 256, seed=1)
-    got = fs.filt_smooth(*map(_t, args), feat=NOISE64_FS1)
-    want = fs.filt_smooth_plain(*map(_t, args), feat=NOISE64_FS1)
-    for g, w in zip(got, want):
-        _same(g.numpy(), w.numpy(), "filt_smooth")
+    n, m, b, w = 16, 256, 8, 4
+    bank, prev, vecs, ph0, fin0 = random_warp_inputs(NOISE64_WARP1, n, m,
+                                                      b, w, seed=1)
+    args = (Fold(_t(bank), _t(prev), w), {k: _t(x) for k, x in vecs.items()},
+            _t(ph0), _t(fin0))
+    got = pw.phase_walk_warp(*args, feat=NOISE64_WARP1, n=n, b=b)
+    want = pw.phase_walk_warp_plain(*args, feat=NOISE64_WARP1, n=n, b=b)
+    for g, x in zip(got, want):
+        _same(g.numpy(), x.numpy(), "phase_walk_warp")
+    f, nz, cnt, cbase, bank, prev, vecs, states = random_noise_fs_inputs(
+        NOISE64_FSN1, n, m, b, w, seed=1)
+    args = (_t(f), _t(nz), _t(cnt), cbase, Fold(_t(bank), _t(prev), w),
+            {k: _t(x) for k, x in vecs.items()},
+            {k: _t(x) for k, x in states.items()})
+    out, ends = fs.filt_smooth_noise(*args, feat=NOISE64_FSN1, b=b)
+    want, want_ends = fs.filt_smooth_noise_plain(*args, feat=NOISE64_FSN1,
+                                                 b=b)
+    _same(out.numpy(), want.numpy(), "filt_smooth_noise")
+    for k, x in ends.items():
+        _same(x.numpy(), want_ends[k].numpy(), k)
     table, slot, idx = random_lookup_inputs(16, 64, 4096, seed=1)
     lk.table_lookup_pallas(_t(table).reshape(-1, 32, 128), _t(slot),
                            _t(idx))
-    after = (pw.phase_walk.launches, fs.filt_smooth.launches,
+    after = (pw.phase_walk_warp.launches, fs.filt_smooth_noise.launches,
              lk.lookup.launches, lk.table_lookup_pallas.launches)
     assert after == before, "a CPU tensor launched a kernel"
 
@@ -262,9 +274,7 @@ def _c_struct_fields(src, name):
 
 
 @pytest.mark.parametrize("kernel,struct,cls", [
-    ("phase_walk", "PhaseWalkArgs", pw.PhaseWalkArgs),
     ("lookup", "LookupArgs", lk.LookupArgs),
-    ("filt_smooth", "FiltSmoothArgs", fs.FiltSmoothArgs),
     ("phase_walk", "PhaseWarpArgs", pw.PhaseWarpArgs),
     ("filt_smooth", "FiltNoiseArgs", fs.FiltNoiseArgs),
 ])

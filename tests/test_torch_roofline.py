@@ -18,9 +18,8 @@ from skred_tpu_torch.engine.kernels import cyclic_inputs as ci
 from skred_tpu_torch.engine.kernels import filt_smooth as fs
 from skred_tpu_torch.engine.kernels import phase_walk as pw
 from skred_tpu_torch.engine.kernels.noise_inputs import (
-    NOISE64_FS1, NOISE64_FSN0, NOISE64_FSN1, NOISE64_PW1, NOISE64_WARP0,
-    NOISE64_WARP1, random_fs_inputs, random_lookup_inputs,
-    random_noise_fs_inputs, random_phase_inputs, random_warp_inputs)
+    NOISE64_FSN0, NOISE64_FSN1, NOISE64_WARP0, NOISE64_WARP1,
+    random_lookup_inputs, random_noise_fs_inputs, random_warp_inputs)
 from skred_tpu_torch.engine.kernels.tier import (_FOLD_VECS, Fold, _flags,
                                                  _folded, _state_keys)
 from skred_tpu_torch.engine.kernels.tier_inputs import (
@@ -93,40 +92,9 @@ def _former_tier(a, kw):
     return _former_bound(read, write, ops * n * m)
 
 
-def _former_phase_walk(a, kw):
-    inc, phase0, fin0, lo, hi, L, osn, one_shot, adv, act = a
-    n, m = kw["n"], phase0.shape[0]
-    fin = kw["finish"]
-    read = _nb(inc, phase0, lo, hi, L, adv) \
-        + (_nb(fin0, osn, one_shot, act) if fin else 0)
-    write = n * m * 4 * (2 if fin else 1) + m * 4 * (2 if fin else 1)
-    return _former_bound(read, write, 5 * n * m)
-
-
 def _former_lookup(a, kw):
     table, base, limit, idx = a
     return _former_bound(_nb(table, base, limit, idx), _nb(idx), 0)
-
-
-def _former_filt_smooth(a, kw):
-    fl = dict(zip(fs._FS_NAMES, kw["feat"]))
-    named = dict(zip(fs._ARG_NAMES, a))
-    x = named["x"]
-    n, m = x.shape
-    read = _nb(x, named["alive"], named["amp"],
-               named["env"] if fl["env"] else None,
-               named["amod"] if fl["am"] else None)
-    write = _nb(x)
-    for stage, keys in fs._VECS.items():
-        if fl[stage]:
-            read += _nb(*(named[k] for k, _ in keys))
-    for stage, keys in fs._STATES.items():
-        if fl[stage]:
-            read += _nb(*(named[k + "_0"] for k, _, _ in keys))
-            write += m * 4 * len(keys)
-    ops = (3 if fl["quant"] else 0) + (9 if fl["flt"] else 0) \
-        + (3 if fl["sm"] else 0) + 2 + 1
-    return _former_bound(read, write, ops * n * m)
 
 
 def _former_phase_walk_warp(a, kw):
@@ -212,17 +180,12 @@ def _tier_calls():
 
 def _cases():
     cases = [("tier", a, kw) for a, kw in _tier_calls()]
-    fm, fin = NOISE64_PW1
-    cases.append(("phase_walk", tuple(t(x) for x in random_phase_inputs(
-        fm, fin, N, M, seed=5)), dict(fm=fm, finish=fin, n=N)))
     for ss in (4096, 32768):
         table, slot, idx = (t(x) for x in random_lookup_inputs(N, M, ss,
                                                                seed=6))
         base = slot * ss
         cases.append(("lookup", (table, base, torch.full_like(base, ss),
                                  idx.T.contiguous()), {}))
-    cases.append(("filt_smooth", tuple(t(x) for x in random_fs_inputs(
-        NOISE64_FS1, N, M, seed=7)), dict(feat=NOISE64_FS1)))
     for feat in (NOISE64_WARP0, NOISE64_WARP1):
         bank, prev, vecs, ph0, fin0 = random_warp_inputs(feat, N, M, B, W,
                                                          seed=8)
@@ -246,9 +209,7 @@ def _cases():
 
 CASES = _cases()
 MOVED = {"tier": (rl.tier_bound, _former_tier),
-         "phase_walk": (rl.phase_walk_bound, _former_phase_walk),
          "lookup": (rl.lookup_bound, _former_lookup),
-         "filt_smooth": (rl.filt_smooth_bound, _former_filt_smooth),
          "phase_walk_warp": (rl.phase_walk_warp_bound,
                              _former_phase_walk_warp),
          "filt_smooth_noise": (rl.filt_smooth_noise_bound,

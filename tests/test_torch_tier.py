@@ -145,24 +145,22 @@ def test_tier_cpu_tensor_takes_plain_version():
 
 
 def test_tier_cpu_tensor_runs_plain_in_either_variant():
-    """A CPU tensor runs the plain version whatever variant is named."""
+    """A CPU tensor runs the plain version and counts no launch of the
+    kernel, keyed or not."""
     feat = STRESS64_TIER1
     args = random_tier_inputs(feat, 16, 256, seed=2)
     table, cbase, inc, dm, amod, vecs, states = args
-    counts = (tt.tier.launches, tt.tier_keyed.launches,
-              tt.tier_general.launches)
+    counts = (tt.tier.launches, tt.tier_keyed.launches)
     want, want_res = _plain(args, feat, 16)
-    for variant in ("keyed", "general"):
-        out, res = tt.tier(_torch(table), cbase, _torch(inc), _torch(dm),
-                           _torch(amod),
-                           {k: _torch(v) for k, v in vecs.items()},
-                           {k: _torch(v) for k, v in states.items()},
-                           feat=feat, n=16, variant=variant)
-        _same(out.numpy(), want.numpy(), "out")
-        for k in want_res:
-            _same(res[k].numpy(), want_res[k].numpy(), k)
-    assert (tt.tier.launches, tt.tier_keyed.launches,
-            tt.tier_general.launches) == counts
+    out, res = tt.tier(_torch(table), cbase, _torch(inc), _torch(dm),
+                       _torch(amod),
+                       {k: _torch(v) for k, v in vecs.items()},
+                       {k: _torch(v) for k, v in states.items()},
+                       feat=feat, n=16)
+    _same(out.numpy(), want.numpy(), "out")
+    for k in want_res:
+        _same(res[k].numpy(), want_res[k].numpy(), k)
+    assert (tt.tier.launches, tt.tier_keyed.launches) == counts
 
 
 # ---- the keyed variant's build keys ----
@@ -179,7 +177,7 @@ def test_tier_key_is_deterministic_and_per_feature_set():
 
     base = tt.tier_key(ALL_FLAGS, True, False, ())
     assert tt.tier_key(tuple(ALL_FLAGS), True, False, ()) == base
-    assert "TIER_KEYED=1" in base
+    assert all(d.startswith("TIER_") for d in base)
     seen = {base}
     for i in range(12):
         feat = list(ALL_FLAGS)
@@ -207,7 +205,8 @@ def test_tier_key_is_deterministic_and_per_feature_set():
     assert k0 != k1
     paths = {build._target("tier", k) for k in seen | {k0, k1}}
     assert len(paths) == len(seen | {k0, k1})
-    assert build._target("tier") not in paths
+    # no build without a key: build_all() with no items leaves it out
+    assert "tier" in build.KEY_ONLY
     with pytest.raises(ValueError, match="unknown folded stream"):
         tt.tier_key(ALL_FLAGS, True, False, ("pm",))
 
@@ -324,9 +323,7 @@ def test_cpu_render_builds_and_launches_nothing(monkeypatch):
 
     monkeypatch.setattr(build, "build_all", refuse)
     monkeypatch.setattr(build, "load", refuse)
-    counts = (tt.tier.launches, tt.tier_keyed.launches,
-              tt.tier_general.launches)
+    counts = (tt.tier.launches, tt.tier_keyed.launches)
     out = tf.render_fused(_port_batch(THREE_STREAMS), device="cpu")
     assert np.isfinite(out).all()
-    assert (tt.tier.launches, tt.tier_keyed.launches,
-            tt.tier_general.launches) == counts
+    assert (tt.tier.launches, tt.tier_keyed.launches) == counts

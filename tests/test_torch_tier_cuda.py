@@ -1,8 +1,7 @@
 """The CUDA tier kernel against its plain version, on the card.
 
-Both variants of csrc/tier.cu: the keyed one (``tier``'s default, one
-library per ``tier_key``) and the general one (``variant="general"``).
-Every key this file launches is built once, in one parallel build, by a
+csrc/tier.cu is built once per ``tier_key``.  Every key this file
+launches is built once, in one parallel build, by a
 session fixture.  Needs an NVIDIA card and nvcc; skips elsewhere.
 Imports nothing of JAX, so it runs on a machine that has only the port's
 dependencies:
@@ -59,7 +58,7 @@ def built():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     from skred_tpu_torch.engine.kernels import build
 
-    build.build_all(["tier"] + [("tier", key) for key in _file_keys()])
+    build.build_all([("tier", key) for key in _file_keys()])
     return torch.device("cuda")
 
 
@@ -76,21 +75,19 @@ def _same(a, b, what):
 
 
 def _counts():
-    return (tt.tier.launches, tt.tier_keyed.launches,
-            tt.tier_general.launches)
+    return (tt.tier.launches, tt.tier_keyed.launches)
 
 
-def _launched(before, variant):
-    """The counts after one launch of ``variant`` from ``before``."""
-    t, k, g = before
-    return (t + 1, k + (variant == "keyed"), g + (variant == "general"))
+def _launched(before):
+    """The counts after one launch from ``before``."""
+    t, k = before
+    return (t + 1, k + 1)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["keyed", "general"])
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_tier_cuda_matches_plain_on_card(case, exact, variant, cuda_device):
+def test_tier_cuda_matches_plain_on_card(case, exact, cuda_device):
     feat = CASES[case]
     n, m = 512, 8192
     table, cbase, inc, dm, amod, vecs, states = random_tier_inputs(
@@ -100,9 +97,9 @@ def test_tier_cuda_matches_plain_on_card(case, exact, variant, cuda_device):
             {k: t(v) for k, v in vecs.items()},
             {k: t(v) for k, v in states.items()})
     before = _counts()
-    out, res = tt.tier(*args, feat=feat, exact=exact, n=n, variant=variant)
+    out, res = tt.tier(*args, feat=feat, exact=exact, n=n)
     torch.cuda.synchronize()
-    assert _counts() == _launched(before, variant)
+    assert _counts() == _launched(before)
     want, want_res = tt.tier_plain(*args, feat=feat, exact=exact, n=n)
     _same(out, want, "out")
     assert sorted(res) == sorted(want_res)
@@ -110,8 +107,8 @@ def test_tier_cuda_matches_plain_on_card(case, exact, variant, cuda_device):
         _same(res[k], want_res[k], k)
 
 
-def _check_mix_fold(feat, streams, mix, exact, kernel_variant, dev, n, b, v,
-                    w, seed, inputs=None):
+def _check_mix_fold(feat, streams, mix, exact, dev, n, b, v, w, seed,
+                    inputs=None):
     """One tier call with the given mix and fold, the kernel against the
     plain version: out, the block buffer, every result bit for bit."""
     m = b * v
@@ -148,9 +145,9 @@ def _check_mix_fold(feat, streams, mix, exact, kernel_variant, dev, n, b, v,
 
     a = (t(table), cbase, given["fm"], given["cz"], given["am"], tv, ts)
     before = _counts()
-    out, res = tt.tier(*a, **kw(bufs[0]), variant=kernel_variant)
+    out, res = tt.tier(*a, **kw(bufs[0]))
     torch.cuda.synchronize()
-    assert _counts() == _launched(before, kernel_variant)
+    assert _counts() == _launched(before)
     want, want_res = tt.tier_plain(*a, **kw(bufs[1]))
     _same(out, want, "out")
     _same(bufs[0], bufs[1], "the block buffer")
@@ -160,12 +157,10 @@ def _check_mix_fold(feat, streams, mix, exact, kernel_variant, dev, n, b, v,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel_variant", ["keyed", "general"])
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("case", MIX_FOLD_CASES)
 def test_tier_cuda_mix_fold_matches_plain_on_card(case, variant, exact,
-                                                  kernel_variant,
                                                   cuda_device):
     """The in-kernel mix and the modulator-bank fold, each stream alone
     and all together, with per-lane sources (some outside the bank), the
@@ -173,8 +168,8 @@ def test_tier_cuda_mix_fold_matches_plain_on_card(case, variant, exact,
     columns of, and (mix with fold) earlier accumulators to add onto:
     out, out_last, acc_l, acc_r and every end state bit for bit."""
     streams, mix = VARIANTS[variant]
-    _check_mix_fold(CASES[case], streams, mix, exact, kernel_variant,
-                    cuda_device, 512, 1024, 8, 4, seed=7)
+    _check_mix_fold(CASES[case], streams, mix, exact, cuda_device, 512,
+                    1024, 8, 4, seed=7)
 
 
 @pytest.mark.cuda
@@ -182,21 +177,21 @@ def test_tier_cuda_mix_fold_matches_plain_on_card(case, variant, exact,
 @pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("case", ["stress64_tier1", "all"])
 def test_tier_keyed_rows_match_plain_on_card(case, rows, exact, cuda_device):
-    """The keyed variant with mix and every fold at 1, 8, 1000 and 1024
+    """The kernel with mix and every fold at 1, 8, 1000 and 1024
     batch rows over 7 voices: lane counts that are not a multiple of the
     block size (7, 56, 7000), and at 1000 rows warps that straddle two
     voices, so one warp holds different sources, CZ modes and gates."""
-    _check_mix_fold(CASES[case], ALL_STREAMS, True, exact, "keyed",
-                    cuda_device, 512, rows, 7, 3, seed=rows)
+    _check_mix_fold(CASES[case], ALL_STREAMS, True, exact, cuda_device,
+                    512, rows, 7, 3, seed=rows)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", SHORT_BLOCKS)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tier_keyed_short_blocks_match_plain_on_card(case, n, cuda_device):
-    """Blocks that end inside a chunk of the keyed variant's walk."""
-    _check_mix_fold(CASES[case], ALL_STREAMS, True, True, "keyed",
-                    cuda_device, n, 1000, 7, 3, seed=n)
+    """Blocks that end inside a chunk of the kernel's walk."""
+    _check_mix_fold(CASES[case], ALL_STREAMS, True, True, cuda_device, n,
+                    1000, 7, 3, seed=n)
 
 
 @pytest.mark.cuda
@@ -210,8 +205,8 @@ def test_tier_keyed_per_lane_cz_modes_match_plain_on_card(cuda_device):
     per_warp = [len(set(modes[i:i + 32])) for i in range(0, modes.size, 32)]
     assert min(per_warp) >= 4, per_warp
     for exact in (True, False):
-        _check_mix_fold(feat, ALL_STREAMS, True, exact, "keyed",
-                        cuda_device, n, b, v, 3, seed=31, inputs=inputs)
+        _check_mix_fold(feat, ALL_STREAMS, True, exact, cuda_device, n, b,
+                        v, 3, seed=31, inputs=inputs)
 
 
 @pytest.mark.cuda
@@ -232,8 +227,8 @@ def test_tier_keyed_out_of_range_matches_plain_on_card(case, exact,
     ph = inputs[6]["phase"]
     assert np.isnan(ph).any() and np.isinf(ph).any()
     for streams, mix in (((), False), (ALL_STREAMS, True)):
-        _check_mix_fold(feat, streams, mix, exact, "keyed", cuda_device, n,
-                        b, v, 3, seed=41, inputs=inputs)
+        _check_mix_fold(feat, streams, mix, exact, cuda_device, n, b, v, 3,
+                        seed=41, inputs=inputs)
 
 
 @pytest.mark.cuda
@@ -253,9 +248,9 @@ def test_tier_keyed_builds_spill_free(cuda_device):
 
 @pytest.mark.cuda
 def test_tier_takes_the_keyed_library_and_refuses_another_key(cuda_device):
-    """``tier`` launches the keyed library of its arguments' key;
-    ``variant="general"`` the general one; a library refuses the
-    arguments of another key (-1 -> RuntimeError)."""
+    """``tier`` launches the keyed library of its arguments' key; a
+    library refuses the arguments of another key (-1 ->
+    RuntimeError)."""
     from skred_tpu_torch.engine.kernels import cuda_call
 
     feat = STRESS64_TIER0
@@ -265,12 +260,9 @@ def test_tier_takes_the_keyed_library_and_refuses_another_key(cuda_device):
     a = (t(table), cbase, t(inc), t(dm), t(amod),
          {k: t(v) for k, v in vecs.items()},
          {k: t(v) for k, v in states.items()})
-    for variant in (None, "keyed", "general"):
-        before = _counts()
-        tt.tier(*a, feat=feat, n=16, variant=variant)
-        assert _counts() == _launched(before, variant or "keyed")
-    with pytest.raises(ValueError, match="no variant"):
-        tt.tier(*a, feat=feat, n=16, variant="fixed")
+    before = _counts()
+    tt.tier(*a, feat=feat, n=16)
+    assert _counts() == _launched(before)
     args, _, _ = tt._pack_args(*a, feat=feat, exact=True, n=16, b=None,
                                mixw=None, acc=None, fold=None, out=None)
     for other in (tt.tier_key(feat, False), tt.tier_key(STRESS64_TIER1),
@@ -283,11 +275,15 @@ def test_tier_takes_the_keyed_library_and_refuses_another_key(cuda_device):
 
 @pytest.mark.cuda
 def test_tier_cuda_build_log(cuda_device):
-    """ptxas' registers and spills for both kernels of tier.cu."""
+    """ptxas' registers and spills for both kernels of tier.cu, under
+    stress64's two tier keys (mix on, tier 1 folded)."""
     from skred_tpu_torch.engine.kernels import build
 
-    lines = [ln.strip() for ln in build.report("tier").splitlines()
-             if "registers" in ln or "spill" in ln]
+    lines = [ln.strip() for key in (
+        tt.tier_key(STRESS64_TIER0, True, True),
+        tt.tier_key(STRESS64_TIER1, True, True, ("fm",)))
+        for ln in build.report("tier", key).splitlines()
+        if "registers" in ln or "spill" in ln]
     print("\n".join(lines))
     assert not any("bytes spill stores" in ln
                    and not ln.lstrip().startswith("0 bytes")
