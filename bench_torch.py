@@ -97,6 +97,7 @@ def launch_counters() -> dict:
     from skred_tpu_torch.engine.kernels import lookup as lk
     from skred_tpu_torch.engine.kernels import phase_walk as pw
     from skred_tpu_torch.engine.kernels import tier as tk
+    from skred_tpu_torch.engine.kernels import volume as vk
 
     return dict(tier=tk.tier, tier_keyed=tk.tier_keyed,
                 phase_walk_warp=pw.phase_walk_warp,
@@ -105,7 +106,8 @@ def launch_counters() -> dict:
                 filt_smooth_noise=fs.filt_smooth_noise,
                 cyclic=ck.cyclic_block,
                 cyclic_fixed=ck.cyclic_fixed,
-                cyclic_general=ck.cyclic_general, compat=cm.compat_block)
+                cyclic_general=ck.cyclic_general, compat=cm.compat_block,
+                volume=vk.volume)
 
 
 def main(seconds: float = 10.0, replicas: int = 4, fast: bool = False,

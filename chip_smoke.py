@@ -54,13 +54,17 @@ it:
                   on the all-features script with operands outside the
                   keyed variant's fast range (64 frames), the general one
                   also on a 64-voice ring above the keyed variant's cap
-                  (16 frames)
+                  (16 frames); the volume kernel at the main path's shape
+                  (1024 rows x 512 samples) and at its largest n (4096
+                  samples x 33 rows), bit for bit, with its time by CUDA
+                  events (in a CUDA graph, and launched from Python)
+                  beside its bytes bound and the plain version's time
   4. main         stress64: bucket_key -> fill_bucket -> stack_timelines
                   (1024 rows) -> pack_stacked -> pad_segments_pow2 ->
                   render_fused_stream_device(chunk_blocks=172): one
                   warm-up, one timed pass with the launch counts read
-                  around it (every tier launch the keyed library's), a
-                  profiled chunk; then each kernel alone, its plain
+                  around it (every tier launch the keyed library's, one
+                  volume launch a block), a profiled chunk; then each kernel alone, its plain
                   version and its bound on the path's own first-block
                   inputs, and the tier kernel in two turns at tier 1 and
                   tier 0 with clocks.sm, the mix kernel alone, the
@@ -70,8 +74,8 @@ it:
                   rendered with mix and fold on, off, off, on, each
                   configuration profiled and its tier calls timed alone
   5. short        stress64's first 4 blocks at 8 rows through the kernel
-                  path and a plain-version path on the card (bit for
-                  bit), against the port's CPU render (-100 dB) and
+                  path and a plain-version path on the card (the tier
+                  and volume kernels' plain versions; bit for bit), against the port's CPU render (-100 dB) and
                   against the card's render with mix and fold off
                   (-120 dB: the voice sum's order); then the same for a
                   repeat-passes script (two segments whose union graph
@@ -650,6 +654,53 @@ def kernel_phase(dev, specs, errs):
     return lib
 
 
+def volume_turn(dev, card, peaks, errs):
+    """The volume kernel against its plain version on random mixes,
+    volumes (every seventh 0) and start gains: bit for bit at the main
+    path's shape (1024 rows x 512 samples) and at its largest n (4096
+    samples x 33 rows); at the main shape its device time by CUDA events
+    (20 launches in a CUDA graph, and the wrapper launched from Python),
+    the plain version's by host clock, and its bytes bound.  Returns the
+    timings of its kernels record."""
+    from skred_tpu_torch.engine.kernels import cuda_call
+    from skred_tpu_torch.engine.kernels import volume as vk
+
+    rng = np.random.default_rng(25)
+    res = None
+    for n, b in ((KERNEL_N, ROWS), (vk.MAX_N, 33)):
+        vf = rng.uniform(0.0, 1.5, b).astype(np.float32)
+        vf[::7] = 0.0
+        a = tuple(to_card([rng.normal(0.0, 0.3, (n, b)).astype(np.float32),
+                           rng.normal(0.0, 0.3, (n, b)).astype(np.float32),
+                           vf, rng.uniform(0.0, 1.5, b).astype(np.float32)],
+                          dev))
+        got = vk.volume(*a, n=n)
+        torch.cuda.synchronize()
+        plain_ms, want = host_ms(lambda: vk.volume_plain(*a, n=n))
+        same = all(same_bits(g, w) for g, w in zip(got, want))
+        errs["volume"] = max([errs.get("volume", 0.0)]
+                             + [max_abs(g, w) for g, w in zip(got, want)])
+        log(f"kernel volume ({b} rows x {n} samples): max|diff| "
+            f"{errs['volume']} vs plain, "
+            f"{'bit-equal' if same else 'outputs DIFFER'}")
+        if not same:
+            fail(f"volume disagrees with its plain version at {b} rows x "
+                 f"{n} samples")
+        if res is None:
+            args = vk._pack(*a, n)[0]
+            ms = graph_ms(lambda: cuda_call.launch("volume", args, dev), 20)
+            launched = cuda_ms(lambda: vk.volume(*a, n=n), 200)
+            bound_ms, bound_by = roofline.volume_bound(a, dict(n=n), peaks)
+            res = dict(ms=ms, launched_ms=launched, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            log(f"kernel volume ({b} rows x {n} samples): {ms:.4f} ms/call "
+                f"(CUDA events, 20 calls in a CUDA graph), {launched:.4f} "
+                f"launched from Python (200 calls), bound {bound_ms:.4f} ms "
+                f"({bound_by}: {100 * bound_ms / ms:.1f}% of it), plain "
+                f"version {plain_ms:.2f} ms (host clock), on {card}")
+    return res
+
+
 EVERY_STAGE = (True,) * 12 + ((1, 2, 3, 4, 5, 6, 7), False)
 
 
@@ -989,15 +1040,16 @@ def noise_rest(caught, card):
     """The device time of the rest of noise64's first block around the
     noise pass, each part alone (CUDA events, 5 calls each): the whole
     block, the torch mix of the noise tiers, the carry's concatenation
-    and the volume scan.  Returns {part: ms}."""
+    and the volume kernel on that mix.  Returns {part: ms}."""
     from skred_tpu_torch.engine import fused
+    from skred_tpu_torch.engine.kernels.volume import volume
 
     reps = 5
     r, carry, k0 = caught["_block_step", 0][0]
     ma, mkw = caught["_mix_parts", 0]
-    n, nb = r.block, r.B
+    n = r.block
     vf = r.p_const["volume_final"]
-    a = np.float32(1.0) - np.float32(0.002)
+    mix_l, mix_r, _ = fused._mix_parts(*ma, **mkw)
     bounds = np.cumsum((0,) + tuple(r.tiers))
     cut = [(int(bounds[i]), int(bounds[i + 1])) for i in range(len(r.tiers))]
     rest = {
@@ -1007,10 +1059,8 @@ def noise_rest(caught, card):
         "carry concatenation": cuda_ms(lambda: {
             k: torch.cat([carry[k][:, ts:te] for ts, te in cut], dim=1)
             for k in fused._CK}, reps),
-        "volume scan": cuda_ms(lambda: fused._affine_scan(
-            torch.full_like(vf, float(a))[None],
-            (fused.f32(0.002) * vf)[None].expand(n, nb),
-            carry["vol_gain"]), reps),
+        "volume kernel": cuda_ms(lambda: volume(
+            mix_l, mix_r, vf, carry["vol_gain"], n=n), reps),
     }
     log("noise block rest (noise64 first block): " + ", ".join(
         f"{k} {t:.4f}" for k, t in rest.items())
@@ -1263,7 +1313,9 @@ def main_path(label, path, dev, card, specs, on_path, counters, errs,
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
         f"{card}")
     for name, count in launches.items():
-        want = 2 * whole if name in on_path or name in also else 0
+        # the volume kernel: one launch a block
+        want = whole if name == "volume" else \
+            2 * whole if name in on_path or name in also else 0
         if count != want:
             fail(f"{name}.launches {count} != {want} on {label} "
                  f"({whole} blocks x 2 tiers)")
@@ -1355,9 +1407,7 @@ def profile_line(label, run, names):
             f"{agg['device_ops_per_block']:.1f} per block; "
             + "; ".join(parts) + "; by category: " + ", ".join(
                 f"{c} {ms:.1f} ms" for c, ms in agg["categories_ms"].items())
-            + f" (the volume scan's kernels {agg['volume_scan_ms']:.1f} ms of "
-            f"them, its span {agg['volume_scan_span_ms']:.1f} ms); "
-            "top: " + "; ".join(f"{k[:40]} {t['ms']:.1f} ms/{t['calls']}"
+            + "; top: " + "; ".join(f"{k[:40]} {t['ms']:.1f} ms/{t['calls']}"
                                 for k, t in top)
             + "; torch ops per block (nested calls counted too): "
             + ", ".join(f"{k} {c:.1f}" for k, c in list(
@@ -2638,10 +2688,12 @@ def bench_phase(card, counters):
             fail(f"bench: not compiled by the native compiler: {b}")
         name, per_pass = b["scripts"][0], 2 * b["blocks"]
         if name == STRESS64.name:
-            want = {"tier": 2 * per_pass, "tier_keyed": 2 * per_pass}
+            want = {"tier": 2 * per_pass, "tier_keyed": 2 * per_pass,
+                    "volume": per_pass}
         elif name == NOISE64.name:
             want = {k: 2 * per_pass for k in ("phase_walk_warp", "lookup",
                                               "filt_smooth_noise")}
+            want["volume"] = per_pass
         else:
             want = {"cyclic": per_pass, "cyclic_fixed": per_pass}
         if b["launches"] != want:
@@ -2671,6 +2723,7 @@ def main():
     from skred_tpu_torch.engine.kernels import lookup as lk
     from skred_tpu_torch.engine.kernels import phase_walk as pw
     from skred_tpu_torch.engine.kernels import tier as tk
+    from skred_tpu_torch.engine.kernels import volume as vk
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2760,6 +2813,7 @@ def main():
     phase("kernel")
     errs = {}
     lib = kernel_phase(dev, specs, errs)
+    v_time = volume_turn(dev, card, peaks, errs)
 
     # ---- 4./5. stress64: the tier kernel's path ----
     phase("main, config, short")
@@ -2773,7 +2827,9 @@ def main():
             f"{t['ms']:.4f} ms/call at M={m} (bound {t['bound_ms']:.4f} ms)"
             for (_, m), t in sorted(tm.items())) + f" on {card}")
     short_path("short", short_batch(s_lines), dev, fused,
-               fused.render_fused, {"tier": tk.tier_plain}, unfolded=True)
+               fused.render_fused, {"tier": tk.tier_plain,
+                                    "volume": vk.volume_plain},
+               unfolded=True)
     st4 = short_batch(UNION_CYCLE)
     if st4.tiers is not None or not st4.fused_passes >= 2 \
             or not 0 < st4.n_src < st4.params["amp"].shape[-1]:
@@ -2784,7 +2840,8 @@ def main():
     short_path(f"repeat-passes short ({st4.fused_passes} passes, source "
                f"prefix {st4.n_src} of {st4.params['amp'].shape[-1]} "
                f"voices)", st4, dev, fused, fused.render_fused,
-               {"tier": tk.tier_plain}, unfolded=True)
+               {"tier": tk.tier_plain, "volume": vk.volume_plain},
+               unfolded=True)
     # a block launches the estimate passes and the final pass; the kernel
     # path and the two renders with mix and fold off launch, the
     # plain-version path and the CPU render do not
@@ -2807,7 +2864,8 @@ def main():
                fused.render_fused,
                {"phase_walk_warp": pw.phase_walk_warp_plain,
                 "lookup": lk.lookup_plain,
-                "filt_smooth_noise": fs.filt_smooth_noise_plain})
+                "filt_smooth_noise": fs.filt_smooth_noise_plain,
+                "volume": vk.volume_plain})
     tl_time = table_lookup_timing(lk, lib, card, peaks)
     lookup_turns(n_calls, lib, dev, card, errs, peaks)
 
@@ -2926,6 +2984,13 @@ def main():
         # not a TPU kernel: the compat engine's two lax.scans; stress64 10 s
         # at 1024 rows (ms a block), with its 1-row figures beside
         compat_rec,
+        # not a TPU kernel: the fused block step's associative scan;
+        # launches from stress64's timed pass, times at 1024 rows x 512
+        dict(name="volume", route="cuda",
+             source="skred_tpu_torch/engine/kernels/csrc/volume.cu",
+             replaces="skred_tpu/engine/fused.py:167",
+             launches=s_launch["volume"],
+             max_abs_err=errs.get("volume", 0.0), **v_time),
     ]
     # the bench's launches: each bucket's two timed passes, summed; the
     # JSON's name of each record -> the wrapper whose count it reads

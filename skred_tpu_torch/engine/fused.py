@@ -10,7 +10,8 @@ keyed phase walk (modulator reads, FM increment, walk, CZ warp and index
 clip), the table lookup, and the keyed filter/smoother (the noise stream
 selected in for the noise voices, dead mask, envelope, am stream, serial
 stages).  After the tiers the stereo mix sums the voices and the
-master-volume smoother runs as an associative scan.
+master-volume kernel (``engine/kernels/volume.py``) runs the volume
+smoother over the mix, one launch a block.
 
 Every pass writes its samples into its columns of one block buffer
 ``[N, Vp*B]``, which is the modulator bank of the later tiers.  With
@@ -19,8 +20,8 @@ cz / am modulator streams from that bank inside the kernel (a noise
 tier's kernels always do); with ``mix``
 (the default) the kernel also sums its static-pan voices into the
 block's stereo accumulators, so torch is left with the pan-modulated
-lanes, the noise tiers' voices and the volume smoother.  ``mix=False,
-fold=False`` reads the streams (``_read_vm``) and mixes in torch.
+lanes and the noise tiers' voices.  ``mix=False, fold=False`` reads the
+streams (``_read_vm``) and mixes in torch.
 
 A batch whose segments' graphs are acyclic while their union is not has
 no tiers (``st.tiers is None``, the repeat-passes layout): every block
@@ -66,7 +67,8 @@ from skred_tpu_torch.engine.kernels.phase_walk import (phase_walk_key,
                                                        phase_walk_warp)
 from skred_tpu_torch.engine.kernels.tier import (Fold, bank_read,
                                                  tier, tier_key)
-from skred_tpu_torch.engine.numerics import div32, f32
+from skred_tpu_torch.engine.kernels.volume import volume
+from skred_tpu_torch.engine.numerics import div32
 from skred_tpu_torch.host.timeline import noise_stream
 
 F32 = torch.float32
@@ -194,43 +196,6 @@ def to_vm_vec(a: torch.Tensor) -> torch.Tensor:
 def from_vm_vec(a: torch.Tensor, b: int, v: int) -> torch.Tensor:
     """[V*B] voice-major → [B, V]."""
     return a.reshape(v, b).T
-
-
-# ---- scans ----
-
-def _associative_scan(combine, elems):
-    """Inclusive scan along dim 0 with jax.lax.associative_scan's combine
-    tree (pairwise reduce, recurse on the odd elements, fill the even
-    ones), so every element rounds as it does in the JAX package."""
-    n = elems[0].shape[0]
-    if n < 2:
-        return elems
-    reduced = combine([e[0:n - 1:2] for e in elems],
-                      [e[1::2] for e in elems])
-    odd = _associative_scan(combine, reduced)
-    if n % 2 == 0:
-        even = combine([e[:-1] for e in odd], [e[2::2] for e in elems])
-    else:
-        even = combine(odd, [e[2::2] for e in elems])
-    out = []
-    for e, ev, od in zip(elems, even, odd):
-        r = torch.empty_like(e)
-        r[0] = e[0]
-        r[2::2] = ev
-        r[1::2] = od
-        out.append(r)
-    return out
-
-
-def _affine_scan(a, b, x0):
-    """x_t = a_t * x_{t-1} + b_t along dim 0 with initial value x0."""
-    a = a.expand_as(b)
-    b = torch.cat([(b[0] + a[0] * x0)[None], b[1:]], dim=0)
-
-    def combine(l, r):
-        return [l[0] * r[0], l[1] * r[0] + r[1]]
-
-    return _associative_scan(combine, [a, b])[1]
 
 
 # ---- per-block pieces ----
@@ -962,13 +927,9 @@ def _block_step(r: _Render, carry, k_glob, caps=None):
                 new_carry["pan_l"][:, lanes] = new_pl
                 new_carry["pan_r"][:, lanes] = new_pr
         with spans.span("fused.volume"):
-            vf = p["volume_final"]                  # [B]
-            a = f32(np.float32(1.0) - np.float32(0.002))
-            vg = _affine_scan(torch.full_like(vf, a)[None],
-                              (f32(0.002) * vf)[None].expand(n, B),
-                              carry["vol_gain"])    # [N, B]
-            new_carry["vol_gain"] = vg[-1]
-            return new_carry, torch.stack([mix_l * vg, mix_r * vg], dim=-1)
+            out, new_carry["vol_gain"] = volume(
+                mix_l, mix_r, p["volume_final"], carry["vol_gain"], n=n)
+            return new_carry, out
 
 
 def from_stacked(st, device="cuda") -> dict:
@@ -1075,7 +1036,7 @@ def _prepare(st, exact, device, capture=False, noise_blocks=None,
             # every tier and noise key at once, in parallel, before the first
             # block (a failed build raises)
             build.build_all([("tier", key) for key in _tier_keys(r)]
-                            + _noise_keys(r))
+                            + _noise_keys(r) + ["volume"])
         return st, r, d["carry"]
 
 

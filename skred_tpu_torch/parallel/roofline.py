@@ -10,8 +10,8 @@ Three parts, one source for the counts:
     the card rather than guess its rates.
   * per-kernel counts and bounds (``tier_counts`` / ``tier_bound``,
     ``phase_walk_warp_*``, ``lookup_*``, ``filt_smooth_noise_*``,
-    ``cyclic_*`` and ``compat_*``), each taking one call's arguments as
-    the renderer passes them: the bytes the call must move
+    ``cyclic_*``, ``volume_*`` and ``compat_*``), each taking one call's
+    arguments as the renderer passes them: the bytes the call must move
     (each input read once, each output written once; where the work
     depends on the data, what these inputs need) against its f32
     operations.  chip_smoke.py holds each kernel's time against them.
@@ -263,6 +263,16 @@ def cyclic_counts(a, kw):
     return read, write, n * rows * cyclic_frame_ops(fl, k)
 
 
+def volume_counts(a, kw):
+    """Bytes: the stereo mix, the volumes and the start gains; the
+    stereo output and the end gains.  Operations: the smoother's
+    multiply-add and the two gains a row-sample."""
+    mix_l, mix_r, vf, vol_gain = a
+    n, b = kw["n"], vf.shape[0]
+    return nbytes(mix_l, mix_r, vf, vol_gain), 2 * 4 * n * b + 4 * b, \
+        4 * n * b
+
+
 def _bounded(counts):
     def bnd(a, kw, peaks):
         return bound(*counts(a, kw), peaks)
@@ -275,6 +285,7 @@ lookup_bound = _bounded(lookup_counts)
 phase_walk_warp_bound = _bounded(phase_walk_warp_counts)
 filt_smooth_noise_bound = _bounded(filt_smooth_noise_counts)
 cyclic_bound = _bounded(cyclic_counts)
+volume_bound = _bounded(volume_counts)
 
 
 # ---- the bucket model ----

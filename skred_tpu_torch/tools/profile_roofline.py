@@ -9,12 +9,11 @@ rendered outside the trace, then the next chunk (the first again if
 there is one only) renders under ``torch.profiler`` and a synchronise.
 The device time is summed by category (``aggregate``): the tier kernel
 and its mix, the keyed walk, the lookup, the keyed filter, the cyclic
-kernel, the volume scan (``fused._affine_scan``, marked with a
-``record_function`` range for the trace only), copies and slices, and
-the rest.  Each bucket's line gives the device's busy share of the
-wall, device operations and torch calls per block, and the model's
-bytes and operations per block (``parallel/roofline.py``) against the
-rate they reach over the wall and over the busy time.
+kernel, the volume kernel, copies and slices, and the rest.  Each
+bucket's line gives the device's busy share of the wall, device
+operations and torch calls per block, and the model's bytes and
+operations per block (``parallel/roofline.py``) against the rate they
+reach over the wall and over the busy time.
 
 Writes ``build/profile_roofline_torch.json`` and prints one JSON line.
 Runs on the card only.  The JAX package's counterpart is
@@ -34,7 +33,6 @@ import torch
 CHUNK = 172
 OUT = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "profile_roofline_torch.json"
-SCAN_RANGE = "volume_scan"
 
 # device-kernel name -> category, first match wins
 CATEGORIES = (
@@ -44,6 +42,7 @@ CATEGORIES = (
     ("lookup", re.compile(r"lookup_(time|lane)_major")),
     ("keyed filter", re.compile(r"filt_smooth_keyed_kernel")),
     ("cyclic kernel", re.compile(r"cyclic_(fixed|general)_kernel")),
+    ("volume kernel", re.compile(r"volume_kernel")),
     ("copies and slices", re.compile(
         r"[Mm]emcpy|[Mm]emset|copy|Copy|[Cc]at|index|gather|scatter|slice",
     )),
@@ -60,25 +59,16 @@ def category(name: str) -> str:
 def aggregate(events, blocks: int):
     """Device time by kernel and by category from ``key_averages()``
     rows (objects with ``key``, ``count``, ``device_type`` and
-    ``device_time_total`` or ``cuda_time_total`` in microseconds).  The
-    volume scan is the device time of the kernels launched under the
-    ``volume_scan`` range (its host row); its kernels also keep the
-    category their names give them.  The range's row on the device
-    timeline, where the profiler keeps one, is its span, idle gaps
-    included (``volume_scan_span_ms``).  Returns None when the trace
-    holds no device time."""
-    kernels, torch_calls, scan_us, span_us = {}, {}, 0.0, 0.0
+    ``device_time_total`` or ``cuda_time_total`` in microseconds).
+    Returns None when the trace holds no device time."""
+    kernels, torch_calls = {}, {}
     for e in events:
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0)
         on_device = e.device_type is not None \
             and "cuda" in str(e.device_type).lower()
-        if e.key == SCAN_RANGE and on_device:
-            span_us += us or 0.0
-        elif e.key == SCAN_RANGE:
-            scan_us += us or 0.0
-        elif us and on_device:
+        if us and on_device:
             kernels[e.key] = (us, e.count)
         elif e.key.startswith("aten::"):
             torch_calls[e.key[6:]] = e.count
@@ -94,8 +84,6 @@ def aggregate(events, blocks: int):
             "device_ops": n_ops, "device_ops_per_block": n_ops / blocks,
             "categories_ms": dict(sorted(cats.items(),
                                          key=lambda kv: -kv[1])),
-            "volume_scan_ms": scan_us / 1e3,
-            "volume_scan_span_ms": span_us / 1e3,
             "kernels": {k: {"ms": us / 1e3, "calls": c} for k, (us, c) in
                         sorted(kernels.items(), key=lambda kv: -kv[1][0])},
             "torch_calls_per_block": {
@@ -105,28 +93,15 @@ def aggregate(events, blocks: int):
 
 def trace(run):
     """(key_averages rows, wall seconds) of one call of ``run`` under
-    torch.profiler, the volume scan marked with its range."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
 
-    from skred_tpu_torch.engine import fused
-
-    real = fused._affine_scan
-
-    def marked(*a, **kw):
-        with record_function(SCAN_RANGE):
-            return real(*a, **kw)
-
-    fused._affine_scan = marked
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        fused._affine_scan = real
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     return prof.key_averages(), wall
 
 
@@ -196,5 +171,5 @@ if __name__ == "__main__":
     print(json.dumps({"card": rec["card"], "buckets": [
         {k: b.get(k) for k in ("scripts", "wall_s", "device_busy_pct",
                                "device_ops_per_block", "categories_ms",
-                               "volume_scan_ms", "model")}
+                               "model")}
         for b in rec["buckets"]]}), flush=True)

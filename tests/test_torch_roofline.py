@@ -299,8 +299,8 @@ def test_an_unknown_card_gets_no_percentages():
 
 def test_profile_aggregation_by_category():
     """The profiler tool's sums over ``key_averages()``-like rows: kernels
-    by category, the volume scan's range apart from the busy time, torch
-    calls per block; no device row gives None."""
+    by category (the volume kernel its own), torch calls per block; no
+    device row gives None."""
     from types import SimpleNamespace as Row
 
     from skred_tpu_torch.tools import profile_roofline as prof
@@ -316,21 +316,19 @@ def test_profile_aggregation_by_category():
             Row(key="void at::native::vectorized_elementwise_kernel<4>",
                 count=10, device_type="DeviceType.CUDA",
                 device_time_total=20.0),
-            Row(key=prof.SCAN_RANGE, count=2, device_type="DeviceType.CUDA",
-                device_time_total=15.0),
-            Row(key=prof.SCAN_RANGE, count=2, device_type="DeviceType.CPU",
+            Row(key="volume_kernel(VolumeArgs)", count=2,
+                device_type="DeviceType.CUDA", device_time_total=15.0),
+            Row(key="fused.volume", count=2, device_type="DeviceType.CPU",
                 device_time_total=12.0),
             Row(key="aten::slice", count=40, device_type="DeviceType.CPU",
                 device_time_total=0.0)]
     agg = prof.aggregate(rows, blocks=2)
-    assert agg["device_busy_s"] == pytest.approx(600e-6)
-    assert agg["device_ops"] == 23 and agg["device_ops_per_block"] == 11.5
+    assert agg["device_busy_s"] == pytest.approx(615e-6)
+    assert agg["device_ops"] == 25 and agg["device_ops_per_block"] == 12.5
     assert agg["categories_ms"] == {"tier kernel": 0.4, "tier mix": 0.1,
                                     "lookup": 0.05,
                                     "copies and slices": 0.03,
-                                    "rest": 0.02}
-    assert agg["volume_scan_ms"] == 0.012
-    assert agg["volume_scan_span_ms"] == 0.015
+                                    "rest": 0.02, "volume kernel": 0.015}
     assert agg["torch_calls_per_block"] == {"slice": 20.0}
     assert prof.aggregate(rows[-2:], blocks=2) is None
 

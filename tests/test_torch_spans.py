@@ -97,6 +97,9 @@ def test_fused_render_records_its_tree(stress64_batch):
         assert len(tiers) == len(st.tiers)
         for t in tiers:
             assert [r.name for r in _children(recs, t)] == ["kernel.tier"]
+        vol = _children(recs, inner[-1])
+        assert [r.name for r in vol] == ["kernel.volume"]
+        assert vol[0].n == st.batch
     down = _one(recs, "fused.download")
     tail = _children(recs, down)
     assert [r.name for r in tail] == ["fused.download_tail"]

@@ -258,8 +258,8 @@ def _stand_in_nvcc(tmp_path):
 def test_render_builds_its_tier_keys_together_before_the_first_block(
         script, tmp_path, monkeypatch):
     """A render on the card builds the keys of all its tier-kernel calls
-    and keyed noise-kernel calls in one parallel build before its first
-    block, and launches no other key.  The render runs on the CPU (the
+    and keyed noise-kernel calls, and the volume kernel, in one parallel
+    build before its first block, and launches no other key.  The render runs on the CPU (the
     plain version) with the build switched on and a stand-in for nvcc."""
     from skred_tpu_torch.engine import fused as tf
     from skred_tpu_torch.engine.kernels import build
@@ -287,7 +287,7 @@ def test_render_builds_its_tier_keys_together_before_the_first_block(
 
     def keyed(name, real, key):
         def call(*a, **kw):
-            events.append(("noise", (name, key(kw["feat"]))))
+            events.append(("noise", (name, key(kw.get("feat")))))
             return real(*a, **kw)
         return call
 
@@ -297,18 +297,21 @@ def test_render_builds_its_tier_keys_together_before_the_first_block(
         "phase_walk", tf.phase_walk_warp, tpw.phase_walk_key))
     monkeypatch.setattr(tf, "filt_smooth_noise", keyed(
         "filt_smooth", tf.filt_smooth_noise, tfs.filt_smooth_key))
+    monkeypatch.setattr(tf, "volume", keyed("volume", tf.volume,
+                                            lambda feat: ()))
     st = _port_batch(lines)
     assert (st.tiers is None) == (script == "union_cycle")
     out = tf.render_fused(st, device="cpu")
     assert np.isfinite(out).all() and np.abs(out).max() > 0.01
     builds = [e for e in events if e[0] == "build"]
     assert len(builds) == 1 and events[0][0] == "build"
-    built = set(builds[0][1])
+    built = {build._spec(item) for item in builds[0][1]}
     launched = {("tier", key) if kind == "tier" else key
                 for kind, key in events if kind != "build"}
-    assert launched == built and len(built) == n_keys
+    assert launched == built and len(built) == n_keys + 1
     assert any(name == "tier" for name, _ in built)
-    assert len(log.read_text().splitlines()) == n_keys
+    assert ("volume", ()) in built
+    assert len(log.read_text().splitlines()) == n_keys + 1
     for name, key in built:
         assert build._target(name, key).exists()
 
